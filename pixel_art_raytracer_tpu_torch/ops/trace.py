@@ -1,0 +1,155 @@
+"""Primary visibility on torch tensors: the plain version of kernel 1.
+
+Counterpart of ``pixel_art_raytracer_tpu/ops/trace.py``.  The reference
+walks each pixel's bin column front to back (``trace_hash_for_pixel``,
+alternative.cpp:271-397).  :func:`trace_winner` does the same for all
+pixels of all frames at once, one (bin z, slot) candidate at a time, in the
+reference order, which is observable through the strictly-greater depth
+compare and the early exit.  It is what ``csrc/trace.cu`` computes, and what
+``ops/trace_cuda.trace_winners`` runs for CPU tensors.
+
+Every function takes frame-batched tables (leading axis F) and the
+per-frame position of entity 0, the player (``players`` (F, 3)); entity 0's
+row of ``pos`` is not read.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pixel_art_raytracer_tpu.config import RenderConfig
+
+INT32_MIN = torch.iinfo(torch.int32).min
+
+
+class GBufferArrays(NamedTuple):
+    """SoA G-buffer (the reference's ``Pixel`` record, sprites.hpp:53-58),
+    batched over frames."""
+
+    normal: torch.Tensor        # (F, H, W, 3) float32
+    color: torch.Tensor         # (F, H, W, 4) uint8
+    y: torch.Tensor             # (F, H, W) int32
+    z: torch.Tensor             # (F, H, W) int32
+    entity_index: torch.Tensor  # (F, H, W) int32
+
+
+def entity_pos(pos: torch.Tensor, players: torch.Tensor,
+               ent: torch.Tensor) -> torch.Tensor:
+    """``pos[ent]`` with entity 0 at its frame's position.
+
+    ent: (F, ...) int32 entity ids (>= 0); players: (F, 3).  Returns
+    (F, ..., 3) int32.
+    """
+    p = pos[ent.long()]
+    pl = players.view((players.shape[0],) + (1,) * (ent.dim() - 1) + (3,))
+    return torch.where((ent == 0)[..., None], pl, p)
+
+
+def _pixel_grid(config: RenderConfig, device):
+    """Column index i (1, 1, W), row index j (1, H, 1) and the world row
+    ``H - j``."""
+    i = torch.arange(config.view_width, dtype=torch.int32,
+                     device=device)[None, None, :]
+    j = torch.arange(config.view_height, dtype=torch.int32,
+                     device=device)[None, :, None]
+    return i, j, config.view_height - j
+
+
+def _texel(sid, row, col, config: RenderConfig):
+    """Clipped texel address into the flattened atlas (alternative.cpp:
+    324-341)."""
+    sh, sw = config.sprite_height, config.sprite_width
+    return ((sid * sh + row.clamp(0, sh - 1)) * sw
+            + col.clamp(0, sw - 1)).long()
+
+
+def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
+                 players, config: RenderConfig):
+    """Per-pixel ``(best_depth, winner_entity)``, (F, H, W) int32 each;
+    winner -1 for background.
+
+    Args:
+      pos, ext: (N, 3) int32; sprite_id: (N,) int32.
+      atlas_depth: (S, SH, SW) int32.
+      bins_ent: (F, V, C) int32 (-1 empty); counts: (F, V) int32.
+      players: (F, 3) int32 — entity 0's position per frame.
+    """
+    cfg = config
+    dev = bins_ent.device
+    F = bins_ent.shape[0]
+    H, W = cfg.view_height, cfg.view_width
+    cap = cfg.bin_capacity
+    i, j, world_j = _pixel_grid(cfg, dev)
+    base_flat = ((i // cfg.bin_size) * cfg.hash_height
+                 + j // cfg.bin_size) * cfg.hash_length
+    frame = torch.arange(F, device=dev)[:, None, None]
+    depth_flat = atlas_depth.reshape(-1)
+
+    best = torch.full((F, H, W), INT32_MIN, dtype=torch.int32, device=dev)
+    winner = torch.full((F, H, W), -1, dtype=torch.int32, device=dev)
+    isect = torch.zeros((F, H, W), dtype=torch.int32, device=dev)
+    broken = torch.zeros((F, H, W), dtype=torch.bool, device=dev)
+    for bz in range(cfg.hash_length):
+        flat = (base_flat + bz).long()
+        cnt = counts[frame, flat]
+        active = ~broken
+        # An empty bin resets the adjacent-hit counter (alternative.cpp:
+        # 297-300).
+        isect = torch.where(active & (cnt == 0), 0, isect)
+        bin_hit = torch.zeros((F, H, W), dtype=torch.bool, device=dev)
+        for k in range(cap):
+            valid = active & (k < cnt)
+            ent = torch.where(valid, bins_ent[frame, flat, k], 0)
+            apx, apy, apz = entity_pos(pos, players, ent).unbind(-1)
+            aex, aey, aez = ext[ent.long()].unbind(-1)
+            # Oblique interval test (alternative.cpp:310-317, quirk Q4).
+            hit = (valid
+                   & (i >= apx) & (i < apx + aex)
+                   & (world_j > apy + apz)
+                   & (world_j <= apy + aey + apz + aez))
+            row = apy + aey + apz + aez - world_j
+            texel = _texel(sprite_id[ent.long()], row, i - apx, cfg)
+            # Depth key (alternative.cpp:336-341); strictly greater wins,
+            # so ties keep the earlier candidate.
+            depth = apy - apz + (aey - row).clamp(max=0) - depth_flat[texel]
+            improve = hit & (depth > best)
+            best = torch.where(improve, depth, best)
+            winner = torch.where(improve, ent, winner)
+            bin_hit |= improve
+        isect = isect + bin_hit.to(torch.int32)
+        if cfg.early_exit:
+            broken = broken | (active & (isect >= 2))
+    return best, winner
+
+
+def materialize_gbuffer(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
+                        atlas_normal, palette, players,
+                        config: RenderConfig) -> GBufferArrays:
+    """Expand a per-pixel winner map (F, H, W) into the G-buffer.
+
+    Background pixels (winner -1) take the background color, a zero normal
+    and zero y/z/entity fields (quirk Q6).
+    """
+    cfg = config
+    F, H, W = winner.shape
+    i, _, world_j = _pixel_grid(cfg, winner.device)
+
+    hit = winner >= 0
+    ent = torch.where(hit, winner, 0)
+    apx, apy, apz = entity_pos(pos, players, ent).unbind(-1)
+    _, aey, aez = ext[ent.long()].unbind(-1)
+    row = apy + aey + apz + aez - world_j
+    texel = _texel(sprite_id[ent.long()], row, i - apx, cfg)
+    sdep = atlas_depth.reshape(-1)[texel]
+    cidx = atlas_color.reshape(-1)[texel]
+
+    bg = torch.tensor(cfg.background, dtype=torch.uint8, device=winner.device)
+    color = torch.where(hit[..., None], palette[cidx.long()], bg)
+    normal = torch.where(hit[..., None], atlas_normal.reshape(-1, 3)[texel],
+                         0.0)
+    y = torch.where(hit, apy + aey + aez - row - sdep, 0)
+    z = torch.where(hit, apz + sdep, 0)
+    return GBufferArrays(normal=normal, color=color, y=y, z=z,
+                         entity_index=ent)

@@ -1,0 +1,80 @@
+"""Wrapper of kernel 1 (``csrc/trace.cu``): per-pixel winner entities.
+
+CPU tensors take the plain version, :func:`ops.trace.trace_winner`; CUDA
+tensors launch the kernel, and anything else raises.  ``launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pixel_art_raytracer_tpu.config import RenderConfig
+
+from ..runtime import kernels
+from . import trace
+
+launches = 0
+
+
+def block_threads(config: RenderConfig) -> int:
+    """Threads per block: one block walks a bin column's bin_size**2
+    pixels, so take the largest warp multiple up to 512 that divides them
+    (320 for 40x40 columns), else 256."""
+    n_pix = config.bin_size * config.bin_size
+    return next((t for t in range(512, 31, -32) if n_pix % t == 0), 256)
+
+
+def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
+                  players, config: RenderConfig, with_best: bool = False):
+    """Winner entity per pixel, (F, H, W) int32, -1 for background.
+
+    Arguments as :func:`ops.trace.trace_winner`.  With ``with_best`` the
+    result is ``(best_depth, winner)`` as that function returns it.
+    """
+    global launches
+    dev = bins_ent.device
+    if dev.type == "cpu":
+        best, winner = trace.trace_winner(pos, ext, sprite_id, atlas_depth,
+                                          bins_ent, counts, players, config)
+        return (best, winner) if with_best else winner
+    if dev.type != "cuda":
+        raise ValueError(f"trace_winners: no kernel for device {dev}")
+
+    cfg = config
+    F = bins_ent.shape[0]
+    V, cap = cfg.hash_volume, cfg.bin_capacity
+    N = pos.shape[0]
+    S, sh, sw = atlas_depth.shape
+    for t, name, dtype, shape in (
+            (pos, "pos", torch.int32, (N, 3)),
+            (ext, "ext", torch.int32, (N, 3)),
+            (sprite_id, "sprite_id", torch.int32, (N,)),
+            (atlas_depth, "atlas_depth", torch.int32,
+             (S, cfg.sprite_height, cfg.sprite_width)),
+            (bins_ent, "bins_ent", torch.int32, (F, V, cap)),
+            (counts, "counts", torch.int32, (F, V)),
+            (players, "players", torch.int32, (F, 3))):
+        kernels.require(t, name, dtype, shape, dev)
+    smem = 4 * cfg.hash_length * (1 + 8 * cap)
+    if smem > 48 * 1024:
+        raise ValueError(f"trace_winners: a bin column of {cfg.hash_length}"
+                         f" x {cap} slots needs {smem} B of shared memory")
+
+    winner = torch.empty((F, cfg.view_height, cfg.view_width),
+                         dtype=torch.int32, device=dev)
+    best = torch.empty_like(winner) if with_best else None
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.par_trace_winners(
+            pos.data_ptr(), ext.data_ptr(), sprite_id.data_ptr(),
+            atlas_depth.data_ptr(), bins_ent.data_ptr(), counts.data_ptr(),
+            players.data_ptr(), winner.data_ptr(),
+            None if best is None else best.data_ptr(),
+            F, cfg.view_width, cfg.view_height, cfg.bin_size, cap,
+            cfg.hash_width, cfg.hash_height, cfg.hash_length,
+            cfg.sprite_width, cfg.sprite_height, int(cfg.early_exit),
+            block_threads(cfg), kernels.stream_handle(dev))
+    kernels.check(rc, "par_trace_winners")
+    launches += 1
+    return (best, winner) if with_best else winner

@@ -1,0 +1,138 @@
+"""Build ``csrc/*.cu`` with nvcc into one shared library, load it with ctypes.
+
+The library has a plain C interface (no PyTorch headers), so one nvcc call
+builds every kernel in seconds.  It is built at first use into a directory
+of ``build/`` named by a hash of the sources and flags, so an edited source
+gets a fresh build and an unchanged one is loaded as it is.
+
+The flags keep the float arithmetic IEEE, as the parity with the C++
+reference needs: ``-fmad=false`` forbids contracting a multiply and an add
+into an FMA, and nvcc's defaults ``-prec-div=true -ftz=false`` stay (no
+``--use_fast_math``).
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_ROOT = PACKAGE.parent / "build"
+LIB_NAME = "libpar_kernels.so"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Argument types of each C entry point: pointers and the stream as void*,
+# sizes as int.
+SIGNATURES = {
+    "par_trace_winners": [_P] * 9 + [_I] * 12 + [_P],
+    "par_shadow_lit": [_P] * 17 + [_I] * 10 + [_P],
+}
+
+
+def sources() -> list[pathlib.Path]:
+    """Kernel sources and headers, in a fixed order."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def find_nvcc() -> str:
+    """nvcc on ``PATH``, else the CUDA toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def nvcc_command(nvcc: str, output: pathlib.Path) -> list[str]:
+    """The nvcc invocation that builds the library at ``output``."""
+    units = [str(p) for p in sources() if p.suffix == ".cu"]
+    return [nvcc, *NVCC_FLAGS, "-o", str(output), *units]
+
+
+def build_dir() -> pathlib.Path:
+    """``build/kernels-<hash>``: the hash covers the flags and sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
+
+
+def build() -> pathlib.Path:
+    """Build the library unless this hash's build exists; returns its path.
+
+    Raises ``RuntimeError`` with nvcc's output when the build fails.
+    """
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = nvcc_command(find_nvcc(), tmp)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.par_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.par_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library().par_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the C interface takes it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
+    whose shape matches ``shape`` (``None`` matches any size)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != n for s, n in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
