@@ -1,23 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``pixel_art_raytracer_tpu_torch/csrc`` and the
-C++ oracle, renders the graybox world (480x320, 162,308 boxes) through
-``AnimationRenderer.render_states`` for the three light orbits of
-``bench.py`` (F = 64 frames each), and fails (exit code != 0) unless:
+Builds the three CUDA kernels from ``pixel_art_raytracer_tpu_torch/csrc``
+(one nvcc per source, in parallel) and the C++ oracle, renders the graybox
+world (480x320, 162,308 boxes) through ``AnimationRenderer.render_states``
+for the three light orbits of ``bench.py`` (F = 64 frames each), once on the
+two-kernel path and once with ``fuse_trace_shadow`` (the fused kernel), and
+fails (exit code != 0) unless:
 
-  * each kernel equals its plain PyTorch version bit for bit on the card,
-    on all 64 frames of every orbit (the main path's shapes);
-  * both kernels' launch counters rose during the main-path run;
-  * the rendered frames equal ``runtime.native.cpp_render_frame`` pixel for
+  * each kernel (trace, shadow, fused) equals its plain PyTorch version bit
+    for bit on the card, on all 64 frames of every orbit (the main paths'
+    shapes);
+  * the trace and shadow launch counters rose during the two-kernel run,
+    and the fused counter during the fused run;
+  * the fused path's frames equal the two-kernel path's bit for bit;
+  * both paths' frames equal ``runtime.native.cpp_render_frame`` pixel for
     pixel (frame 0 of every orbit and one mid-sweep frame of ``edge_z``).
 
-It prints the card, the build time, ms/frame, Mrays/s and the per-stage
-split, the kernels' times beside their plain versions, a JSON line on the
-kernels and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits with an error before printing any result.
+It prints the card, the build times, ms/frame, Mrays/s and the per-stage
+split of both paths, the kernels' times beside their plain versions and
+their bounds, a JSON line on the kernels and, last, ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it exits with an error before
+printing any result.
+
+A kernel's bound is the least time the card could take for its work: the
+larger of the bytes it must move (each input read once, each output
+written once) over 3.35 TB/s, and the operations these inputs need over
+67 T/s (the H100 SXM's float32 rate outside the tensor cores, taken for
+its integer operations too, so the bound stays a lower bound).  The
+operations are counted from this run's data by the plain versions: 9
+integer operations per candidate hit test of the trace walk, 23 float
+operations per slab test of the shadow march (each ray stops at its first
+occluder).
 """
 
 from __future__ import annotations
@@ -30,10 +46,37 @@ import time
 import numpy as np
 import torch
 
+from pixel_art_raytracer_tpu_torch import (DEFAULT_CONFIG, Light,
+                                           default_light, graybox_world,
+                                           require_cuda)
+from pixel_art_raytracer_tpu_torch.models import batched
+from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
+from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
+                                                           DeviceScene)
+from pixel_art_raytracer_tpu_torch.ops import (fused, fused_cuda, shadow,
+                                               shadow_cuda, trace,
+                                               trace_cuda)
+from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
+from pixel_art_raytracer_tpu_torch.runtime import kernels, native
+
 FRAMES = 64
 TIMED_REPS = 5
 KERNEL_REPS = 20
 PLAIN_REPS = 1
+
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+TRACE_OPS_PER_CANDIDATE = 9
+SLAB_OPS = 23
+
+SOURCES = {
+    "trace": ("pixel_art_raytracer_tpu_torch/csrc/trace.cu",
+              "pixel_art_raytracer_tpu/ops/trace_pallas.py:467"),
+    "shadow": ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu",
+               "pixel_art_raytracer_tpu/ops/shadow_pallas.py:626"),
+    "fused": ("pixel_art_raytracer_tpu_torch/csrc/fused.cu",
+              "pixel_art_raytracer_tpu/ops/fused_pallas.py:105"),
+}
 
 
 def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
@@ -53,28 +96,55 @@ def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def stage_split(stages, reps: int) -> dict[str, float]:
+    """ms/frame of each ``(name, fn)`` stage, run in order with CUDA events
+    between them; each ``fn(state)`` reads and writes the dict ``state``.
+    One warm-up pass, then the mean of ``reps``."""
+    total = {name: 0.0 for name, _ in stages}
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(stages) + 1)]
+    for rep in range(reps + 1):
+        state = {}
+        torch.cuda.synchronize()
+        events[0].record()
+        for k, (_, fn) in enumerate(stages):
+            fn(state)
+            events[k + 1].record()
+        torch.cuda.synchronize()
+        if rep:
+            for k, (name, _) in enumerate(stages):
+                total[name] += (events[k].elapsed_time(events[k + 1])
+                                / reps / FRAMES)
+    return total
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of a kernel's work."""
+    t_bytes = float(n_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = float(n_ops) / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def require_equal(name: str, what: str, got: torch.Tensor,
+                  want: torch.Tensor) -> None:
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{name}: {what} differs at "
+                           f"{int((got != want).sum())} elements")
+
+
 def main() -> int:
-    from pixel_art_raytracer_tpu.config import DEFAULT_CONFIG as cfg
-    from pixel_art_raytracer_tpu.runtime import native
-    from pixel_art_raytracer_tpu.scene import Light, default_light, \
-        graybox_world
-    from pixel_art_raytracer_tpu_torch.device import require_cuda
-    from pixel_art_raytracer_tpu_torch.models import batched
-    from pixel_art_raytracer_tpu_torch.models.animation import \
-        AnimationRenderer
-    from pixel_art_raytracer_tpu_torch.models.deferred import (
-        DeferredRenderer, DeviceScene)
-    from pixel_art_raytracer_tpu_torch.ops import (shadow, shadow_cuda,
-                                                   trace, trace_cuda)
-    from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
-    from pixel_art_raytracer_tpu_torch.runtime import kernels
+    cfg = DEFAULT_CONFIG
 
     # -- 1. the card ---------------------------------------------------------
-    dev = require_cuda()
+    require_cuda()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -90,19 +160,17 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({kernels.build_dir().name})")
     t0 = time.perf_counter()
-    if native.load_library() is None:
-        raise RuntimeError("the C++ oracle (native/par_native.cpp) did not "
-                           "build")
-    print(f"oracle build: {time.perf_counter() - t0:.2f} s")
+    native.library()
+    print(f"oracle build: {time.perf_counter() - t0:.2f} s "
+          f"({native.build_dir().name})")
 
     # -- 3. scene, caches and the three bench orbits -------------------------
     t0 = time.perf_counter()
     scene = graybox_world(cfg)
     renderer = DeferredRenderer(cfg).configure_for(scene)
-    cache = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans,
-                       device=dev)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans)
     anim = AnimationRenderer(renderer, cfg, static_bins=cache)
-    ds = DeviceScene.from_scene(scene, cfg, device=dev)
+    ds = DeviceScene.from_scene(scene, cfg)
     light = default_light(cfg)
     orbits = {
         "center": (light.x, light.y, light.z),
@@ -110,32 +178,59 @@ def main() -> int:
         "edge_z": (light.x, light.y, 280),
     }
     sweeps = {name: anim.light_sweep_states(FRAMES, scene.pos[0], center=c,
-                                            radius=40, device=dev)
+                                            radius=40)
               for name, c in orbits.items()}
     torch.cuda.synchronize()
     print(f"setup: {scene.n_entities} entities, spans {renderer.spans}, "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # -- 4. each kernel against its plain version, at the main path's shapes --
-    errs = {"trace": 0, "shadow": 0}
-    times = {"trace": [], "trace_plain": [], "shadow": [],
-             "shadow_plain": []}
+    # -- 4. each kernel against its plain version, at the main paths' shapes -
+    errs = dict.fromkeys(SOURCES, 0)
+    times = {k: [] for name in SOURCES for k in (name, name + "_plain")}
+    bounds = {name: [] for name in SOURCES}  # (bytes, operations) per orbit
     for name, (players, lights) in sweeps.items():
         be, cnt = batched.bin_stage(renderer, cache, ds, players)
         args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt,
                 players, cfg)
+
+        # Kernel 3 (fused) first: its plain run also counts the work.
+        fargs = args[:-1] + (lights, cfg)
+        work = {}
+        best_p, win_p, lit_p = fused.trace_shadow(*fargs, work=work)
+        best_k, win_k, lit_k = fused_cuda.trace_shadow(*fargs,
+                                                       with_best=True)
+        for what, got, want in (("winner", win_k, win_p),
+                                ("best", best_k, best_p),
+                                ("lit", lit_k, lit_p)):
+            require_equal(name, f"fused kernel {what}", got, want)
+        errs["fused"] = max(errs["fused"], max_abs_err(win_k, win_p),
+                            max_abs_err(best_k, best_p),
+                            max_abs_err(lit_k, lit_p))
+        times["fused"].append(cuda_ms(
+            lambda: fused_cuda.trace_shadow(*fargs), KERNEL_REPS))
+        times["fused_plain"].append(cuda_ms(
+            lambda: fused.trace_shadow(*fargs), PLAIN_REPS, warm_up=False))
+        trace_ops = TRACE_OPS_PER_CANDIDATE * int(work["candidate_tests"])
+        shadow_ops = SLAB_OPS * int(work["slab_tests"])
+        bounds["fused"].append((nbytes(*fargs[:-1], win_k, lit_k),
+                                trace_ops + shadow_ops))
+
+        # Kernel 1 (trace).
         best_k, win_k = trace_cuda.trace_winners(*args, with_best=True)
-        best_p, win_p = trace.trace_winner(*args)
-        if not (torch.equal(win_k, win_p) and torch.equal(best_k, best_p)):
-            raise RuntimeError(
-                f"{name}: trace kernel != trace_winner at "
-                f"{int((win_k != win_p).sum())} pixels")
-        errs["trace"] = max(errs["trace"], max_abs_err(win_k, win_p))
+        require_equal(name, "trace kernel winner", win_k, win_p)
+        require_equal(name, "trace kernel best", best_k, best_p)
+        best_t, win_t = trace.trace_winner(*args)
+        require_equal(name, "trace_winner winner", win_t, win_p)
+        require_equal(name, "trace_winner best", best_t, best_p)
+        errs["trace"] = max(errs["trace"], max_abs_err(win_k, win_t),
+                            max_abs_err(best_k, best_t))
         times["trace"].append(cuda_ms(lambda: trace_cuda.trace_winners(*args),
                                       KERNEL_REPS))
         times["trace_plain"].append(cuda_ms(lambda: trace.trace_winner(*args),
                                             PLAIN_REPS, warm_up=False))
+        bounds["trace"].append((nbytes(*args[:-1], win_k), trace_ops))
 
+        # Kernel 2 (shadow), on the G-buffer of kernel 1's winners.
         gbuf = trace.materialize_gbuffer(
             win_k, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
             ds.atlas_depth, ds.atlas_normal, ds.palette, players, cfg)
@@ -144,103 +239,146 @@ def main() -> int:
         sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
                  inv, players, cfg)
         lit_k = shadow_cuda.trace_light(*sargs)
-        lit_p = shadow.trace_light_dynamic(*sargs)
-        if not torch.equal(lit_k, lit_p):
-            raise RuntimeError(
-                f"{name}: shadow kernel != trace_light_dynamic at "
-                f"{int((lit_k != lit_p).sum())} pixels")
-        errs["shadow"] = max(errs["shadow"], max_abs_err(lit_k, lit_p))
+        lit_s = shadow.trace_light_dynamic(*sargs)
+        require_equal(name, "shadow kernel lit", lit_k, lit_s)
+        require_equal(name, "trace_light_dynamic lit", lit_s, lit_p)
+        errs["shadow"] = max(errs["shadow"], max_abs_err(lit_k, lit_s))
         times["shadow"].append(cuda_ms(lambda: shadow_cuda.trace_light(*sargs),
                                        KERNEL_REPS))
         times["shadow_plain"].append(
             cuda_ms(lambda: shadow.trace_light_dynamic(*sargs), PLAIN_REPS,
                     warm_up=False))
+        light_bin = torch.stack([b.reshape(FRAMES) for b in lb], dim=1)
+        bounds["shadow"].append((
+            nbytes(ds.pos, ds.ext, players, be, cnt, *rb, *origin, *inv,
+                   gbuf.entity_index, light_bin, lit_k), shadow_ops))
         print(f"{name}: F={FRAMES} kernels == plain versions (trace winners "
-              f"and best depth, shadow lit mask), bit-exact")
+              f"and best depth, shadow lit mask, fused winners, best depth "
+              f"and lit mask), bit-exact; {int(work['candidate_tests'])} "
+              f"candidate tests, {int(work['slab_tests'])} slab tests")
 
-    # -- 5. the main path ----------------------------------------------------
-    trace_cuda.launches = 0
-    shadow_cuda.launches = 0
+    # -- 5. the two-kernel main path -----------------------------------------
+    trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
     frames = {name: anim.render_states(ds, players, lights)
               for name, (players, lights) in sweeps.items()}
     torch.cuda.synchronize()
     launches = {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches}
-    print(f"main-path launches: {launches}")
+    print(f"two-kernel path launches: {launches}")
     for k, n in launches.items():
         if n == 0:
-            raise RuntimeError(f"the main path never launched the {k} "
+            raise RuntimeError(f"the two-kernel path never launched the {k} "
                                f"kernel")
 
+    # -- 6. the fused main path ----------------------------------------------
+    renderer.fuse_trace_shadow = True
+    trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
+    frames_fused = {name: anim.render_states(ds, players, lights)
+                    for name, (players, lights) in sweeps.items()}
+    torch.cuda.synchronize()
+    launches["fused"] = fused_cuda.launches
+    print(f"fused path launches: fused {fused_cuda.launches}, trace "
+          f"{trace_cuda.launches}, shadow {shadow_cuda.launches}")
+    if launches["fused"] == 0:
+        raise RuntimeError("the fused path never launched the fused kernel")
+    for name in sweeps:
+        require_equal(name, "fused-path frames vs two-kernel frames",
+                      frames_fused[name], frames[name])
+    print("fused-path frames == two-kernel frames, all 3 orbits x "
+          f"{FRAMES} frames")
+
+    # -- 7. end-to-end times and stage splits --------------------------------
     H, W = cfg.view_height, cfg.view_width
     rays = 2 * W * H * FRAMES
     for name, (players, lights) in sweeps.items():
-        ms = cuda_ms(lambda: anim.render_states(ds, players, lights),
-                     TIMED_REPS)
-        print(f"{name}: F={FRAMES} {ms / FRAMES:.4f} ms/frame, "
-              f"{rays / (ms * 1e3):.2f} Mrays/s  [{card}]")
+        ms = {}
+        for fuse in (False, True, True, False):
+            renderer.fuse_trace_shadow = fuse
+            ms.setdefault(fuse, []).append(cuda_ms(
+                lambda: anim.render_states(ds, players, lights), TIMED_REPS))
+        for fuse, label in ((False, "two-kernel"), (True, "fused")):
+            m = float(np.mean(ms[fuse]))
+            print(f"{name} {label}: F={FRAMES} {m / FRAMES:.4f} ms/frame, "
+                  f"{rays / (m * 1e3):.2f} Mrays/s  [{card}]")
 
     players, lights = sweeps["center"]
-    stage_ms = dict.fromkeys(
-        ("bins", "trace+gbuffer", "geometry", "shadow", "shade"), 0.0)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    for rep in range(TIMED_REPS + 1):
-        torch.cuda.synchronize()
-        events[0].record()
-        be, cnt = batched.bin_stage(renderer, cache, ds, players)
-        events[1].record()
-        gbuf = batched.trace_stage(renderer, ds, be, cnt, players)
-        events[2].record()
-        dot, inv, origin, rb, lb = batched.geometry_stage(renderer, gbuf,
-                                                          lights)
-        events[3].record()
-        lit = batched.shadow_stage(renderer, ds, be, cnt, players, gbuf, inv,
-                                   origin, rb, lb)
-        events[4].record()
-        batched.shade_stage(renderer, gbuf, dot, lit)
-        events[5].record()
-        torch.cuda.synchronize()
-        if rep:  # rep 0 is the warm-up
-            for i, key in enumerate(stage_ms):
-                stage_ms[key] += (events[i].elapsed_time(events[i + 1])
-                                  / TIMED_REPS / FRAMES)
-    split = ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
-    print(f"center stage split, ms/frame at F={FRAMES}: {split}  [{card}]")
 
-    # -- 6. parity against the C++ oracle ------------------------------------
+    def bins(s):
+        s["be"], s["cnt"] = batched.bin_stage(renderer, cache, ds, players)
+
+    def trace_gbuf(s):
+        s["gbuf"] = batched.trace_stage(renderer, ds, s["be"], s["cnt"],
+                                        players)
+
+    def geometry(s):
+        s["dot"], *s["rays"] = batched.geometry_stage(renderer, s["gbuf"],
+                                                      lights)
+
+    def shadow_lit(s):
+        s["lit"] = batched.shadow_stage(renderer, ds, s["be"], s["cnt"],
+                                        players, s["gbuf"], *s["rays"])
+
+    def fused_kernel(s):
+        _, s["win"], s["lit"] = fused_cuda.trace_shadow(
+            ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, s["be"], s["cnt"],
+            players, lights, cfg)
+
+    def gbuf_geometry(s):
+        s["gbuf"] = trace.materialize_gbuffer(
+            s["win"], ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+            ds.atlas_depth, ds.atlas_normal, ds.palette, players, cfg)
+        s["dot"] = batched.geometry_stage(renderer, s["gbuf"], lights)[0]
+
+    def shade(s):
+        batched.shade_stage(renderer, s["gbuf"], s["dot"], s["lit"])
+
+    for label, stages in (
+            ("two-kernel", [("bins", bins), ("trace+gbuffer", trace_gbuf),
+                            ("geometry", geometry), ("shadow", shadow_lit),
+                            ("shade", shade)]),
+            ("fused", [("bins", bins), ("fused", fused_kernel),
+                       ("gbuffer+geometry", gbuf_geometry),
+                       ("shade", shade)])):
+        split = ", ".join(f"{k} {v:.4f}"
+                          for k, v in stage_split(stages, TIMED_REPS).items())
+        print(f"center {label} stage split, ms/frame at F={FRAMES}: {split}"
+              f"  [{card}]")
+
+    # -- 8. parity against the C++ oracle ------------------------------------
     checks = [(name, 0) for name in sweeps] + [("edge_z", FRAMES // 2)]
     for name, f in checks:
         players, lights = sweeps[name]
-        frame = frames[name][f].cpu().numpy()
         pos = scene.pos.copy()
         pos[0] = players[f].cpu().numpy()
         golden, _ = native.cpp_render_frame(
             scene.replace_pos(pos), Light(*map(int, lights[f].tolist())), cfg)
-        bad = int((frame != golden).any(axis=-1).sum())
-        if bad:
-            print(f"PARITY FAIL {name} frame {f}: {bad} pixels differ from "
-                  f"cpp_render_frame")
-            return 1
-        print(f"{name} frame {f}: pixel-exact against cpp_render_frame")
+        for label, out in (("two-kernel", frames), ("fused", frames_fused)):
+            bad = int((out[name][f].cpu().numpy() != golden).any(axis=-1)
+                      .sum())
+            if bad:
+                raise RuntimeError(f"{label} {name} frame {f}: {bad} pixels "
+                                   f"differ from cpp_render_frame")
+        print(f"{name} frame {f}: both paths pixel-exact against "
+              f"cpp_render_frame")
 
-    # -- 7. kernel times beside their plain versions -------------------------
+    # -- 9. kernel times beside their plain versions and bounds --------------
     mean = {k: float(np.mean(v)) for k, v in times.items()}
-    for k in ("trace", "shadow"):
+    rows = []
+    for k, (src, rep) in SOURCES.items():
+        bound_ms, bound_by = bound(*np.mean(bounds[k], axis=0))
         print(f"{k} kernel {mean[k]:.4f} ms, plain {mean[k + '_plain']:.4f} "
-              f"ms per call on F={FRAMES} 480x320 frames (mean of 3 orbits)"
-              f"  [{card}]")
-    sources = {
-        "trace": ("pixel_art_raytracer_tpu_torch/csrc/trace.cu",
-                  "pixel_art_raytracer_tpu/ops/trace_pallas.py:467"),
-        "shadow": ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu",
-                   "pixel_art_raytracer_tpu/ops/shadow_pallas.py:626"),
-    }
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": errs[k], "ms": mean[k],
-         "plain_ms": mean[k + "_plain"]}
-        for k, (src, rep) in sources.items()]}))
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}) per call on "
+              f"F={FRAMES} {W}x{H} frames (mean of 3 orbits)  [{card}]")
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[k],
+                     "max_abs_err": errs[k], "ms": mean[k],
+                     "plain_ms": mean[k + "_plain"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    print(f"fused kernel {mean['fused']:.4f} ms vs trace + shadow kernels "
+          f"{mean['trace'] + mean['shadow']:.4f} ms per F={FRAMES} call  "
+          f"[{card}]")
+    print(json.dumps({"kernels": rows}))
 
-    # -- 8. result -----------------------------------------------------------
+    # -- 10. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

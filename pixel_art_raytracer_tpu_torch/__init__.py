@@ -3,21 +3,21 @@
 The batched graybox render path of :mod:`pixel_art_raytracer_tpu` on an
 NVIDIA H100: spatial-hash rebin, oblique primary visibility, light
 geometry, the 7-phase DDA shadow march and the ambient + Lambert shade.
-The two hot stages run as hand-written CUDA kernels (``csrc/``); every
-kernel keeps an exact plain PyTorch version beside it, which CPU tensors
-take.
+The hot stages run as hand-written CUDA kernels (``csrc/``): trace and
+shadow as two kernels, or as one fused kernel when the renderer's
+``fuse_trace_shadow`` is set.  Every kernel keeps an exact plain PyTorch
+version beside it, which CPU tensors take.
 
-The JAX-free host modules of the JAX package (configuration, assets, scene
-construction, the NumPy and C++ oracles, image writers) are reused by
-import, not copied.  This package imports ``torch`` and never ``jax``.
+The port keeps its own copies of the host modules it needs (``config``,
+``assets``, ``scene``) and its own binding of the C++ oracle
+(``runtime/native``): it imports ``torch`` and nothing of JAX or of the JAX
+package.
 """
 
-from pixel_art_raytracer_tpu.config import RenderConfig, DEFAULT_CONFIG
-from pixel_art_raytracer_tpu.scene import (Scene, SceneBuilder, Light,
-                                           graybox_world, demo_world,
-                                           default_light)
-
+from .config import DEFAULT_CONFIG, RenderConfig
 from .device import require_cuda
+from .scene import (Light, Scene, SceneBuilder, default_light, demo_world,
+                    graybox_world)
 
 __all__ = [
     "RenderConfig", "DEFAULT_CONFIG",

@@ -45,24 +45,6 @@ struct PixelRays {
   const int* self;
 };
 
-__device__ __forceinline__ bool slab_hit(const int* p, const int* x, float ox,
-                                         float oy, float oz, float ivx,
-                                         float ivy, float ivz) {
-  const float x1 = (static_cast<float>(p[0]) - ox) * ivx;
-  const float x2 = (static_cast<float>(p[0] + x[0]) - ox) * ivx;
-  float lo = par::c_min(x1, x2);
-  float hi = par::c_max(x1, x2);
-  const float y1 = (static_cast<float>(p[1]) - oy) * ivy;
-  const float y2 = (static_cast<float>(p[1] + x[1]) - oy) * ivy;
-  lo = par::c_max(lo, par::c_min(y1, y2));
-  hi = par::c_min(hi, par::c_max(y1, y2));
-  const float z1 = (static_cast<float>(p[2]) - oz) * ivz;
-  const float z2 = (static_cast<float>(p[2] + x[2]) - oz) * ivz;
-  lo = par::c_max(lo, par::c_min(z1, z2));
-  hi = par::c_min(hi, par::c_max(z1, z2));
-  return hi >= lo;
-}
-
 __global__ void shadow_lit_kernel(
     const int* __restrict__ pos, const int* __restrict__ ext,
     const int* __restrict__ players, const int* __restrict__ bins_ent,
@@ -70,16 +52,11 @@ __global__ void shadow_lit_kernel(
     const int* __restrict__ light_bin, unsigned char* __restrict__ lit,
     par::Grid g, int pix_per_block) {
   extern __shared__ int smem[];
-  const int V = g.volume();
-  const int cap = g.bin_cap;
-  int* s_bins = smem;           // (V, cap)
-  int* s_cnt = smem + V * cap;  // (V,)
+  int* s_bins = smem;                           // (V, cap)
+  int* s_cnt = smem + g.volume() * g.bin_cap;   // (V,)
 
   const int f = blockIdx.y;
-  const int* f_bins = bins_ent + static_cast<size_t>(f) * V * cap;
-  const int* f_cnt = counts + static_cast<size_t>(f) * V;
-  for (int t = threadIdx.x; t < V * cap; t += blockDim.x) s_bins[t] = f_bins[t];
-  for (int t = threadIdx.x; t < V; t += blockDim.x) s_cnt[t] = f_cnt[t];
+  par::stage_frame_table(bins_ent, counts, f, g, s_bins, s_cnt);
   __syncthreads();
 
   const int hw = g.view_h * g.view_w;
@@ -92,59 +69,12 @@ __global__ void shadow_lit_kernel(
   for (int p = p_begin + static_cast<int>(threadIdx.x); p < p_end;
        p += blockDim.x) {
     const size_t o = static_cast<size_t>(f) * hw + p;
-    const int rbx = rays.rbx[o], rby = rays.rby[o], rbz = rays.rbz[o];
-    const float ox = rays.ox[o], oy = rays.oy[o], oz = rays.oz[o];
-    const float ivx = rays.ivx[o], ivy = rays.ivy[o], ivz = rays.ivz[o];
-    const int self = rays.self[o];
-
-    const float sx = static_cast<float>(rbx);
-    const float sy = static_cast<float>(rby);
-    const float sz = static_cast<float>(rbz);
-    const float dx = static_cast<float>(lbx) - sx;
-    const float dy = static_cast<float>(lby) - sy;
-    const float dz = static_cast<float>(lbz) - sz;
-    const float largest =
-        par::c_max(par::c_max(fabsf(dx), fabsf(dy)), fabsf(dz));
-    const float stx = dx / largest;
-    const float sty = dy / largest;
-    const float stz = dz / largest;
-    const int n_phases = 7 * static_cast<int>(largest);
-    const int start_flat = (rbx * g.hash_h + rby) * g.hash_l + rbz;
-
-    bool occluded = false;
-    float tx = sx, ty = sy, tz = sz;
-    for (int t = 0; t < n_phases && !occluded; ++t) {
-      const int phase = t % 7;
-      const bool ax = phase == 0 || phase == 3 || phase == 4 || phase == 6;
-      const bool ay = phase == 1 || phase == 3 || phase == 5 || phase == 6;
-      const bool az = phase == 2 || phase == 4 || phase == 5 || phase == 6;
-      const float cx = tx + (ax ? stx : 0.0f);
-      const float cy = ty + (ay ? sty : 0.0f);
-      const float cz = tz + (az ? stz : 0.0f);
-      if (phase == 6) {
-        tx = cx;
-        ty = cy;
-        tz = cz;
-      }
-      const int bx = static_cast<int>(cx);
-      const int by = static_cast<int>(cy);
-      const int bz = static_cast<int>(cz);
-      const int flat = (bx * g.hash_h + by) * g.hash_l + bz;
-      if (flat < 0 || flat >= V || flat == start_flat) continue;
-      const int n = min(s_cnt[flat], cap);
-      for (int k = 0; k < n; ++k) {
-        const int e = s_bins[flat * cap + k];
-        if (e == self) continue;
-        const int es = e >= 0 ? e : 0;
-        if (slab_hit(par::entity_pos(pos, players, f, es),
-                     ext + 3 * static_cast<size_t>(es), ox, oy, oz, ivx, ivy,
-                     ivz)) {
-          occluded = true;
-          break;
-        }
-      }
-    }
-    lit[o] = occluded ? 0 : 1;
+    const par::Ray r{rays.rbx[o], rays.rby[o], rays.rbz[o],
+                     rays.ox[o],  rays.oy[o],  rays.oz[o],
+                     rays.ivx[o], rays.ivy[o], rays.ivz[o],
+                     rays.self[o]};
+    lit[o] = par::march_occluded(pos, ext, players, f, s_bins, s_cnt, g, r,
+                                 lbx, lby, lbz) ? 0 : 1;
   }
 }
 
@@ -166,7 +96,7 @@ extern "C" int par_shadow_lit(
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
   const size_t smem =
-      sizeof(int) * static_cast<size_t>(g.volume()) * (bin_cap + 1);
+      sizeof(int) * static_cast<size_t>(par::frame_table_ints(g));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         shadow_lit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

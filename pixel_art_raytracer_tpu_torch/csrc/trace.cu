@@ -21,13 +21,9 @@
 // kernel's lane-selection matmul, packed picks, field packing, compaction
 // and VMEM budgeting have no counterpart: they worked around the TPU's
 // lack of a per-lane gather.
-#include <climits>
-
 #include "common.cuh"
 
 namespace {
-
-constexpr int kFields = 8;  // entity, px, py, pz, ex, ey, ez, sprite id
 
 __global__ void trace_winner_kernel(
     const int* __restrict__ pos, const int* __restrict__ ext,
@@ -37,8 +33,6 @@ __global__ void trace_winner_kernel(
     int* __restrict__ best_out, par::Grid g, int sprite_w, int sprite_h,
     int early_exit) {
   extern __shared__ int smem[];
-  const int cap = g.bin_cap;
-  const int n_slots = g.hash_l * cap;
   int* s_cnt = smem;             // (hash_l,)
   int* s_fld = smem + g.hash_l;  // (hash_l * cap, kFields)
 
@@ -46,30 +40,8 @@ __global__ void trace_winner_kernel(
   const int column = blockIdx.x;  // bin_x * hash_h + bin_y
   const int bin_x = column / g.hash_h;
   const int bin_y = column % g.hash_h;
-  // Flat index of bin (bin_x, bin_y, 0) in frame f's tables.
-  const size_t base = static_cast<size_t>(f) * g.volume()
-                      + static_cast<size_t>(column) * g.hash_l;
-
-  for (int s = threadIdx.x; s < n_slots; s += blockDim.x) {
-    const int bz = s / cap;
-    const int k = s % cap;
-    const int cnt = counts[base + bz];
-    if (k == 0) s_cnt[bz] = cnt;
-    int* d = s_fld + s * kFields;
-    if (k < cnt) {
-      const int e = bins_ent[(base + bz) * cap + k];
-      const int* p = par::entity_pos(pos, players, f, e);
-      const int* x = ext + 3 * static_cast<size_t>(e);
-      d[0] = e;
-      d[1] = p[0];
-      d[2] = p[1];
-      d[3] = p[2];
-      d[4] = x[0];
-      d[5] = x[1];
-      d[6] = x[2];
-      d[7] = sprite_id[e];
-    }
-  }
+  par::stage_column(pos, ext, sprite_id, bins_ent, counts, players, f,
+                    column, g, s_cnt, s_fld);
   __syncthreads();
 
   const int n_pix = g.bin_size * g.bin_size;
@@ -77,42 +49,13 @@ __global__ void trace_winner_kernel(
     const int i = bin_x * g.bin_size + q % g.bin_size;
     const int j = bin_y * g.bin_size + q / g.bin_size;
     if (i >= g.view_w || j >= g.view_h) continue;
-    const int world_j = g.view_h - j;
-
-    int best = INT_MIN;
-    int winner = -1;
-    int isect = 0;
-    for (int bz = 0; bz < g.hash_l; ++bz) {
-      const int cnt = s_cnt[bz];
-      if (cnt == 0) isect = 0;  // empty bin resets the counter
-      const int n = min(cnt, cap);
-      bool bin_hit = false;
-      for (int k = 0; k < n; ++k) {
-        const int* d = s_fld + (bz * cap + k) * kFields;
-        const int px = d[1], py = d[2], pz = d[3];
-        const int ex = d[4], ey = d[5], ez = d[6];
-        const int top = py + ey + pz + ez;
-        if (i < px || i >= px + ex || world_j <= py + pz || world_j > top)
-          continue;
-        const int row = top - world_j;
-        const int col = i - px;
-        const int texel =
-            (d[7] * sprite_h + min(max(row, 0), sprite_h - 1)) * sprite_w
-            + min(max(col, 0), sprite_w - 1);
-        const int depth = py - pz + min(0, ey - row) - atlas_depth[texel];
-        if (depth > best) {
-          best = depth;
-          winner = d[0];
-          bin_hit = true;
-        }
-      }
-      isect += bin_hit ? 1 : 0;
-      if (early_exit && isect >= 2) break;
-    }
+    const par::Hit h = par::walk_column(s_cnt, s_fld, atlas_depth, i,
+                                        g.view_h - j, g, sprite_w, sprite_h,
+                                        early_exit);
     const size_t o =
         (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
-    winner_out[o] = winner;
-    if (best_out != nullptr) best_out[o] = best;
+    winner_out[o] = h.slot >= 0 ? s_fld[h.slot * par::kFields] : -1;
+    if (best_out != nullptr) best_out[o] = h.best;
   }
 }
 
@@ -130,9 +73,7 @@ extern "C" int par_trace_winners(
     int threads, void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  const size_t smem =
-      sizeof(int) * (static_cast<size_t>(hash_l)
-                     + static_cast<size_t>(hash_l) * bin_cap * kFields);
+  const size_t smem = sizeof(int) * static_cast<size_t>(par::column_ints(g));
   const dim3 grid(hash_w * hash_h, n_frames);
   trace_winner_kernel<<<grid, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -1,4 +1,4 @@
-"""Device selection for measured runs: a CUDA card or an error."""
+"""Device selection: the CUDA card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -15,3 +15,10 @@ def require_cuda() -> torch.device:
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "False")
     return torch.device("cuda", 0)
+
+
+def resolve(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the card
+    (:func:`require_cuda`).  Entry points take ``device=None`` so they run
+    on the card unless the caller names another device."""
+    return require_cuda() if device is None else torch.device(device)

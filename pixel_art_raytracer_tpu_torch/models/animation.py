@@ -14,8 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pixel_art_raytracer_tpu.config import DEFAULT_CONFIG, RenderConfig
-
+from ..config import DEFAULT_CONFIG, RenderConfig
+from ..device import resolve
 from .batched import render_states_batched
 from .deferred import DeferredRenderer, DeviceScene
 
@@ -85,11 +85,12 @@ class AnimationRenderer:
                                      directional=directional)
 
     def light_sweep_states(self, n_frames: int, player_pos, center=None,
-                           radius: int = 140, *, device):
+                           radius: int = 140, *, device=None):
         """A circular light sweep around ``center`` with the player fixed.
 
         Returns ``(players, lights)``, (n_frames, 3) int32 each, on
-        ``device``; the same states as the JAX package's sweep.
+        ``device`` (default: the card); the same states as the JAX
+        package's sweep.
         """
         cfg = self.config
         if center is None:
@@ -102,5 +103,6 @@ class AnimationRenderer:
         lights = np.stack([lx, ly, lz], axis=1)
         players = np.broadcast_to(np.asarray(player_pos, np.int32),
                                   (n_frames, 3))
-        return (torch.as_tensor(players.copy(), device=device),
-                torch.as_tensor(lights, device=device))
+        dev = resolve(device)
+        return (torch.as_tensor(players.copy(), device=dev),
+                torch.as_tensor(lights, device=dev))

@@ -11,16 +11,25 @@ render_states_batched``, cut down to its point-light reference path:
   4. shadow   — kernel 2 → lit mask (F, H, W),
   5. shade    — ambient + Lambert factor → (F, H, W, 3) uint8.
 
+With the renderer's ``fuse_trace_shadow`` set, stages 2-4 run as
+
+  2-4. fused  — kernel 3 → winners and the lit mask (F, H, W) in one
+                launch → ``materialize_gbuffer`` → ``light_geometry`` and
+                the Lambert dot,
+
+as the JAX package's fused path does after its kernel; the frames are the
+same.  There is no fallback: a shape the fused kernel cannot take raises.
+
 The stage functions are public so a profiler can time each one; the
 reference's per-frame loop is alternative.cpp:628-817.  CUDA tensors run
-both kernels, CPU tensors their plain versions.
+the kernels, CPU tensors their plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops import binning, shade, shadow_cuda, trace, trace_cuda
+from ..ops import binning, fused_cuda, shade, shadow_cuda, trace, trace_cuda
 
 
 def check_supported(renderer, lights: torch.Tensor, directional: bool,
@@ -93,6 +102,22 @@ def shadow_stage(renderer, dscene, bins_ent, counts, players, gbuf, inv,
                                    players, renderer.config)
 
 
+def fused_stage(renderer, dscene, bins_ent, counts, players, lights):
+    """Primary visibility and the shadow march in one kernel, then the
+    G-buffer of the winners.  Returns ``(gbuf, winner, lit)``: the
+    ``trace.GBufferArrays``, the winners (F, H, W) int32 (-1 background)
+    and the lit mask (F, H, W) bool."""
+    cfg = renderer.config
+    _, winner, lit = fused_cuda.trace_shadow(
+        dscene.pos, dscene.ext, dscene.sprite_id, dscene.atlas_depth,
+        bins_ent, counts, players, lights, cfg)
+    gbuf = trace.materialize_gbuffer(
+        winner, dscene.pos, dscene.ext, dscene.sprite_id,
+        dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
+        dscene.palette, players, cfg)
+    return gbuf, winner, lit
+
+
 def shade_stage(renderer, gbuf, dot, lit):
     """Ambient + Lambert shade → (F, H, W, 3) uint8."""
     factor = shade.factor_from_dot(dot, lit, renderer.config)
@@ -114,6 +139,11 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
     """
     check_supported(renderer, lights, directional, upto)
     bins_ent, counts = bin_stage(renderer, static_bins, dscene, players)
+    if renderer.fuse_trace_shadow:
+        gbuf, _, lit = fused_stage(renderer, dscene, bins_ent, counts,
+                                   players, lights)
+        dot = geometry_stage(renderer, gbuf, lights)[0]
+        return shade_stage(renderer, gbuf, dot, lit)
     gbuf = trace_stage(renderer, dscene, bins_ent, counts, players)
     dot, inv, origin, rb, lb = geometry_stage(renderer, gbuf, lights)
     lit = shadow_stage(renderer, dscene, bins_ent, counts, players, gbuf,

@@ -12,10 +12,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from pixel_art_raytracer_tpu.config import DEFAULT_CONFIG, RenderConfig
-from pixel_art_raytracer_tpu.scene import Light, Scene
-
+from ..config import DEFAULT_CONFIG, RenderConfig
+from ..device import resolve
 from ..ops import binning
+from ..scene import Light, Scene
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +35,7 @@ class DeviceScene:
 
     @classmethod
     def from_scene(cls, scene: Scene, config: RenderConfig = DEFAULT_CONFIG,
-                   *, device) -> "DeviceScene":
+                   *, device=None) -> "DeviceScene":
         return cls.from_numpy(
             {"pos": scene.pos, "ext": scene.ext,
              "sprite_id": scene.sprite_id,
@@ -47,17 +47,19 @@ class DeviceScene:
 
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray], *,
-                   device) -> "DeviceScene":
-        """Tensors on ``device`` from numpy arrays keyed by field name.
+                   device=None) -> "DeviceScene":
+        """Tensors on ``device`` (default: the card) from numpy arrays keyed
+        by field name.
 
         Takes the fields of the JAX package's ``DeviceScene`` (``np.asarray``
         of each); its TPU-only ``depth_d0``/``depth_slope`` are not read.
         """
         dtypes = {"atlas_normal": torch.float32, "palette": torch.uint8}
+        dev = resolve(device)
         return cls(**{
             f.name: torch.tensor(np.asarray(arrays[f.name]),
                                  dtype=dtypes.get(f.name, torch.int32),
-                                 device=device)
+                                 device=dev)
             for f in dataclasses.fields(cls)})
 
     @property
@@ -70,7 +72,7 @@ class DeferredRenderer:
 
     Usage:
         r = DeferredRenderer(config).configure_for(scene)
-        dscene = DeviceScene.from_scene(scene, config, device="cuda")
+        dscene = DeviceScene.from_scene(scene, config)  # on the card
         frame = r.render(dscene, light_xyz)          # (H, W, 3) uint8
     """
 
@@ -83,6 +85,10 @@ class DeferredRenderer:
         self.spans = (2, 3, 2)
         # 'reference' only; 'dithered' raises until ported.
         self.style = style
+        # Batched path: run primary visibility and the shadow march as one
+        # kernel (csrc/fused.cu) instead of two, the same frames either way.
+        # Off by default, as in the JAX package (models/deferred.py:239).
+        self.fuse_trace_shadow = False
 
     def configure_for(self, scene: Scene) -> "DeferredRenderer":
         """Derive the bin-span bound from the scene's extents."""
@@ -104,6 +110,6 @@ class DeferredRenderer:
                                      light[None])[0]
 
     def render_numpy(self, scene: Scene, light: Light, *,
-                     device) -> np.ndarray:
+                     device=None) -> np.ndarray:
         dscene = DeviceScene.from_scene(scene, self.config, device=device)
         return self.render(dscene, light.as_array()).cpu().numpy()

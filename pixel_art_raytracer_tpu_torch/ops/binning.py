@@ -20,8 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
-
+from ..config import RenderConfig
 from .cstyle import c_div
 
 

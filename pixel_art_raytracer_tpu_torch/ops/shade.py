@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
-
+from ..config import RenderConfig
 from .cstyle import c_div, c_max, c_min
 from .trace import GBufferArrays
 

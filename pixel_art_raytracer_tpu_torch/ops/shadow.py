@@ -19,8 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
-
+from ..config import RenderConfig
 from .cstyle import c_max, c_min
 from .trace import entity_pos
 
@@ -39,7 +38,8 @@ PHASE_AXES = (
 
 def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
                         start_ent, origin, inv_dir, players,
-                        config: RenderConfig) -> torch.Tensor:
+                        config: RenderConfig,
+                        work: dict | None = None) -> torch.Tensor:
     """March every shadow ray; True where the light is reachable.
 
     Args:
@@ -50,6 +50,9 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
       start_ent: (F, H, W) int32 originating entity (self-shadow skip).
       origin: (ox, oy, oz) float32 (F, H, W) world positions.
       inv_dir: (ix, iy, iz) float32 (F, H, W) reciprocal ray directions.
+      work: when given, ``work["slab_tests"]`` is set to the number of slab
+        tests the march makes on these inputs (each ray stops at its first
+        occluder; a 0-d int64 tensor), for a bound on the kernel's time.
     """
     cfg = config
     cap = cfg.bin_capacity
@@ -93,6 +96,7 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
 
     t_cur = list(s)
     occluded = torch.zeros(rbx.shape, dtype=torch.bool, device=dev)
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
     for t in range(total):
         axes = PHASE_AXES[t % 7]
         c = [tc + st if a else tc for tc, st, a in zip(t_cur, step, axes)]
@@ -104,11 +108,19 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
         in_range = (flat >= 0) & (flat < V)
         flat_c = torch.where(in_range, flat, 0).long()
         test = active & in_range & (flat != start_flat)
+        if not bool(test.any()):
+            # No ray probes a bin this phase (all done, or outside the grid
+            # as rays toward a far light mostly are): nothing to test.
+            continue
 
         cnt = counts[frame, flat_c]
         for k in range(cap):
             ent = bins_ent[frame, flat_c, k]
             consider = test & (k < cnt) & (ent != start_ent)
+            if work is not None:
+                tests += (consider & ~occluded).sum()
             occluded = occluded | (consider
                                    & slab_hit(torch.where(ent >= 0, ent, 0)))
+    if work is not None:
+        work["slab_tests"] = tests
     return ~occluded

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
-
+from ..config import RenderConfig
 from ..runtime import kernels
 from . import shadow
 

@@ -25,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
-
+from ..config import RenderConfig
+from ..device import resolve
 from . import binning
 
 
@@ -37,12 +37,13 @@ class StaticBins:
       pos, ext: (N, 3) full scene arrays (numpy or tensors); entities
         [0, n_dynamic) are the movable ones and are excluded from the cache.
       n_dynamic: number of leading dynamic entities.
-      device: where the cache lives.
+      device: where the cache lives (default: the card).
     """
 
     def __init__(self, pos, ext, n_dynamic: int, config: RenderConfig,
-                 spans: tuple[int, int, int], *, device):
+                 spans: tuple[int, int, int], *, device=None):
         self._set_meta(n_dynamic, config, spans)
+        device = resolve(device)
         pos = torch.tensor(np.asarray(pos), dtype=torch.int32, device=device)
         ext = torch.tensor(np.asarray(ext), dtype=torch.int32, device=device)
         total, ids = _bin_statics(pos[n_dynamic:], ext[n_dynamic:],
@@ -52,11 +53,12 @@ class StaticBins:
     @classmethod
     def from_numpy(cls, static_total, static_ids, n_dynamic: int,
                    config: RenderConfig, spans: tuple[int, int, int], *,
-                   device) -> "StaticBins":
+                   device=None) -> "StaticBins":
         """A cache from the JAX package's ``StaticBins.static_total`` (V,)
         and ``static_ids`` (V, capacity + n_dynamic), as numpy arrays."""
         self = cls.__new__(cls)
         self._set_meta(n_dynamic, config, spans)
+        device = resolve(device)
         self._set_tables(
             torch.tensor(np.asarray(static_total), dtype=torch.int32,
                          device=device),

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
+from ..config import RenderConfig
 
 INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -66,7 +66,7 @@ def _texel(sid, row, col, config: RenderConfig):
 
 
 def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
-                 players, config: RenderConfig):
+                 players, config: RenderConfig, work: dict | None = None):
     """Per-pixel ``(best_depth, winner_entity)``, (F, H, W) int32 each;
     winner -1 for background.
 
@@ -75,6 +75,9 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
       atlas_depth: (S, SH, SW) int32.
       bins_ent: (F, V, C) int32 (-1 empty); counts: (F, V) int32.
       players: (F, 3) int32 — entity 0's position per frame.
+      work: when given, ``work["candidate_tests"]`` is set to the number
+        of candidate hit tests the walk makes on these inputs (a 0-d int64
+        tensor), for a bound on the kernel's time.
     """
     cfg = config
     dev = bins_ent.device
@@ -91,10 +94,13 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
     winner = torch.full((F, H, W), -1, dtype=torch.int32, device=dev)
     isect = torch.zeros((F, H, W), dtype=torch.int32, device=dev)
     broken = torch.zeros((F, H, W), dtype=torch.bool, device=dev)
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
     for bz in range(cfg.hash_length):
         flat = (base_flat + bz).long()
         cnt = counts[frame, flat]
         active = ~broken
+        if work is not None:
+            tests += torch.where(active, cnt.clamp(max=cap), 0).sum()
         # An empty bin resets the adjacent-hit counter (alternative.cpp:
         # 297-300).
         isect = torch.where(active & (cnt == 0), 0, isect)
@@ -121,7 +127,32 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
         isect = isect + bin_hit.to(torch.int32)
         if cfg.early_exit:
             broken = broken | (active & (isect >= 2))
+    if work is not None:
+        work["candidate_tests"] = tests
     return best, winner
+
+
+def decode_winner(winner, pos, ext, sprite_id, atlas_depth, players,
+                  config: RenderConfig):
+    """The surface point of each pixel's winner.
+
+    Returns ``(y, z, entity, texel)``, (F, H, W) each: the world y and z of
+    the hit, the winner entity and its clipped atlas texel.  Background
+    pixels (winner -1) take y = z = entity = 0 (quirk Q6) and entity 0's
+    texel.
+    """
+    cfg = config
+    i, _, world_j = _pixel_grid(cfg, winner.device)
+    hit = winner >= 0
+    ent = torch.where(hit, winner, 0)
+    apx, apy, apz = entity_pos(pos, players, ent).unbind(-1)
+    _, aey, aez = ext[ent.long()].unbind(-1)
+    row = apy + aey + apz + aez - world_j
+    texel = _texel(sprite_id[ent.long()], row, i - apx, cfg)
+    sdep = atlas_depth.reshape(-1)[texel]
+    y = torch.where(hit, apy + aey + aez - row - sdep, 0)
+    z = torch.where(hit, apz + sdep, 0)
+    return y, z, ent, texel
 
 
 def materialize_gbuffer(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
@@ -133,23 +164,13 @@ def materialize_gbuffer(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     and zero y/z/entity fields (quirk Q6).
     """
     cfg = config
-    F, H, W = winner.shape
-    i, _, world_j = _pixel_grid(cfg, winner.device)
-
+    y, z, ent, texel = decode_winner(winner, pos, ext, sprite_id,
+                                     atlas_depth, players, cfg)
     hit = winner >= 0
-    ent = torch.where(hit, winner, 0)
-    apx, apy, apz = entity_pos(pos, players, ent).unbind(-1)
-    _, aey, aez = ext[ent.long()].unbind(-1)
-    row = apy + aey + apz + aez - world_j
-    texel = _texel(sprite_id[ent.long()], row, i - apx, cfg)
-    sdep = atlas_depth.reshape(-1)[texel]
     cidx = atlas_color.reshape(-1)[texel]
-
     bg = torch.tensor(cfg.background, dtype=torch.uint8, device=winner.device)
     color = torch.where(hit[..., None], palette[cidx.long()], bg)
     normal = torch.where(hit[..., None], atlas_normal.reshape(-1, 3)[texel],
                          0.0)
-    y = torch.where(hit, apy + aey + aez - row - sdep, 0)
-    z = torch.where(hit, apz + sdep, 0)
     return GBufferArrays(normal=normal, color=color, y=y, z=z,
                          entity_index=ent)

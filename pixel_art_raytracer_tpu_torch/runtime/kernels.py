@@ -1,9 +1,10 @@
 """Build ``csrc/*.cu`` with nvcc into one shared library, load it with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so one nvcc call
-builds every kernel in seconds.  It is built at first use into a directory
-of ``build/`` named by a hash of the sources and flags, so an edited source
-gets a fresh build and an unchanged one is loaded as it is.
+The library has a plain C interface (no PyTorch headers), so each source
+compiles in seconds: one nvcc process per source, all started together,
+then one link.  It is built at first use into a directory of ``build/``
+named by a hash of the sources and flags, so an edited source gets a fresh
+build and an unchanged one is loaded as it is.
 
 The flags keep the float arithmetic IEEE, as the parity with the C++
 reference needs: ``-fmad=false`` forbids contracting a multiply and an add
@@ -31,11 +32,9 @@ CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE.parent / "build"
 LIB_NAME = "libpar_kernels.so"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-fmad=false",
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +43,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 12 + [_P],
     "par_shadow_lit": [_P] * 17 + [_I] * 10 + [_P],
+    "par_fused_trace_shadow": [_P] * 11 + [_I] * 12 + [_P],
 }
 
 
@@ -63,10 +63,18 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def nvcc_command(nvcc: str, output: pathlib.Path) -> list[str]:
-    """The nvcc invocation that builds the library at ``output``."""
-    units = [str(p) for p in sources() if p.suffix == ".cu"]
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), *units]
+def nvcc_commands(nvcc: str, output: pathlib.Path):
+    """The nvcc invocations that build the library at ``output``:
+    ``(compiles, link)``, one compile per ``.cu`` source into an object
+    beside ``output``, then the link of those objects."""
+    compiles, objects = [], []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = output.with_name(f"{output.name}.{src.stem}.o")
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
+        objects.append(str(obj))
+    return compiles, [nvcc, *GENCODE, "-shared", "-o", str(output), *objects]
 
 
 def build_dir() -> pathlib.Path:
@@ -89,13 +97,25 @@ def build() -> pathlib.Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = nvcc_command(find_nvcc(), tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    compiles, link = nvcc_commands(find_nvcc(), tmp)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in compiles]
+    # Wait for every compile before raising, so no nvcc outlives the call.
+    results = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in procs]
+    for cmd, out, rc in results:
+        _check_nvcc(cmd, out, rc)
+    proc = subprocess.run(link, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    _check_nvcc(link, proc.stdout, proc.returncode)
     os.replace(tmp, lib)
     return lib
+
+
+def _check_nvcc(cmd: list[str], output: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{output}")
 
 
 @functools.cache

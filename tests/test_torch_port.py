@@ -1,4 +1,5 @@
-"""Port packaging: no JAX, no build at import, the kernel build flags, and
+"""Port packaging: no JAX and nothing of the JAX package, no build at
+import, the kernel build flags, entry points that default to the card, and
 the features the port refuses instead of rendering another path."""
 
 import pathlib
@@ -10,14 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from pixel_art_raytracer_tpu.config import RenderConfig
-from pixel_art_raytracer_tpu.scene import SceneBuilder
+from pixel_art_raytracer_tpu_torch.config import RenderConfig
 from pixel_art_raytracer_tpu_torch.device import require_cuda
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.batched import render_states_batched
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
+from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.runtime import kernels
+from pixel_art_raytracer_tpu_torch.scene import Light, SceneBuilder
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "pixel_art_raytracer_tpu_torch"
@@ -33,48 +35,72 @@ def small_scene(config=SMALL):
     return b.build()
 
 
-def run_python(code: str, env_path: str | None = None):
-    env = {"PYTHONPATH": str(REPO), "PATH": env_path or "/usr/bin:/bin"}
+def run_python(code: str, env_path: str | None = None, cwd=REPO,
+               pythonpath=REPO):
+    env = {"PYTHONPATH": str(pythonpath), "PATH": env_path or "/usr/bin:/bin"}
     return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
                           capture_output=True, text=True, env=env,
-                          cwd=REPO, timeout=300)
+                          cwd=cwd, timeout=300)
 
 
 def test_port_imports_and_renders_with_jax_blocked():
     proc = run_python("""
         import sys
-        sys.modules["jax"] = None          # any 'import jax' now fails
-        import numpy as np
-        from pixel_art_raytracer_tpu.config import RenderConfig
-        from pixel_art_raytracer_tpu.scene import SceneBuilder, Light
-        import pixel_art_raytracer_tpu_torch
+        # Any 'import jax' or 'import pixel_art_raytracer_tpu' now fails.
+        sys.modules["jax"] = None
+        sys.modules["pixel_art_raytracer_tpu"] = None
+        import chip_smoke                  # imports all it needs at the top
+        import pixel_art_raytracer_tpu_torch as port
         from pixel_art_raytracer_tpu_torch.models.deferred import (
             DeferredRenderer)
-        cfg = RenderConfig(view_width=80, view_height=80, view_length=80)
-        b = SceneBuilder(config=cfg)
+        from pixel_art_raytracer_tpu_torch.runtime import native
+        cfg = port.RenderConfig(view_width=80, view_height=80,
+                                view_length=80)
+        b = port.SceneBuilder(config=cfg)
         b.insert((30, 20, 20), (20, 20, 20))
         b.insert((0, 0, 0), (16, 16, 16))
         scene = b.build()
         r = DeferredRenderer(cfg).configure_for(scene)
-        frame = r.render_numpy(scene, Light(60, 60, 20), device="cpu")
+        light = port.Light(60, 60, 20)
+        frame = r.render_numpy(scene, light, device="cpu")
         assert frame.shape == (80, 80, 3) and frame.max() > 0
+        r.fuse_trace_shadow = True
+        assert (r.render_numpy(scene, light, device="cpu") == frame).all()
+        assert (native.cpp_render_frame(scene, light, cfg)[0] == frame).all()
         loaded = [m for m in sys.modules
-                  if m.startswith(("jax", "pixel_art_raytracer_tpu."))
+                  if m.split(".")[0] in ("jax", "pixel_art_raytracer_tpu")
                   and sys.modules[m] is not None]
         print("OK", sorted(loaded))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("OK")
-    # Only the JAX package's numpy-only host modules were reused.
-    assert "pixel_art_raytracer_tpu.ops" not in proc.stdout
-    assert "pixel_art_raytracer_tpu.models" not in proc.stdout
+    assert proc.stdout.strip() == "OK []"
+
+
+def imported_roots(path: pathlib.Path) -> set[str]:
+    """Top-level package names of the import statements in ``path``."""
+    roots = set()
+    for line in path.read_text().splitlines():
+        words = line.replace(",", " ").replace("(", " ").split()
+        if words[:1] == ["import"]:
+            roots |= {w.split(".")[0] for w in words[1:] if w != "as"}
+        elif words[:1] == ["from"] and len(words) > 1:
+            roots.add(words[1].split(".")[0])
+    return roots
+
+
+PORT_SOURCES = [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]
 
 
 def test_package_sources_never_import_jax():
-    for path in PACKAGE.rglob("*.py"):
-        for line in path.read_text().splitlines():
-            stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), path
+    for path in PORT_SOURCES:
+        assert "jax" not in imported_roots(path), path
+
+
+def test_package_sources_never_import_the_jax_package():
+    for path in PORT_SOURCES:
+        assert "pixel_art_raytracer_tpu" not in imported_roots(path), path
+    assert "pixel_art_raytracer_tpu_torch" in imported_roots(
+        REPO / "chip_smoke.py")
 
 
 def test_kernel_modules_import_without_triton_or_nvcc():
@@ -83,10 +109,14 @@ def test_kernel_modules_import_without_triton_or_nvcc():
         sys.modules["triton"] = None
         import shutil
         assert shutil.which("nvcc") is None
-        from pixel_art_raytracer_tpu_torch.ops import shadow_cuda, trace_cuda
-        from pixel_art_raytracer_tpu_torch.runtime import kernels
+        from pixel_art_raytracer_tpu_torch.ops import (fused_cuda,
+                                                       shadow_cuda,
+                                                       trace_cuda)
+        from pixel_art_raytracer_tpu_torch.runtime import kernels, native
         assert kernels.library.cache_info().currsize == 0, "built at import"
+        assert native.library.cache_info().currsize == 0, "built at import"
         assert shadow_cuda.launches == trace_cuda.launches == 0
+        assert fused_cuda.launches == 0
         print("OK")
     """, env_path="/nonexistent")
     assert proc.returncode == 0, proc.stderr
@@ -94,15 +124,24 @@ def test_kernel_modules_import_without_triton_or_nvcc():
 
 
 def test_nvcc_command_targets_hopper_with_ieee_math():
-    cmd = kernels.nvcc_command("nvcc", pathlib.Path("/tmp/lib.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    assert not any(a.startswith(("-prec-div", "-ftz", "-prec-sqrt"))
-                   for a in cmd)
-    units = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
+    lib = pathlib.Path("/tmp/lib.so")
+    compiles, link = kernels.nvcc_commands("nvcc", lib)
+    units = set()
+    for cmd in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd and "-c" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+        assert not any(a.startswith(("-prec-div", "-ftz", "-prec-sqrt"))
+                       for a in cmd)
+        (src,) = [a for a in cmd if a.endswith(".cu")]
+        units.add(pathlib.Path(src).name)
+    # One compile per source (run in parallel), then one link of them all.
+    assert len(compiles) == len(units)
     assert units == {p.name for p in (PACKAGE / "csrc").glob("*.cu")}
-    assert {"trace.cu", "shadow.cu"} <= units
+    assert {"trace.cu", "shadow.cu", "fused.cu"} <= units
+    assert "arch=compute_90a,code=sm_90a" in link
+    assert link[link.index("-o") + 1] == str(lib)
+    assert sum(a.endswith(".o") for a in link) == len(units)
     assert kernels.build_dir().parent == REPO / "build"
 
 
@@ -118,10 +157,21 @@ def test_build_dir_hash_follows_sources(tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["directional", "multi_light", "dithered",
                                   "upto"])
 def test_unported_features_raise(case):
+    check_unported_raises(case, fuse=False)
+
+
+@pytest.mark.parametrize("case", ["directional", "multi_light", "dithered",
+                                  "upto"])
+def test_unported_features_raise_on_the_fused_path(case):
+    check_unported_raises(case, fuse=True)
+
+
+def check_unported_raises(case, fuse: bool):
     scene = small_scene()
     ds = DeviceScene.from_scene(scene, SMALL, device="cpu")
     style = "dithered" if case == "dithered" else "reference"
     r = DeferredRenderer(SMALL, style=style).configure_for(scene)
+    r.fuse_trace_shadow = fuse
     players = ds.pos[:1]
     lights = torch.tensor([[60, 60, 20]], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP|stage"):
@@ -135,6 +185,57 @@ def test_unported_features_raise(case):
             render_states_batched(r, None, ds, players, lights, upto="trace")
         else:
             r.render(ds, np.array([60, 60, 20]))
+
+
+@pytest.mark.parametrize("entry", ["from_scene", "from_numpy",
+                                   "render_numpy", "light_sweep_states",
+                                   "static_bins"])
+def test_entry_points_default_to_the_card(entry):
+    scene = small_scene()
+    r = DeferredRenderer(SMALL).configure_for(scene)
+    call = {
+        "from_scene": lambda: DeviceScene.from_scene(scene, SMALL).pos,
+        "from_numpy": lambda: DeviceScene.from_numpy(
+            {"pos": scene.pos, "ext": scene.ext,
+             "sprite_id": scene.sprite_id, "atlas_color": scene.atlas.color,
+             "atlas_depth": scene.atlas.depth,
+             "atlas_normal": scene.atlas.normal,
+             "palette": SMALL.palette_array}).pos,
+        "render_numpy": lambda: torch.as_tensor(
+            r.render_numpy(scene, Light(60, 60, 20))),
+        "light_sweep_states": lambda: AnimationRenderer(r, SMALL)
+        .light_sweep_states(4, scene.pos[0])[0],
+        "static_bins": lambda: StaticBins(scene.pos, scene.ext, 1, SMALL,
+                                          r.spans).static_total,
+    }[entry]
+    if torch.cuda.is_available():
+        if entry != "render_numpy":  # which returns a numpy frame
+            assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
+    """Without a card, or copied alone into an empty directory, chip_smoke
+    exits non-zero and prints no result."""
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_bytes(
+            (REPO / "chip_smoke.py").read_bytes())
+        cwd = pythonpath = tmp_path
+    elif torch.cuda.is_available():
+        pytest.skip("the card is present")
+    else:
+        cwd = pythonpath = REPO
+    proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                          capture_output=True, text=True, cwd=cwd,
+                          env={"PYTHONPATH": str(pythonpath),
+                               "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+    assert ("pixel_art_raytracer_tpu_torch" if where == "alone"
+            else "no CUDA device") in proc.stderr
 
 
 def test_require_cuda():
