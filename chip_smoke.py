@@ -15,15 +15,20 @@ fails (exit code != 0) unless:
     shapes);
   * the trace and shadow launch counters rose during the two-kernel run,
     and the fused counter during the fused run;
+  * the shadow and fused kernels' list path (one DDA per start bin of a
+    tile, csrc/common.cuh march_tile) took pixels on every orbit and on
+    both main paths, beside the pixels they marched directly;
   * the fused path's frames equal the two-kernel path's bit for bit;
   * both paths' frames equal ``runtime.native.cpp_render_frame`` pixel for
     pixel (frame 0 of every orbit and one mid-sweep frame of ``edge_z``).
 
-It prints the card, the build times, ms/frame, Mrays/s and the per-stage
-split of both paths, the kernels' times beside their plain versions and
-their bounds, a JSON line on the kernels and, last, ``{"ok": true,
-"device": {...}}``.  Without a CUDA device it exits with an error before
-printing any result.
+It prints the card, the build times, the march kernels' shared memory per
+block and blocks per SM, per orbit each march kernel's counters (pixels
+marched directly, the most start bins one tile held, the longest visit
+list), ms/frame, Mrays/s and the per-stage split of both paths, the
+kernels' times beside their plain versions and their bounds, a JSON line
+on the kernels and, last, ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits with an error before printing any result.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of the bytes it must move (each input read once, each output
@@ -32,8 +37,10 @@ written once) over 3.35 TB/s, and the operations these inputs need over
 its integer operations too, so the bound stays a lower bound).  The
 operations are counted from this run's data by the plain versions: 9
 integer operations per candidate hit test of the trace walk, 23 float
-operations per slab test of the shadow march (each ray stops at its first
-occluder).
+operations per slab test of the shadow march (each ray tests a bin's boxes
+at its first probe of the bin only, and stops at its first occluder).  It
+also prints the count at every probe, repeats included, and the bound that
+count gives.
 """
 
 from __future__ import annotations
@@ -133,6 +140,35 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def list_path(name: str, what: str, c: dict, n_pix: int,
+              longest: int | None = None) -> None:
+    """Print a march kernel's counters ``c`` (``MarchCounters.read()``);
+    raise unless its list path took some of the ``n_pix`` pixels it
+    marched and, where ``longest`` is given, its longest visit list has
+    that length."""
+    print(f"{name} {what}: {n_pix - c['direct_pixels']} pixels on the list "
+          f"path, {c['direct_pixels']} marched directly, at most "
+          f"{c['max_starts']} start bins in a tile, longest visit list "
+          f"{c['max_list']} bins")
+    if c["direct_pixels"] >= n_pix:
+        raise RuntimeError(f"{name}: the {what}'s list path took no pixel")
+    if longest is not None and c["max_list"] != longest:
+        raise RuntimeError(f"{name}: the {what}'s longest visit list has "
+                           f"{c['max_list']} bins, dda_visit_lists "
+                           f"{longest}")
+
+
+def longest_visit_list(start_bin, light_bin, config) -> int:
+    """The longest of ``shadow.dda_visit_lists`` over the distinct (start
+    bin, light bin) pairs of these rays."""
+    keys = torch.stack([t.expand(start_bin[0].shape).reshape(-1)
+                        for t in (*start_bin, *light_bin)], dim=1)
+    keys = torch.unique(keys, dim=0)
+    lists = shadow.dda_visit_lists(tuple(keys[:, :3].unbind(1)),
+                                   tuple(keys[:, 3:].unbind(1)), config)
+    return max(map(len, lists))
+
+
 def require_equal(name: str, what: str, got: torch.Tensor,
                   want: torch.Tensor) -> None:
     if not torch.equal(got, want):
@@ -183,11 +219,19 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: {scene.n_entities} entities, spans {renderer.spans}, "
           f"{time.perf_counter() - t0:.2f} s")
+    for k, wrapper in (("shadow", shadow_cuda), ("fused", fused_cuda)):
+        smem, blocks, regs, local = wrapper.occupancy(cfg)
+        print(f"{k} kernel: {smem} B of shared memory per block, {blocks} "
+              f"blocks per SM at {shadow_cuda.march_threads(cfg)} threads, "
+              f"{regs} registers and {local} B of local memory a thread")
+    H, W = cfg.view_height, cfg.view_width
+    n_pix = FRAMES * H * W
 
     # -- 4. each kernel against its plain version, at the main paths' shapes -
     errs = dict.fromkeys(SOURCES, 0)
     times = {k: [] for name in SOURCES for k in (name, name + "_plain")}
     bounds = {name: [] for name in SOURCES}  # (bytes, operations) per orbit
+    every_probe_ops = {"shadow": [], "fused": []}  # repeats counted
     for name, (players, lights) in sweeps.items():
         be, cnt = batched.bin_stage(renderer, cache, ds, players)
         args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt,
@@ -197,8 +241,10 @@ def main() -> int:
         fargs = args[:-1] + (lights, cfg)
         work = {}
         best_p, win_p, lit_p = fused.trace_shadow(*fargs, work=work)
+        fused_cuda.counters.reset()
         best_k, win_k, lit_k = fused_cuda.trace_shadow(*fargs,
                                                        with_best=True)
+        fused_stats = fused_cuda.counters.read()
         for what, got, want in (("winner", win_k, win_p),
                                 ("best", best_k, best_p),
                                 ("lit", lit_k, lit_p)):
@@ -214,6 +260,9 @@ def main() -> int:
         shadow_ops = SLAB_OPS * int(work["slab_tests"])
         bounds["fused"].append((nbytes(*fargs[:-1], win_k, lit_k),
                                 trace_ops + shadow_ops))
+        old_ops = SLAB_OPS * int(work["slab_tests_every_probe"])
+        every_probe_ops["fused"].append(trace_ops + old_ops)
+        every_probe_ops["shadow"].append(old_ops)
 
         # Kernel 1 (trace).
         best_k, win_k = trace_cuda.trace_winners(*args, with_best=True)
@@ -238,7 +287,12 @@ def main() -> int:
                                                         lights)
         sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
                  inv, players, cfg)
+        shadow_cuda.counters.reset()
         lit_k = shadow_cuda.trace_light(*sargs)
+        longest = longest_visit_list(rb, lb, cfg)
+        list_path(name, "fused kernel", fused_stats, n_pix, longest)
+        list_path(name, "shadow kernel", shadow_cuda.counters.read(), n_pix,
+                  longest)
         lit_s = shadow.trace_light_dynamic(*sargs)
         require_equal(name, "shadow kernel lit", lit_k, lit_s)
         require_equal(name, "trace_light_dynamic lit", lit_s, lit_p)
@@ -255,10 +309,13 @@ def main() -> int:
         print(f"{name}: F={FRAMES} kernels == plain versions (trace winners "
               f"and best depth, shadow lit mask, fused winners, best depth "
               f"and lit mask), bit-exact; {int(work['candidate_tests'])} "
-              f"candidate tests, {int(work['slab_tests'])} slab tests")
+              f"candidate tests, {int(work['slab_tests'])} slab tests "
+              f"needed ({int(work['slab_tests_every_probe'])} at every "
+              f"probe)")
 
     # -- 5. the two-kernel main path -----------------------------------------
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
+    shadow_cuda.counters.reset()
     frames = {name: anim.render_states(ds, players, lights)
               for name, (players, lights) in sweeps.items()}
     torch.cuda.synchronize()
@@ -268,10 +325,13 @@ def main() -> int:
         if n == 0:
             raise RuntimeError(f"the two-kernel path never launched the {k} "
                                f"kernel")
+    list_path("two-kernel path", "shadow kernel",
+              shadow_cuda.counters.read(), launches["shadow"] * n_pix)
 
     # -- 6. the fused main path ----------------------------------------------
     renderer.fuse_trace_shadow = True
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
+    fused_cuda.counters.reset()
     frames_fused = {name: anim.render_states(ds, players, lights)
                     for name, (players, lights) in sweeps.items()}
     torch.cuda.synchronize()
@@ -280,6 +340,8 @@ def main() -> int:
           f"{trace_cuda.launches}, shadow {shadow_cuda.launches}")
     if launches["fused"] == 0:
         raise RuntimeError("the fused path never launched the fused kernel")
+    list_path("fused path", "fused kernel", fused_cuda.counters.read(),
+              launches["fused"] * n_pix)
     for name in sweeps:
         require_equal(name, "fused-path frames vs two-kernel frames",
                       frames_fused[name], frames[name])
@@ -287,7 +349,6 @@ def main() -> int:
           f"{FRAMES} frames")
 
     # -- 7. end-to-end times and stage splits --------------------------------
-    H, W = cfg.view_height, cfg.view_width
     rays = 2 * W * H * FRAMES
     for name, (players, lights) in sweeps.items():
         ms = {}
@@ -366,8 +427,17 @@ def main() -> int:
     for k, (src, rep) in SOURCES.items():
         bound_ms, bound_by = bound(*np.mean(bounds[k], axis=0))
         print(f"{k} kernel {mean[k]:.4f} ms, plain {mean[k + '_plain']:.4f} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by}) per call on "
-              f"F={FRAMES} {W}x{H} frames (mean of 3 orbits)  [{card}]")
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{mean[k] / bound_ms:.1f}x) per call on F={FRAMES} {W}x{H} "
+              f"frames (mean of 3 orbits; "
+              + " / ".join(f"{o} {t:.4f}" for o, t in zip(sweeps, times[k]))
+              + f" ms)  [{card}]")
+        if k in every_probe_ops:
+            old_ms, old_by = bound(np.mean(bounds[k], axis=0)[0],
+                                   np.mean(every_probe_ops[k]))
+            print(f"{k} kernel bound with slab tests counted at every "
+                  f"probe: {old_ms:.4f} ms ({old_by}, "
+                  f"{mean[k] / old_ms:.1f}x)")
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[k],
                      "max_abs_err": errs[k], "ms": mean[k],

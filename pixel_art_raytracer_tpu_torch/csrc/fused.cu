@@ -7,9 +7,8 @@
 // walk_column), the winner's surface point (y, z, entity) as
 // ops/trace.py::decode_winner gives it, with background taking entity 0 and
 // y = z = 0 (quirk Q6), the light geometry of ops/shade.py::light_geometry,
-// and the 7-phase DDA march of kernel 2 (common.cuh march_occluded).  Every
-// pixel is marched, background included, so `lit` equals the plain version
-// on every pixel.
+// and the 7-phase DDA march of kernel 2.  Every pixel is marched,
+// background included, so `lit` equals the plain version on every pixel.
 //
 // Geometry op order (alternative.cpp:707-732): dx = float(lx) - float(wx),
 // length = (|dx| + |dy|) + |dz|, tl = d / length and inv = 1 / tl -- two
@@ -20,60 +19,70 @@
 // handles as the reference does.  The march is exact for any light: there
 // is no step bound and no domain guard, so nothing reroutes.
 //
-// What bounds it on the H100: not bytes.  A pixel writes 5 B (winner,
-// lit) and the tables are read once per block from L2; the time goes to
-// the divergent per-pixel march (a data-dependent loop of up to
-// 7 * largest phases whose slot tests gather 24 B boxes scattered over the
-// entity arrays) and to the candidate walk's gathers of sprite depths.
+// What bounds it on the H100: not bytes (a pixel writes 5 B, the tables
+// are read once per block from L2) but operations, and of those now mostly
+// the walk (kernel 1's code: up to hash_l * cap candidate tests a pixel and
+// a sprite-depth gather per hit).  The march, marched per pixel, cost more
+// than the walk: ~48 DDA phases a pixel, bins probed again and again, a
+// 24 B box gather per test, divergent loop lengths.
 //
-// What the design does about it: one block per (frame, bin column), as in
-// kernel 1.  The block stages in shared memory both the column's
-// hash_l * cap candidates (2 KB) and the frame's whole bin table
-// (V * (cap + 1) ints, 27 KB for graybox), so the walk and every bin probe
-// of the march read shared memory; only the box bounds of tested slots and
-// the sprite depths come from global memory (L1/L2-resident).  The picks,
-// the G-buffer fields and the ray inputs never leave registers: the TPU
+// What the design does about it: one block per (frame, bin column).  The
+// block stages the column's hash_l * cap candidates (2 KB) and walks every
+// pixel, keeping each pixel's surface point (y, z, entity) in shared
+// memory.  A hit pixel starts its shadow ray in bin (i / bs, j / bs,
+// z / bs), since y + z equals its world row, and a background pixel in
+// (i / bs, view_h / bs, 0), so the column's pixels share one or two start
+// bins.  common.cuh march_tile then walks the DDA once per distinct start
+// bin (a warp each), stages the distinct bins' boxes once as float corners
+// and has every pixel test its start's list; the light geometry is
+// recomputed from the surface point in registers.  Pixels whose start bin
+// does not fit the table of kStarts march on their own
+// (stats[kStatDirect]).  Exact because the lit bit is an OR over the
+// probed bins, which depend only on (start bin, light bin).  The TPU
 // kernel's packed picks, VMEM windows, membership tables, candidate lists,
 // divkernel division and sz-hull reduction have no counterpart.
 #include "common.cuh"
 
 namespace {
 
-__global__ void fused_trace_shadow_kernel(
+// Shared ints after the march's layout: the column's candidates, then the
+// surface point (y, z, entity) of each of the bs * bs pixels.
+int fused_tail_ints(const par::Grid& g) {
+  return par::column_ints(g) + 3 * g.bin_size * g.bin_size;
+}
+
+__global__ void __launch_bounds__(par::kMarchThreads,
+                                  par::kMarchBlocksPerSM)
+fused_trace_shadow_kernel(
     const int* __restrict__ pos, const int* __restrict__ ext,
     const int* __restrict__ sprite_id, const int* __restrict__ atlas_depth,
     const int* __restrict__ bins_ent, const int* __restrict__ counts,
     const int* __restrict__ players, const int* __restrict__ lights,
     int* __restrict__ winner_out, int* __restrict__ best_out,
-    unsigned char* __restrict__ lit_out, par::Grid g, int sprite_w,
-    int sprite_h, int early_exit) {
-  extern __shared__ int smem[];
-  int* s_bins = smem;                                // (V, cap)
-  int* s_cnt = s_bins + g.volume() * g.bin_cap;      // (V,)
-  int* s_col_cnt = s_cnt + g.volume();               // (hash_l,)
-  int* s_fld = s_col_cnt + g.hash_l;                 // (hash_l * cap, kFields)
+    unsigned char* __restrict__ lit_out, int* __restrict__ stats,
+    par::Grid g, int sprite_w, int sprite_h, int early_exit) {
+  extern __shared__ __align__(16) int smem[];
+  const int bs = g.bin_size;
+  const int n_pix = bs * bs;
+  const par::MarchSmem s(smem, g, n_pix);
+  int* s_col_cnt = smem + par::MarchSmem::ints(g, n_pix);  // (hash_l,)
+  int* s_fld = s_col_cnt + g.hash_l;         // (hash_l * cap, kFields)
+  int* s_y = s_col_cnt + par::column_ints(g);  // (n_pix,)
+  int* s_z = s_y + n_pix;                    // (n_pix,)
+  int* s_ent = s_z + n_pix;                  // (n_pix,)
 
   const int f = blockIdx.y;
   const int column = blockIdx.x;  // bin_x * hash_h + bin_y
   const int bin_x = column / g.hash_h;
   const int bin_y = column % g.hash_h;
-  par::stage_frame_table(bins_ent, counts, f, g, s_bins, s_cnt);
   par::stage_column(pos, ext, sprite_id, bins_ent, counts, players, f,
                     column, g, s_col_cnt, s_fld);
   __syncthreads();
 
-  const int lx = lights[3 * f];
-  const int ly = lights[3 * f + 1];
-  const int lz = lights[3 * f + 2];
-  const int bs = g.bin_size;
-  const int lbx = lx / bs;
-  const int lby = (g.view_h - ly - lz) / bs;
-  const int lbz = lz / bs;
-
-  const int n_pix = bs * bs;
-  for (int q = threadIdx.x; q < n_pix; q += blockDim.x) {
-    const int i = bin_x * bs + q % bs;
-    const int j = bin_y * bs + q / bs;
+  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int q = p.q;
+    const int i = bin_x * bs + p.col;
+    const int j = bin_y * bs + p.row;
     if (i >= g.view_w || j >= g.view_h) continue;
     const int world_j = g.view_h - j;
     const par::Hit h = par::walk_column(s_col_cnt, s_fld, atlas_depth, i,
@@ -93,31 +102,52 @@ __global__ void fused_trace_shadow_kernel(
       y = py + ey + ez - row - sdep;
       z = pz + sdep;
     }
-
-    // Light geometry (ops/shade.py::light_geometry).
-    const float dx = static_cast<float>(lx) - static_cast<float>(i);
-    const float dy = static_cast<float>(ly) - static_cast<float>(y);
-    const float dz = static_cast<float>(lz) - static_cast<float>(z);
-    const float length = fabsf(dx) + fabsf(dy) + fabsf(dz);
-    const par::Ray r{i / bs,
-                     (g.view_h - y - z) / bs,
-                     z / bs,
-                     static_cast<float>(i),
-                     static_cast<float>(y),
-                     static_cast<float>(z),
-                     1.0f / (dx / length),
-                     1.0f / (dy / length),
-                     1.0f / (dz / length),
-                     ent};
-    const bool occluded = par::march_occluded(pos, ext, players, f, s_bins,
-                                              s_cnt, g, r, lbx, lby, lbz);
-
+    s_y[q] = y;
+    s_z[q] = z;
+    s_ent[q] = ent;
     const size_t o =
         (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
     winner_out[o] = h.slot >= 0 ? ent : -1;
     if (best_out != nullptr) best_out[o] = h.best;
-    lit_out[o] = occluded ? 0 : 1;
   }
+  // march_tile synchronises before it reads the surface points.
+
+  const int lx = lights[3 * f];
+  const int ly = lights[3 * f + 1];
+  const int lz = lights[3 * f + 2];
+  // The start bin (i / bs, (view_h - y - z) / bs, z / bs); i / bs is the
+  // tile's bin_x.
+  auto key_of = [&](int q, int, int) {
+    return make_int3(bin_x, (g.view_h - s_y[q] - s_z[q]) / bs, s_z[q] / bs);
+  };
+  // Light geometry (ops/shade.py::light_geometry).
+  auto ray_of = [&](int q, int i, int) {
+    const int y = s_y[q];
+    const int z = s_z[q];
+    const float dx = static_cast<float>(lx) - static_cast<float>(i);
+    const float dy = static_cast<float>(ly) - static_cast<float>(y);
+    const float dz = static_cast<float>(lz) - static_cast<float>(z);
+    const float length = fabsf(dx) + fabsf(dy) + fabsf(dz);
+    return par::Ray{bin_x,
+                    (g.view_h - y - z) / bs,
+                    z / bs,
+                    static_cast<float>(i),
+                    static_cast<float>(y),
+                    static_cast<float>(z),
+                    1.0f / (dx / length),
+                    1.0f / (dy / length),
+                    1.0f / (dz / length),
+                    s_ent[q]};
+  };
+  par::march_tile(pos, ext, players, bins_ent, counts, f, g, bin_x, bin_y,
+                  lx / bs, (g.view_h - ly - lz) / bs, lz / bs, s, key_of,
+                  ray_of, lit_out, stats);
+}
+
+size_t fused_smem(const par::Grid& g) {
+  return sizeof(int) * static_cast<size_t>(
+      par::MarchSmem::ints(g, g.bin_size * g.bin_size)
+      + fused_tail_ints(g));
 }
 
 }  // namespace
@@ -125,19 +155,19 @@ __global__ void fused_trace_shadow_kernel(
 // winner_out (F, H, W) int32; best_out the same shape or null; lit_out
 // (F, H, W) uint8 (0/1).  Tables are bins_ent (F, V, cap) and counts (F, V);
 // players (F, 3) is entity 0's position per frame and lights (F, 3) the
-// point light per frame.  Returns cudaGetLastError() after the launch.
+// point light per frame; stats (3,) int32 device counters (common.cuh
+// MarchStat), added to.  Returns cudaGetLastError() after the launch.
 extern "C" int par_fused_trace_shadow(
     const void* pos, const void* ext, const void* sprite_id,
     const void* atlas_depth, const void* bins_ent, const void* counts,
     const void* players, const void* lights, void* winner_out,
-    void* best_out, void* lit_out, int n_frames, int view_w, int view_h,
-    int bin_size, int bin_cap, int hash_w, int hash_h, int hash_l,
-    int sprite_w, int sprite_h, int early_exit, int threads, void* stream) {
+    void* best_out, void* lit_out, void* stats, int n_frames, int view_w,
+    int view_h, int bin_size, int bin_cap, int hash_w, int hash_h,
+    int hash_l, int sprite_w, int sprite_h, int early_exit, int threads,
+    void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  const size_t smem =
-      sizeof(int) * static_cast<size_t>(par::frame_table_ints(g)
-                                        + par::column_ints(g));
+  const size_t smem = fused_smem(g);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         fused_trace_shadow_kernel,
@@ -153,7 +183,32 @@ extern "C" int par_fused_trace_shadow(
       static_cast<const int*>(bins_ent), static_cast<const int*>(counts),
       static_cast<const int*>(players), static_cast<const int*>(lights),
       static_cast<int*>(winner_out), static_cast<int*>(best_out),
-      static_cast<unsigned char*>(lit_out), g, sprite_w, sprite_h,
-      early_exit);
+      static_cast<unsigned char*>(lit_out), static_cast<int*>(stats), g,
+      sprite_w, sprite_h, early_exit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared bytes of one block, the blocks one SM holds at `threads` threads,
+// registers a thread and local (stack and spill) bytes a thread, into
+// out[0..3].  Returns the CUDA error code.
+extern "C" int par_fused_occupancy(int view_w, int view_h, int bin_size,
+                                   int bin_cap, int hash_w, int hash_h,
+                                   int hash_l, int threads, int* out) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  const size_t smem = fused_smem(g);
+  out[0] = static_cast<int>(smem);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_trace_shadow_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fused_trace_shadow_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 1, fused_trace_shadow_kernel, threads, smem));
 }

@@ -3,7 +3,8 @@ launch.
 
 CPU tensors take the plain version, :func:`ops.fused.trace_shadow`; CUDA
 tensors launch the kernel, and anything else raises.  ``launches`` counts
-kernel launches.
+kernel launches; ``counters`` holds the kernel's device counters of its
+march (as ``shadow_cuda.counters``).
 """
 
 from __future__ import annotations
@@ -13,21 +14,21 @@ import torch
 from ..config import RenderConfig
 from ..runtime import kernels
 from . import fused
-from .trace_cuda import block_threads
+from .shadow_cuda import MAX_SMEM, march_smem_bytes, march_threads
 
 launches = 0
-
-# Shared memory a block may use on Hopper (opt-in above 48 KB).
-MAX_SMEM = 227 * 1024
+counters = kernels.MarchCounters()
 
 
 def smem_bytes(config: RenderConfig) -> int:
-    """Shared memory of one block: the frame's bin table (V * (cap + 1)
-    ints) and the bin column's staged candidates (hash_l * (1 + 8 * cap)
-    ints)."""
+    """Shared memory of one block: the bin column's staged candidates
+    (hash_l * (1 + 8 * cap) ints), the surface point (y, z, entity) of
+    each of the bin_size**2 pixels, and the march's visit lists and staged
+    boxes (:func:`shadow_cuda.march_smem_bytes`)."""
     cap = config.bin_capacity
-    return 4 * (config.hash_volume * (cap + 1)
-                + config.hash_length * (1 + 8 * cap))
+    return (4 * (config.hash_length * (1 + 8 * cap)
+                 + 3 * config.bin_size ** 2)
+            + march_smem_bytes(config))
 
 
 def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
@@ -68,10 +69,11 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
         kernels.require(t, name, dtype, shape, dev)
     smem = smem_bytes(cfg)
     if smem > MAX_SMEM:
-        raise ValueError(f"trace_shadow: a bin table of {V} x {cap} slots "
-                         f"and a column of {cfg.hash_length} x {cap} "
-                         f"candidates need {smem} B of shared memory, over "
-                         f"the {MAX_SMEM} B a block may use")
+        raise ValueError(f"trace_shadow: a column of {cfg.hash_length} x "
+                         f"{cap} candidates, a tile of {cfg.bin_size}**2 "
+                         f"pixels and visit lists of a {V}-bin grid need "
+                         f"{smem} B of shared memory, over the {MAX_SMEM} B "
+                         f"a block may use")
 
     winner = torch.empty((F, H, W), dtype=torch.int32, device=dev)
     best = torch.empty_like(winner) if with_best else None
@@ -83,10 +85,17 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             atlas_depth.data_ptr(), bins_ent.data_ptr(), counts.data_ptr(),
             players.data_ptr(), lights.data_ptr(), winner.data_ptr(),
             None if best is None else best.data_ptr(), lit.data_ptr(),
-            F, W, H, cfg.bin_size, cap, cfg.hash_width, cfg.hash_height,
-            cfg.hash_length, cfg.sprite_width, cfg.sprite_height,
-            int(cfg.early_exit), block_threads(cfg),
-            kernels.stream_handle(dev))
+            counters.tensor(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
+            cfg.hash_width, cfg.hash_height, cfg.hash_length,
+            cfg.sprite_width, cfg.sprite_height, int(cfg.early_exit),
+            march_threads(cfg), kernels.stream_handle(dev))
     kernels.check(rc, "par_fused_trace_shadow")
     launches += 1
     return best, winner, lit
+
+
+def occupancy(config: RenderConfig) -> tuple[int, ...]:
+    """``(shared bytes per block, blocks per SM, registers per thread,
+    local bytes per thread)`` of the kernel (needs the card)."""
+    return kernels.occupancy("par_fused_occupancy", config,
+                             march_threads(config))

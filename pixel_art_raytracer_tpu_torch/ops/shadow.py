@@ -13,6 +13,12 @@ what ``ops/shadow_cuda.trace_light`` runs for CPU tensors.
 Flat bin indices outside [0, hash_volume) are skipped (the reference reads
 out of bounds there); in-range aliased indices are used as they are, which
 reproduces the reference's deterministic aliasing.
+
+The bins a ray probes depend only on its start bin and the light's bin, and
+a ray is occluded when any box of any probed bin hits it, an OR that ignores
+order and repeats.  :func:`dda_visit_lists` gives each start bin's distinct
+probed bins in first-visit order: the lists the CUDA kernels build once per
+tile and test every pixel of that start bin against.
 """
 
 from __future__ import annotations
@@ -36,6 +42,93 @@ PHASE_AXES = (
 )
 
 
+def dda_probes(start_bin, end_bin, config: RenderConfig):
+    """Yield the reference's DDA probes phase by phase: ``(flat, probe)``.
+
+    start_bin: (sx, sy, sz) int32 tensors of one shape; end_bin: the light
+    bins, broadcastable to it.  ``flat`` is the flat bin each ray's phase
+    lands on (int32) and ``probe`` the rays that test it: the phase is
+    within the ray's ``7 * int(largest)`` phases and the flat is in range
+    and not the start bin's flat (aliased flats included).
+    """
+    cfg = config
+    f32 = torch.float32
+    rbx, rby, rbz = start_bin
+    s = tuple(r.to(f32) for r in start_bin)
+    d = tuple(lb.to(f32) - sa for lb, sa in zip(end_bin, s))
+    largest = c_max(c_max(d[0].abs(), d[1].abs()), d[2].abs())
+    step = tuple(da / largest for da in d)
+    n_phases = 7 * largest.to(torch.int32)
+    total = int(n_phases.max()) if n_phases.numel() else 0
+    start_flat = (rbx * cfg.hash_height + rby) * cfg.hash_length + rbz
+
+    t_cur = list(s)
+    for t in range(total):
+        axes = PHASE_AXES[t % 7]
+        c = [tc + st if a else tc for tc, st, a in zip(t_cur, step, axes)]
+        if all(axes):
+            t_cur = c
+        bx, by, bz = (ca.to(torch.int32) for ca in c)
+        flat = (bx * cfg.hash_height + by) * cfg.hash_length + bz
+        yield flat, ((t < n_phases) & (flat >= 0)
+                     & (flat < cfg.hash_volume) & (flat != start_flat))
+
+
+def dda_first_visits(start_bin, end_bin, config: RenderConfig):
+    """Each ray's first probe of each bin.
+
+    Arguments as :func:`dda_probes`, each start component of shape (P,).
+    Returns ``(flats, first)``, both (T, P) for the T phases: the flat bin
+    of each phase (int64) and True where the phase probes a bin that the
+    ray has not probed before.
+    """
+    V = config.hash_volume
+    P = start_bin[0].shape[0]
+    rows = torch.arange(P, device=start_bin[0].device)
+    seen = torch.zeros((P, V + 1), dtype=torch.bool,
+                       device=start_bin[0].device)
+    flats, first = [], []
+    for flat, probe in dda_probes(start_bin, end_bin, config):
+        flat = torch.where(probe, flat, V).long()  # V: a column never read
+        new = probe & ~seen[rows, flat]
+        seen[rows, flat] = True
+        flats.append(flat)
+        first.append(new)
+    if not flats:
+        empty = torch.zeros((0, P), device=rows.device)
+        return empty.long(), empty.bool()
+    return torch.stack(flats), torch.stack(first)
+
+
+def dda_visit_lists(start_bins, light_bin,
+                    config: RenderConfig) -> list[list[int]]:
+    """The distinct flat bins each start bin's DDA probes, in first-visit
+    order.
+
+    start_bins: (sx, sy, sz) int32 tensors of shape (P,); light_bin: the
+    light's bin (three ints or tensors broadcastable to (P,)).  Returns one
+    list per start.  Testing a ray's boxes over its start's list gives the
+    lit bit of :func:`trace_light_dynamic` (an OR over the same bins).
+    """
+    dev = start_bins[0].device
+    end = tuple(torch.as_tensor(lb, dtype=torch.int32, device=dev)
+                for lb in light_bin)
+    flats, first = dda_first_visits(start_bins, end, config)
+    return [flats[first[:, p], p].tolist() for p in range(flats.shape[1])]
+
+
+def _first_probes(start_bin, end_bin, shape, config: RenderConfig):
+    """``first(t)``: the (F, H, W) mask of rays whose probe at phase t is
+    their first of its bin, from :func:`dda_first_visits` over the distinct
+    (start bin, light bin) keys."""
+    keys = torch.stack([t.expand(shape).reshape(-1)
+                        for t in (*start_bin, *end_bin)], dim=1)
+    ukeys, inverse = torch.unique(keys, dim=0, return_inverse=True)
+    _, first = dda_first_visits(tuple(ukeys[:, :3].unbind(1)),
+                                tuple(ukeys[:, 3:].unbind(1)), config)
+    return lambda t: first[t][inverse].view(shape)
+
+
 def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
                         start_ent, origin, inv_dir, players,
                         config: RenderConfig,
@@ -51,25 +144,20 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
       origin: (ox, oy, oz) float32 (F, H, W) world positions.
       inv_dir: (ix, iy, iz) float32 (F, H, W) reciprocal ray directions.
       work: when given, ``work["slab_tests"]`` is set to the number of slab
-        tests the march makes on these inputs (each ray stops at its first
-        occluder; a 0-d int64 tensor), for a bound on the kernel's time.
+        tests the function needs on these inputs, for a bound on the
+        kernel's time: each ray's tests at its first probe of each bin (a
+        repeated probe tests the same boxes again), up to its first
+        occluder in the reference's order (a 0-d int64 tensor).
+        ``work["slab_tests_every_probe"]`` counts the tests at every probe,
+        repeats included.
     """
     cfg = config
     cap = cfg.bin_capacity
-    V = cfg.hash_volume
     f32 = torch.float32
     dev = bins_ent.device
     F = bins_ent.shape[0]
 
-    rbx, rby, rbz = start_bin
-    s = tuple(r.to(f32) for r in start_bin)
-    d = tuple(lb.to(f32) - sa for lb, sa in zip(end_bin, s))
-    largest = c_max(c_max(d[0].abs(), d[1].abs()), d[2].abs())
-    step = tuple(da / largest for da in d)
-    n_phases = 7 * largest.to(torch.int32)
-    total = int(n_phases.max()) if n_phases.numel() else 0
-
-    start_flat = (rbx * cfg.hash_height + rby) * cfg.hash_length + rbz
+    rbx = start_bin[0]
     frame = torch.arange(F, device=dev)[:, None, None]
     ox, oy, oz = origin
     ivx, ivy, ivz = inv_dir
@@ -94,33 +182,31 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
         hi = c_min(hi, c_max(z1, z2))
         return hi >= lo
 
-    t_cur = list(s)
+    first = (_first_probes(start_bin, end_bin, rbx.shape, cfg)
+             if work is not None else None)
     occluded = torch.zeros(rbx.shape, dtype=torch.bool, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
-    for t in range(total):
-        axes = PHASE_AXES[t % 7]
-        c = [tc + st if a else tc for tc, st, a in zip(t_cur, step, axes)]
-        if all(axes):
-            t_cur = c
-        active = (t < n_phases) & ~occluded
-        bx, by, bz = (ca.to(torch.int32) for ca in c)
-        flat = (bx * cfg.hash_height + by) * cfg.hash_length + bz
-        in_range = (flat >= 0) & (flat < V)
-        flat_c = torch.where(in_range, flat, 0).long()
-        test = active & in_range & (flat != start_flat)
+    every_probe = torch.zeros((), dtype=torch.int64, device=dev)
+    for t, (flat, probe) in enumerate(dda_probes(start_bin, end_bin, cfg)):
+        test = probe & ~occluded
         if not bool(test.any()):
             # No ray probes a bin this phase (all done, or outside the grid
             # as rays toward a far light mostly are): nothing to test.
             continue
 
+        flat_c = torch.where(probe, flat, 0).long()
         cnt = counts[frame, flat_c]
+        first_t = first(t) if first is not None else None
         for k in range(cap):
             ent = bins_ent[frame, flat_c, k]
             consider = test & (k < cnt) & (ent != start_ent)
-            if work is not None:
-                tests += (consider & ~occluded).sum()
+            if first_t is not None:
+                live = consider & ~occluded
+                every_probe += live.sum()
+                tests += (live & first_t).sum()
             occluded = occluded | (consider
                                    & slab_hit(torch.where(ent >= 0, ent, 0)))
     if work is not None:
         work["slab_tests"] = tests
+        work["slab_tests_every_probe"] = every_probe
     return ~occluded

@@ -42,8 +42,10 @@ _I = ctypes.c_int
 # sizes as int.
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 12 + [_P],
-    "par_shadow_lit": [_P] * 17 + [_I] * 10 + [_P],
-    "par_fused_trace_shadow": [_P] * 11 + [_I] * 12 + [_P],
+    "par_shadow_lit": [_P] * 18 + [_I] * 9 + [_P],
+    "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
+    "par_shadow_occupancy": [_I] * 8 + [_P],
+    "par_fused_occupancy": [_I] * 8 + [_P],
 }
 
 
@@ -141,6 +143,50 @@ def check(rc: int, name: str) -> None:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the C interface takes it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def occupancy(name: str, config, threads: int) -> tuple[int, ...]:
+    """``(shared bytes per block, blocks per SM, registers per thread,
+    local bytes per thread)`` of a march kernel at ``threads`` threads,
+    from the C entry point ``name``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaFuncGetAttributes``)."""
+    cfg = config
+    out = (ctypes.c_int * 4)()
+    rc = getattr(library(), name)(
+        cfg.view_width, cfg.view_height, cfg.bin_size, cfg.bin_capacity,
+        cfg.hash_width, cfg.hash_height, cfg.hash_length, threads,
+        ctypes.addressof(out))
+    check(rc, name)
+    return tuple(out)
+
+
+class MarchCounters:
+    """The march kernels' device counters (csrc/common.cuh MarchStat), one
+    (3,) int32 tensor per device that each launch adds to: pixels marched
+    directly, the most start bins one tile held (kStarts + 1 where some
+    did not fit) and the longest visit list."""
+
+    def __init__(self):
+        self._stats: dict[torch.device, torch.Tensor] = {}
+
+    def tensor(self, device: torch.device) -> torch.Tensor:
+        """The counters a launch on ``device`` writes to."""
+        if device not in self._stats:
+            self._stats[device] = torch.zeros(3, dtype=torch.int32,
+                                              device=device)
+        return self._stats[device]
+
+    def reset(self) -> None:
+        for t in self._stats.values():
+            t.zero_()
+
+    def read(self) -> dict[str, int]:
+        """The counters since the last reset, over every device."""
+        vals = [t.tolist() for t in self._stats.values()] or [[0, 0, 0]]
+        return {"direct_pixels": sum(v[0] for v in vals),
+                "max_starts": max(v[1] for v in vals),
+                "max_list": max(v[2] for v in vals)}
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

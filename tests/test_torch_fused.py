@@ -28,7 +28,8 @@ from pixel_art_raytracer_tpu_torch import config, scene
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
-from pixel_art_raytracer_tpu_torch.ops import binning, fused, fused_cuda
+from pixel_art_raytracer_tpu_torch.ops import (binning, fused, fused_cuda,
+                                               shadow_cuda)
 from pixel_art_raytracer_tpu_torch.ops import trace
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.runtime import native
@@ -267,9 +268,16 @@ def test_wrapper_refuses_other_devices_and_sizes_shared_memory():
     with pytest.raises(ValueError, match="no kernel"):
         fused_cuda.trace_shadow(ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth,
                                 be, cnt, players, players, SMALL)
-    # graybox: a 12 x 8 x 8 hash of 9 ints a bin, and an 8-bin column of
-    # 65 ints a bin.
-    assert fused_cuda.smem_bytes(DEFAULT) == 4 * (768 * 9 + 8 * 65)
+    # graybox: an 8-bin column of 65 ints a bin, 3 ints for each of the
+    # 40 x 40 pixels, and the march: 64 staged list entries of 1 + 8 * 8
+    # ints, 4 start bins (3 ints each, a list length, a 768-bit mask and a
+    # 768-entry list), the table's count and overflow flag, 10 warps' 4
+    # start bins (3 ints and a table index each) and counts, and 2 bytes a
+    # pixel.
+    march = 4 * (64 * (1 + 8 * 8) + 4 * 3 + 4 + 4 * 24 + 4 * 768 + 2
+                 + 10 * (4 * 4 + 1) + 2 * 1600 // 4)
+    assert fused_cuda.smem_bytes(DEFAULT) == (4 * (8 * 65 + 3 * 1600)
+                                              + march)
 
 
 def port_kernel_inputs(s, config, device, lights):
@@ -297,18 +305,20 @@ def test_cuda_kernel_matches_plain(cuda, light):
         lxyz = LIGHTS[light]
     want = fused.trace_shadow(*port_kernel_inputs(s, SMALL, "cpu", lxyz))
     launches = fused_cuda.launches
+    fused_cuda.counters.reset()
     got = fused_cuda.trace_shadow(*port_kernel_inputs(s, SMALL, cuda, lxyz),
                                   with_best=True)
     torch.cuda.synchronize()
     assert fused_cuda.launches == launches + 1
     for name, g, w in zip(("best", "winner", "lit"), got, want):
         assert torch.equal(g.cpu(), w), name
+    assert fused_cuda.counters.read()["direct_pixels"] == 0
 
 
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_tables_past_shared_memory(cuda):
-    big = dataclasses.replace(SMALL, view_width=800, view_height=800,
-                              view_length=800)
+    big = dataclasses.replace(SMALL, view_width=1200, view_height=1200,
+                              view_length=1200)
     assert fused_cuda.smem_bytes(big) > fused_cuda.MAX_SMEM
     s = shadow_scene(config=big)
     V, cap = big.hash_volume, big.bin_capacity
@@ -319,3 +329,67 @@ def test_cuda_wrapper_refuses_tables_past_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         fused_cuda.trace_shadow(ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth,
                                 be, cnt, p, p, big)
+
+
+# 10-pixel bins over a deep view: a bin column's pixels see surfaces in
+# many z bins, so its tile has more start bins than the table holds.
+FINE = dataclasses.replace(SMALL, view_length=160, bin_size=10)
+
+
+def deep_scene(config=FINE, seed=3):
+    """A player box and seeded small boxes spread over the whole depth."""
+    rng = np.random.default_rng(seed)
+    b = scene.SceneBuilder(config=config)
+    b.insert((30, 20, 20), (10, 10, 10))
+    for _ in range(160):
+        b.insert((int(rng.integers(0, 76)), int(rng.integers(0, 60)),
+                  int(rng.integers(0, 150))),
+                 tuple(int(v) for v in rng.integers(3, 11, 3)))
+    return b.build()
+
+
+def start_bins_per_tile(args):
+    """The most distinct start bins of one bin-column tile, from the plain
+    version's surface points."""
+    cfg = args[-1]
+    bs = cfg.bin_size
+    _, win, _ = fused.trace_shadow(*args)
+    y, z, _, _ = trace.decode_winner(win, *args[:4], args[6], cfg)
+    F, H, W = win.shape
+    i = torch.arange(W).expand(F, H, W)
+    keys = torch.stack([torch.div(t, bs, rounding_mode="trunc")
+                        for t in (i, cfg.view_height - y - z, z)], -1)
+    tiles = keys.reshape(F, H // bs, bs, W // bs, bs, 3).permute(
+        0, 1, 3, 2, 4, 5).reshape(-1, bs * bs, 3)
+    return max(len(torch.unique(t, dim=0)) for t in tiles)
+
+
+def test_deep_scene_tiles_overflow_the_start_table():
+    args = port_kernel_inputs(deep_scene(), FINE, "cpu", LIGHTS["near"])
+    assert start_bins_per_tile(args) > shadow_cuda.STARTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("light", sorted(LIGHTS))
+def test_cuda_kernel_matches_plain_on_many_start_bins(cuda, light):
+    s = deep_scene()
+    want = fused.trace_shadow(*port_kernel_inputs(s, FINE, "cpu",
+                                                  LIGHTS[light]))
+    fused_cuda.counters.reset()
+    got = fused_cuda.trace_shadow(*port_kernel_inputs(s, FINE, cuda,
+                                                      LIGHTS[light]),
+                                  with_best=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("best", "winner", "lit"), got, want):
+        assert torch.equal(g.cpu(), w), name
+    stats = fused_cuda.counters.read()
+    assert 0 < stats["direct_pixels"] < want[2].numel()
+    assert stats["max_starts"] == shadow_cuda.STARTS + 1
+
+
+@pytest.mark.cuda
+def test_cuda_shared_memory_matches_layout(cuda):
+    for cfg in (SMALL, FINE, DEFAULT):
+        smem, blocks, regs, _ = fused_cuda.occupancy(cfg)
+        assert smem == fused_cuda.smem_bytes(cfg)
+        assert blocks >= 1 and 0 < regs <= 255
