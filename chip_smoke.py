@@ -22,13 +22,14 @@ fails (exit code != 0) unless:
   * both paths' frames equal ``runtime.native.cpp_render_frame`` pixel for
     pixel (frame 0 of every orbit and one mid-sweep frame of ``edge_z``).
 
-It prints the card, the build times, the march kernels' shared memory per
+It prints the card, the build times, the three kernels' shared memory per
 block and blocks per SM, per orbit each march kernel's counters (pixels
 marched directly, the most start bins one tile held, the longest visit
 list), ms/frame, Mrays/s and the per-stage split of both paths, the
 kernels' times beside their plain versions and their bounds, a JSON line
-on the kernels and, last, ``{"ok": true, "device": {...}}``.  Without a
-CUDA device it exits with an error before printing any result.
+on the kernels and, last,
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
+error before printing any result.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of the bytes it must move (each input read once, each output
@@ -39,8 +40,10 @@ operations are counted from this run's data by the plain versions: 9
 integer operations per candidate hit test of the trace walk, 23 float
 operations per slab test of the shadow march (each ray tests a bin's boxes
 at its first probe of the bin only, and stops at its first occluder).  It
-also prints the count at every probe, repeats included, and the bound that
-count gives.
+also prints the bounds of two other counts: the walk's depth keys alone,
+15 integer operations per candidate that passes the hit test (what a pixel
+needs at least), and the march's slab tests at every probe, repeats
+included.
 """
 
 from __future__ import annotations
@@ -74,6 +77,9 @@ PLAIN_REPS = 1
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 TRACE_OPS_PER_CANDIDATE = 9
+# The depth key of a hit: the row, ey - row and its min with 0, the clamped
+# texel row and column, the texel address, the key and its compare.
+DEPTH_KEY_OPS = 15
 SLAB_OPS = 23
 
 SOURCES = {
@@ -131,6 +137,15 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def entity_bytes(bins_ent, counts, *tables) -> int:
+    """Bytes of the rows of the per-entity ``tables`` that the live slots
+    of ``bins_ent`` name: all that a kernel can read of them."""
+    live = (torch.arange(bins_ent.shape[-1], device=bins_ent.device)
+            < counts[..., None])
+    n = torch.unique(bins_ent[live]).numel()
+    return n * sum(t[0].numel() * t.element_size() for t in tables)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -219,11 +234,17 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: {scene.n_entities} entities, spans {renderer.spans}, "
           f"{time.perf_counter() - t0:.2f} s")
-    for k, wrapper in (("shadow", shadow_cuda), ("fused", fused_cuda)):
-        smem, blocks, regs, local = wrapper.occupancy(cfg)
+    for k, occ, threads in (
+            ("trace", trace_cuda.occupancy(cfg),
+             trace_cuda.block_threads(cfg)),
+            ("shadow", shadow_cuda.occupancy(cfg),
+             shadow_cuda.march_threads(cfg)),
+            ("fused", fused_cuda.occupancy(cfg),
+             shadow_cuda.march_threads(cfg))):
+        smem, blocks, regs, local = occ
         print(f"{k} kernel: {smem} B of shared memory per block, {blocks} "
-              f"blocks per SM at {shadow_cuda.march_threads(cfg)} threads, "
-              f"{regs} registers and {local} B of local memory a thread")
+              f"blocks per SM at {threads} threads, {regs} registers and "
+              f"{local} B of local memory a thread  [{card}]")
     H, W = cfg.view_height, cfg.view_width
     n_pix = FRAMES * H * W
 
@@ -231,6 +252,7 @@ def main() -> int:
     errs = dict.fromkeys(SOURCES, 0)
     times = {k: [] for name in SOURCES for k in (name, name + "_plain")}
     bounds = {name: [] for name in SOURCES}  # (bytes, operations) per orbit
+    test_ops = {"trace": [], "fused": []}  # every candidate test counted
     every_probe_ops = {"shadow": [], "fused": []}  # repeats counted
     for name, (players, lights) in sweeps.items():
         be, cnt = batched.bin_stage(renderer, cache, ds, players)
@@ -256,12 +278,18 @@ def main() -> int:
             lambda: fused_cuda.trace_shadow(*fargs), KERNEL_REPS))
         times["fused_plain"].append(cuda_ms(
             lambda: fused.trace_shadow(*fargs), PLAIN_REPS, warm_up=False))
-        trace_ops = TRACE_OPS_PER_CANDIDATE * int(work["candidate_tests"])
+        key_ops = DEPTH_KEY_OPS * int(work["candidate_hits"])
         shadow_ops = SLAB_OPS * int(work["slab_tests"])
-        bounds["fused"].append((nbytes(*fargs[:-1], win_k, lit_k),
-                                trace_ops + shadow_ops))
+        rows_b = entity_bytes(be, cnt, ds.pos, ds.ext, ds.sprite_id)
+        bounds["fused"].append((rows_b + nbytes(ds.atlas_depth, be, cnt,
+                                                players, lights, win_k,
+                                                lit_k),
+                                key_ops + shadow_ops))
+        tests = TRACE_OPS_PER_CANDIDATE * int(work["candidate_tests"])
+        test_ops["fused"].append(tests + shadow_ops)
+        test_ops["trace"].append(tests)
         old_ops = SLAB_OPS * int(work["slab_tests_every_probe"])
-        every_probe_ops["fused"].append(trace_ops + old_ops)
+        every_probe_ops["fused"].append(key_ops + old_ops)
         every_probe_ops["shadow"].append(old_ops)
 
         # Kernel 1 (trace).
@@ -277,7 +305,9 @@ def main() -> int:
                                       KERNEL_REPS))
         times["trace_plain"].append(cuda_ms(lambda: trace.trace_winner(*args),
                                             PLAIN_REPS, warm_up=False))
-        bounds["trace"].append((nbytes(*args[:-1], win_k), trace_ops))
+        bounds["trace"].append((rows_b + nbytes(ds.atlas_depth, be, cnt,
+                                                players, win_k),
+                                key_ops))
 
         # Kernel 2 (shadow), on the G-buffer of kernel 1's winners.
         gbuf = trace.materialize_gbuffer(
@@ -304,14 +334,16 @@ def main() -> int:
                     warm_up=False))
         light_bin = torch.stack([b.reshape(FRAMES) for b in lb], dim=1)
         bounds["shadow"].append((
-            nbytes(ds.pos, ds.ext, players, be, cnt, *rb, *origin, *inv,
-                   gbuf.entity_index, light_bin, lit_k), shadow_ops))
+            entity_bytes(be, cnt, ds.pos, ds.ext)
+            + nbytes(players, be, cnt, *rb, *origin, *inv,
+                     gbuf.entity_index, light_bin, lit_k), shadow_ops))
         print(f"{name}: F={FRAMES} kernels == plain versions (trace winners "
               f"and best depth, shadow lit mask, fused winners, best depth "
               f"and lit mask), bit-exact; {int(work['candidate_tests'])} "
-              f"candidate tests, {int(work['slab_tests'])} slab tests "
-              f"needed ({int(work['slab_tests_every_probe'])} at every "
-              f"probe)")
+              f"candidate tests, {int(work['candidate_hits'])} candidate "
+              f"hits, {int(work['slab_tests'])} slab tests needed "
+              f"({int(work['slab_tests_every_probe'])} at every probe), "
+              f"{rows_b} B of entity rows named by the bins")
 
     # -- 5. the two-kernel main path -----------------------------------------
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
@@ -432,6 +464,12 @@ def main() -> int:
               f"frames (mean of 3 orbits; "
               + " / ".join(f"{o} {t:.4f}" for o, t in zip(sweeps, times[k]))
               + f" ms)  [{card}]")
+        if k in test_ops:
+            old_ms, old_by = bound(np.mean(bounds[k], axis=0)[0],
+                                   np.mean(test_ops[k]))
+            print(f"{k} kernel bound with the walk counted at every "
+                  f"candidate test: {old_ms:.4f} ms ({old_by}, "
+                  f"{mean[k] / old_ms:.1f}x)")
         if k in every_probe_ops:
             old_ms, old_by = bound(np.mean(bounds[k], axis=0)[0],
                                    np.mean(every_probe_ops[k]))

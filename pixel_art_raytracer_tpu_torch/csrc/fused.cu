@@ -20,32 +20,44 @@
 // is no step bound and no domain guard, so nothing reroutes.
 //
 // What bounds it on the H100: not bytes (a pixel writes 5 B, the tables
-// are read once per block from L2) but operations, and of those now mostly
-// the walk (kernel 1's code: up to hash_l * cap candidate tests a pixel and
-// a sprite-depth gather per hit).  The march, marched per pixel, cost more
-// than the walk: ~48 DDA phases a pixel, bins probed again and again, a
-// 24 B box gather per test, divergent loop lengths.
+// are read once per block from L2) but operations: the walk's depth keys
+// and the march's slab tests.  Its first design walked every pixel over
+// every candidate of its column (trace.cu says what that cost) and marched
+// every pixel on its own (~48 DDA phases a pixel, bins probed again and
+// again, a 24 B box gather per test).
 //
 // What the design does about it: one block per (frame, bin column).  The
-// block stages the column's hash_l * cap candidates (2 KB) and walks every
-// pixel, keeping each pixel's surface point (y, z, entity) in shared
-// memory.  A hit pixel starts its shadow ray in bin (i / bs, j / bs,
-// z / bs), since y + z equals its world row, and a background pixel in
-// (i / bs, view_h / bs, 0), so the column's pixels share one or two start
-// bins.  common.cuh march_tile then walks the DDA once per distinct start
-// bin (a warp each), stages the distinct bins' boxes once as float corners
-// and has every pixel test its start's list; the light geometry is
-// recomputed from the surface point in registers.  Pixels whose start bin
-// does not fit the table of kStarts march on their own
-// (stats[kStatDirect]).  Exact because the lit bit is an OR over the
-// probed bins, which depend only on (start bin, light bin).  The TPU
-// kernel's packed picks, VMEM windows, membership tables, candidate lists,
-// divkernel division and sz-hull reduction have no counterpart.
+// walk is kernel 1's (common.cuh walk_column: the column's live slots drawn
+// in walk order over their footprints into per-pixel state in shared
+// memory); its state lives in the three per-pixel buffers that then hold
+// the surface point (y, z, entity), and its draw list in the march's shared
+// memory, which the walk ends before the march begins, so the block keeps
+// the shared memory and occupancy of the march.  The surface point comes
+// from the best key without a second atlas read
+// (sdep = py - pz + min(0, ey - row) - best).  A hit pixel starts its
+// shadow ray in bin (i / bs, j / bs, z / bs), since y + z equals its world
+// row, and a background pixel in (i / bs, view_h / bs, 0), so the column's
+// pixels share one or two start bins.  common.cuh march_tile then walks
+// the DDA once per distinct start bin (a warp each), stages the distinct
+// bins' boxes once as float corners and has every pixel test its start's
+// list; the light geometry is recomputed from the surface point in
+// registers.  Pixels whose start bin does not fit the table of kStarts
+// march on their own (stats[kStatDirect]).  Exact because the lit bit is an
+// OR over the probed bins, which depend only on (start bin, light bin).
+// The TPU kernel's packed picks, VMEM windows, membership tables, candidate
+// lists, divkernel division and sz-hull reduction have no counterpart.
 #include "common.cuh"
 
 namespace {
 
-// Shared ints after the march's layout: the column's candidates, then the
+// Shared ints of the region the walk's draw list shares with the march:
+// the larger of the two layouts.
+__host__ __device__ int shared_region_ints(const par::Grid& g) {
+  const int march = par::MarchSmem::ints(g, g.bin_size * g.bin_size);
+  return march > par::draw_ints(g) ? march : par::draw_ints(g);
+}
+
+// Shared ints after that region: the column's candidates, then the
 // surface point (y, z, entity) of each of the bs * bs pixels.
 int fused_tail_ints(const par::Grid& g) {
   return par::column_ints(g) + 3 * g.bin_size * g.bin_size;
@@ -65,39 +77,44 @@ fused_trace_shadow_kernel(
   const int bs = g.bin_size;
   const int n_pix = bs * bs;
   const par::MarchSmem s(smem, g, n_pix);
-  int* s_col_cnt = smem + par::MarchSmem::ints(g, n_pix);  // (hash_l,)
-  int* s_fld = s_col_cnt + g.hash_l;         // (hash_l * cap, kFields)
-  int* s_y = s_col_cnt + par::column_ints(g);  // (n_pix,)
-  int* s_z = s_y + n_pix;                    // (n_pix,)
-  int* s_ent = s_z + n_pix;                  // (n_pix,)
+  int* s_col = smem + shared_region_ints(g);
+  int* s_y = s_col + par::column_ints(g);  // (n_pix,)
+  int* s_z = s_y + n_pix;                  // (n_pix,)
+  int* s_ent = s_z + n_pix;                // (n_pix,)
+  par::WalkSmem w;
+  w.cnt = s_col;
+  w.fld = s_col + g.hash_l;
+  w.draw = smem;
+  w.best = s_y;
+  w.slot = s_z;
+  w.hits = s_ent;
 
   const int f = blockIdx.y;
-  const int column = blockIdx.x;  // bin_x * hash_h + bin_y
-  const int bin_x = column / g.hash_h;
-  const int bin_y = column % g.hash_h;
-  par::stage_column(pos, ext, sprite_id, bins_ent, counts, players, f,
-                    column, g, s_col_cnt, s_fld);
-  __syncthreads();
+  const int bin_x = blockIdx.x / g.hash_h;
+  const int bin_y = blockIdx.x % g.hash_h;
+  par::walk_column(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
+                   players, f, bin_x, bin_y, g, sprite_w, sprite_h,
+                   early_exit, w);
 
+  // Each pixel's winner and surface point (ops/trace.py::decode_winner),
+  // over the walk's state of the same pixel: only the thread of pixel q
+  // reads and writes q, and nothing here touches the march's region.
   for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
     const int q = p.q;
     const int i = bin_x * bs + p.col;
     const int j = bin_y * bs + p.row;
     if (i >= g.view_w || j >= g.view_h) continue;
-    const int world_j = g.view_h - j;
-    const par::Hit h = par::walk_column(s_col_cnt, s_fld, atlas_depth, i,
-                                        world_j, g, sprite_w, sprite_h,
-                                        early_exit);
-
-    // The winner's surface point (ops/trace.py::decode_winner).
+    const int best = w.best[q];
+    const int slot = w.slot[q];
     int ent = 0, y = 0, z = 0;
-    if (h.slot >= 0) {
-      const int* d = s_fld + h.slot * par::kFields;
-      const int px = d[1], py = d[2], pz = d[3];
+    if (slot >= 0) {
+      const int* d = w.fld + slot * par::kFields;
+      const int py = d[2], pz = d[3];
       const int ey = d[5], ez = d[6];
-      const int row = py + ey + pz + ez - world_j;
-      const int sdep = atlas_depth[par::texel_index(d[7], row, i - px,
-                                                    sprite_w, sprite_h)];
+      const int row = py + ey + pz + ez - (g.view_h - j);
+      // The atlas texel's depth, from best = py - pz + min(0, ey - row)
+      // - sdep.
+      const int sdep = py - pz + min(0, ey - row) - best;
       ent = d[0];
       y = py + ey + ez - row - sdep;
       z = pz + sdep;
@@ -107,8 +124,8 @@ fused_trace_shadow_kernel(
     s_ent[q] = ent;
     const size_t o =
         (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
-    winner_out[o] = h.slot >= 0 ? ent : -1;
-    if (best_out != nullptr) best_out[o] = h.best;
+    winner_out[o] = slot >= 0 ? ent : -1;
+    if (best_out != nullptr) best_out[o] = best;
   }
   // march_tile synchronises before it reads the surface points.
 
@@ -145,9 +162,8 @@ fused_trace_shadow_kernel(
 }
 
 size_t fused_smem(const par::Grid& g) {
-  return sizeof(int) * static_cast<size_t>(
-      par::MarchSmem::ints(g, g.bin_size * g.bin_size)
-      + fused_tail_ints(g));
+  return sizeof(int) * static_cast<size_t>(shared_region_ints(g)
+                                           + fused_tail_ints(g));
 }
 
 }  // namespace

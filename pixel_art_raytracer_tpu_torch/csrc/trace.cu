@@ -8,54 +8,84 @@
 // counts bins with an improving candidate and resets on an empty bin, and
 // the walk stops once it reaches 2 (quirk Q5).  Background is -1.
 //
-// What bounds it on the H100: not memory.  A frame writes 4 B per pixel and
-// reads ~2 KB of candidates per bin column; the cost is the per-pixel walk
-// over up to hash_l * bin_cap = 64 candidates (integer compares and one
-// sprite-depth load per hit), i.e. issue slots and shared-memory loads.
+// What bounds it on the H100: bytes.  It must write 4 B of winner a pixel
+// (39.3 MB for 64 frames of 480x320) and read its bin tables and the
+// entity rows they name, 0.0123 ms at 3.35 TB/s; the operations its inputs
+// need take less.
 //
-// What the design does about it: one block per (frame, bin column).  All
-// pixels of a column test the same hash_l * bin_cap candidates, so the
-// block stages them once in shared memory (entity, position, extent, sprite
-// id: 8 ints each) and every thread walks them for its pixels with no
-// global loads but the tiny sprite-depth atlas (L1-resident).  The TPU
-// kernel's lane-selection matmul, packed picks, field packing, compaction
-// and VMEM budgeting have no counterpart: they worked around the TPU's
-// lack of a per-lane gather.
+// What held it back: its first design gave each thread 5 of a column's
+// 1,600 pixels and walked, for each, every live slot of the column's bins
+// (7 shared loads, the interval test, and on a hit a dependent atlas
+// gather).  On graybox a column holds 8.7 live slots of which a pixel hits
+// 2.9, and a warp took the hit branch 5.8 times (the OR over its lanes):
+// two thirds of the tests missed, and the hit path ran serialised at twice
+// the rate the pixels needed.
+//
+// What the design does about it (common.cuh walk_column): one block per
+// (frame, bin column).  The block stages the column's candidates, lists
+// its live slots in walk order with each slot's footprint clipped to the
+// tile (an empty one costs nothing), and draws the slots one at a time,
+// all threads striding over the footprint's pixels, into per-pixel state
+// in shared memory (best key, slot, adjacent-hit count with the last bin
+// that improved); a list entry holds what the draw needs precomputed, read
+// as four 16-byte loads.  Work follows the hits, not the tests, and no
+// lane waits on another lane's hit.  A coalesced epilogue writes the
+// winners.  The TPU kernel's lane-selection matmul, packed picks,
+// incremental keys, column compaction and VMEM budgeting have no
+// counterpart: they worked around the TPU's lack of a per-lane gather.
 #include "common.cuh"
 
 namespace {
 
-__global__ void trace_winner_kernel(
+// At most 512 threads a block, and 4 such blocks an SM: 32 registers a
+// thread, so an SM holds 6 blocks of 320 threads (graybox), which measured
+// faster than the 4 that 40 registers allow.
+constexpr int kMaxThreads = 512;
+constexpr int kMinBlocks = 4;
+
+// Shared bytes of a block: the draw list, the column, three ints a pixel
+// (at most 48 KB, the default; the wrapper refuses more).
+size_t trace_smem(const par::Grid& g) {
+  return sizeof(int) * static_cast<size_t>(par::draw_ints(g)
+                                           + par::column_ints(g)
+                                           + 3 * g.bin_size * g.bin_size);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+trace_winner_kernel(
     const int* __restrict__ pos, const int* __restrict__ ext,
     const int* __restrict__ sprite_id, const int* __restrict__ atlas_depth,
     const int* __restrict__ bins_ent, const int* __restrict__ counts,
     const int* __restrict__ players, int* __restrict__ winner_out,
     int* __restrict__ best_out, par::Grid g, int sprite_w, int sprite_h,
     int early_exit) {
-  extern __shared__ int smem[];
-  int* s_cnt = smem;             // (hash_l,)
-  int* s_fld = smem + g.hash_l;  // (hash_l * cap, kFields)
+  extern __shared__ __align__(16) int smem[];
+  const int bs = g.bin_size;
+  const int n_pix = bs * bs;
+  par::WalkSmem s;
+  s.draw = smem;
+  s.cnt = smem + par::draw_ints(g);
+  s.fld = s.cnt + g.hash_l;
+  s.best = s.cnt + par::column_ints(g);
+  s.slot = s.best + n_pix;
+  s.hits = s.slot + n_pix;
 
   const int f = blockIdx.y;
-  const int column = blockIdx.x;  // bin_x * hash_h + bin_y
-  const int bin_x = column / g.hash_h;
-  const int bin_y = column % g.hash_h;
-  par::stage_column(pos, ext, sprite_id, bins_ent, counts, players, f,
-                    column, g, s_cnt, s_fld);
-  __syncthreads();
+  const int bin_x = blockIdx.x / g.hash_h;
+  const int bin_y = blockIdx.x % g.hash_h;
+  par::walk_column(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
+                   players, f, bin_x, bin_y, g, sprite_w, sprite_h,
+                   early_exit, s);
 
-  const int n_pix = g.bin_size * g.bin_size;
-  for (int q = threadIdx.x; q < n_pix; q += blockDim.x) {
-    const int i = bin_x * g.bin_size + q % g.bin_size;
-    const int j = bin_y * g.bin_size + q / g.bin_size;
+  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int i = bin_x * bs + p.col;
+    const int j = bin_y * bs + p.row;
     if (i >= g.view_w || j >= g.view_h) continue;
-    const par::Hit h = par::walk_column(s_cnt, s_fld, atlas_depth, i,
-                                        g.view_h - j, g, sprite_w, sprite_h,
-                                        early_exit);
+    const int slot = s.slot[p.q];
     const size_t o =
         (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
-    winner_out[o] = h.slot >= 0 ? s_fld[h.slot * par::kFields] : -1;
-    if (best_out != nullptr) best_out[o] = h.best;
+    winner_out[o] = slot >= 0 ? s.fld[slot * par::kFields] : -1;
+    if (best_out != nullptr) best_out[o] = s.best[p.q];
   }
 }
 
@@ -73,7 +103,7 @@ extern "C" int par_trace_winners(
     int threads, void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  const size_t smem = sizeof(int) * static_cast<size_t>(par::column_ints(g));
+  const size_t smem = trace_smem(g);
   const dim3 grid(hash_w * hash_h, n_frames);
   trace_winner_kernel<<<grid, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
@@ -84,4 +114,23 @@ extern "C" int par_trace_winners(
       static_cast<const int*>(players), static_cast<int*>(winner_out),
       static_cast<int*>(best_out), g, sprite_w, sprite_h, early_exit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared bytes of one trace_winner_kernel block, the blocks one SM holds at
+// `threads` threads, registers a thread and local (stack and spill) bytes
+// a thread, into out[0..3].  Returns the CUDA error code.
+extern "C" int par_trace_occupancy(int view_w, int view_h, int bin_size,
+                                   int bin_cap, int hash_w, int hash_h,
+                                   int hash_l, int threads, int* out) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  const size_t smem = trace_smem(g);
+  out[0] = static_cast<int>(smem);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, trace_winner_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 1, trace_winner_kernel, threads, smem));
 }

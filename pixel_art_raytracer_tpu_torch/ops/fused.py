@@ -33,8 +33,9 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
       bins_ent: (F, V, C) int32 (-1 empty); counts: (F, V) int32.
       players: (F, 3) int32 — entity 0's position per frame.
       lights: (F, 3) int32 — one point light per frame.
-      work: when given, receives the walk's ``candidate_tests`` and the
-        march's ``slab_tests`` (see the two functions).
+      work: when given, receives the walk's ``candidate_tests`` and
+        ``candidate_hits`` and the march's ``slab_tests`` (see the two
+        functions).
 
     Returns best depth (int32, INT32_MIN for background), winner entity
     (int32, -1 for background) and the lit mask (bool).

@@ -15,6 +15,7 @@ from ..config import RenderConfig
 from ..runtime import kernels
 from . import fused
 from .shadow_cuda import MAX_SMEM, march_smem_bytes, march_threads
+from .trace_cuda import draw_bytes
 
 launches = 0
 counters = kernels.MarchCounters()
@@ -23,12 +24,14 @@ counters = kernels.MarchCounters()
 def smem_bytes(config: RenderConfig) -> int:
     """Shared memory of one block: the bin column's staged candidates
     (hash_l * (1 + 8 * cap) ints), the surface point (y, z, entity) of
-    each of the bin_size**2 pixels, and the march's visit lists and staged
-    boxes (:func:`shadow_cuda.march_smem_bytes`)."""
+    each of the bin_size**2 pixels, which holds the walk's per-pixel state
+    first, and one region for the march's visit lists and staged boxes
+    (:func:`shadow_cuda.march_smem_bytes`) that holds the walk's draw list
+    (:func:`trace_cuda.draw_bytes`) first."""
     cap = config.bin_capacity
     return (4 * (config.hash_length * (1 + 8 * cap)
                  + 3 * config.bin_size ** 2)
-            + march_smem_bytes(config))
+            + max(march_smem_bytes(config), draw_bytes(config)))
 
 
 def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,

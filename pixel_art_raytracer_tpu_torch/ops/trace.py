@@ -76,8 +76,10 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
       bins_ent: (F, V, C) int32 (-1 empty); counts: (F, V) int32.
       players: (F, 3) int32 — entity 0's position per frame.
       work: when given, ``work["candidate_tests"]`` is set to the number
-        of candidate hit tests the walk makes on these inputs (a 0-d int64
-        tensor), for a bound on the kernel's time.
+        of candidate hit tests the walk makes on these inputs, and
+        ``work["candidate_hits"]`` to the number of those that pass the
+        interval test (each a 0-d int64 tensor), for bounds on the
+        kernel's time.
     """
     cfg = config
     dev = bins_ent.device
@@ -95,6 +97,7 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
     isect = torch.zeros((F, H, W), dtype=torch.int32, device=dev)
     broken = torch.zeros((F, H, W), dtype=torch.bool, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
     for bz in range(cfg.hash_length):
         flat = (base_flat + bz).long()
         cnt = counts[frame, flat]
@@ -115,6 +118,8 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
                    & (i >= apx) & (i < apx + aex)
                    & (world_j > apy + apz)
                    & (world_j <= apy + aey + apz + aez))
+            if work is not None:
+                hits += hit.sum()
             row = apy + aey + apz + aez - world_j
             texel = _texel(sprite_id[ent.long()], row, i - apx, cfg)
             # Depth key (alternative.cpp:336-341); strictly greater wins,
@@ -129,6 +134,7 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             broken = broken | (active & (isect >= 2))
     if work is not None:
         work["candidate_tests"] = tests
+        work["candidate_hits"] = hits
     return best, winner
 
 

@@ -15,13 +15,31 @@ from . import trace
 
 launches = 0
 
+# The default limit of shared memory a block; the kernel asks for no more.
+MAX_SMEM = 48 * 1024
+
 
 def block_threads(config: RenderConfig) -> int:
     """Threads per block: one block walks a bin column's bin_size**2
-    pixels, so take the largest warp multiple up to 512 that divides them
-    (320 for 40x40 columns), else 256."""
+    pixels, so take the largest warp multiple up to 512 (the kernel's launch
+    bound) that divides them (320 for 40x40 columns), else 256."""
     n_pix = config.bin_size * config.bin_size
     return next((t for t in range(512, 31, -32) if n_pix % t == 0), 256)
+
+
+def draw_bytes(config: RenderConfig) -> int:
+    """Shared memory of the walk's draw list (csrc/common.cuh
+    ``draw_ints``): 4 ints, then 16 a slot of the bin column."""
+    return 4 * (4 + 16 * config.hash_length * config.bin_capacity)
+
+
+def smem_bytes(config: RenderConfig) -> int:
+    """Shared memory of one block: the bin column's draw list, its staged
+    candidates (hash_l * (1 + 8 * cap) ints), and the best key, slot and
+    adjacent-hit state of each of the bin_size**2 pixels."""
+    cfg = config
+    return draw_bytes(cfg) + 4 * (cfg.hash_length * (1 + 8 * cfg.bin_capacity)
+                                  + 3 * cfg.bin_size ** 2)
 
 
 def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
@@ -55,10 +73,12 @@ def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             (counts, "counts", torch.int32, (F, V)),
             (players, "players", torch.int32, (F, 3))):
         kernels.require(t, name, dtype, shape, dev)
-    smem = 4 * cfg.hash_length * (1 + 8 * cap)
-    if smem > 48 * 1024:
+    smem = smem_bytes(cfg)
+    if smem > MAX_SMEM:
         raise ValueError(f"trace_winners: a bin column of {cfg.hash_length}"
-                         f" x {cap} slots needs {smem} B of shared memory")
+                         f" x {cap} slots and a tile of {cfg.bin_size}**2 "
+                         f"pixels need {smem} B of shared memory, over the "
+                         f"{MAX_SMEM} B a block may use")
 
     winner = torch.empty((F, cfg.view_height, cfg.view_width),
                          dtype=torch.int32, device=dev)
@@ -77,3 +97,10 @@ def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
     kernels.check(rc, "par_trace_winners")
     launches += 1
     return (best, winner) if with_best else winner
+
+
+def occupancy(config: RenderConfig) -> tuple[int, ...]:
+    """``(shared bytes per block, blocks per SM, registers per thread,
+    local bytes per thread)`` of the kernel (needs the card)."""
+    return kernels.occupancy("par_trace_occupancy", config,
+                             block_threads(config))

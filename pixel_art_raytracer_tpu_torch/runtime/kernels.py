@@ -44,6 +44,7 @@ SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 12 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 9 + [_P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
+    "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
     "par_fused_occupancy": [_I] * 8 + [_P],
 }
@@ -147,8 +148,8 @@ def stream_handle(device: torch.device) -> int:
 
 def occupancy(name: str, config, threads: int) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
-    local bytes per thread)`` of a march kernel at ``threads`` threads,
-    from the C entry point ``name``
+    local bytes per thread)`` of a kernel at ``threads`` threads, from the
+    C entry point ``name``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
     ``cudaFuncGetAttributes``)."""
     cfg = config

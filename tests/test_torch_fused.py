@@ -273,7 +273,9 @@ def test_wrapper_refuses_other_devices_and_sizes_shared_memory():
     # ints, 4 start bins (3 ints each, a list length, a 768-bit mask and a
     # 768-entry list), the table's count and overflow flag, 10 warps' 4
     # start bins (3 ints and a table index each) and counts, and 2 bytes a
-    # pixel.
+    # pixel.  The walk's draw list (4 + 16 * 64 ints) fits the march's
+    # region, and its per-pixel state the surface point's ints, so they add
+    # nothing.
     march = 4 * (64 * (1 + 8 * 8) + 4 * 3 + 4 + 4 * 24 + 4 * 768 + 2
                  + 10 * (4 * 4 + 1) + 2 * 1600 // 4)
     assert fused_cuda.smem_bytes(DEFAULT) == (4 * (8 * 65 + 3 * 1600)
@@ -393,3 +395,33 @@ def test_cuda_shared_memory_matches_layout(cuda):
         smem, blocks, regs, _ = fused_cuda.occupancy(cfg)
         assert smem == fused_cuda.smem_bytes(cfg)
         assert blocks >= 1 and 0 < regs <= 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "tie", "early_exit",
+                                  "empty_reset", "ragged", "multi_frame"])
+def test_cuda_kernel_matches_plain_on_walk_scenes(cuda, case):
+    """The trace tests' scenes of the walk (tests/test_torch_trace.py
+    kernel_inputs): winners, best depths and lit masks."""
+    from test_torch_trace import kernel_inputs
+    args = kernel_inputs(case, "cpu")
+    F = args[4].shape[0]
+    lights = torch.tensor([[60, 60, 20], [20, 70, 5], [70, 10, 60]][:F],
+                          dtype=torch.int32)
+    cfg = args[-1]
+    want = fused.trace_shadow(*args[:-1], lights, cfg)
+    got = fused_cuda.trace_shadow(
+        *(t.to(cuda) for t in args[:-1]), lights.to(cuda), cfg,
+        with_best=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("best", "winner", "lit"), got, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.cuda
+def test_cuda_graybox_block_keeps_four_blocks_per_sm(cuda):
+    """The walk's state and draw list reuse the march's shared memory, so
+    the graybox block stays at 54,544 B and 4 blocks per SM."""
+    smem, blocks, _, _ = fused_cuda.occupancy(DEFAULT)
+    assert smem <= 54544
+    assert blocks >= 4

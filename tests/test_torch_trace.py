@@ -3,7 +3,10 @@ trace kernel's wrapper) against the JAX package and the C++ oracle.
 
 Winners, best depths and G-buffers must be bit-identical, including ties
 (first candidate wins), the early exit (quirk Q5) and the background
-(quirk Q6)."""
+(quirk Q6).  A plain model of the kernels' walk (csrc/common.cuh
+walk_column: each column's live slots drawn in walk order over their
+clipped footprints, the adjacent-hit counter kept lazily) is held to the
+same results."""
 
 import dataclasses
 
@@ -11,6 +14,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from pixel_art_raytracer_tpu.assets import (SpriteAtlas, concat_atlases,
                                             make_tile_floor)
@@ -46,6 +51,10 @@ def tie_scene(config=SMALL):
     return b.build()
 
 
+# A ragged view: the last bin column and row are partial.
+RAGGED = RenderConfig(view_width=100, view_height=90, view_length=80)
+
+
 def dense_scene(seed=0, n=60, config=SMALL):
     """Seeded random boxes, dense enough that bins overflow and wrap."""
     rng = np.random.default_rng(seed)
@@ -75,6 +84,26 @@ def early_exit_scene(config=DEEP):
     b.insert((10, 40, 20), (20, 20, 15), sprite_id=1)
     b.insert((10, 15, 45), (20, 20, 15), sprite_id=2)
     b.insert((10, -25, 85), (20, 20, 15), sprite_id=0)
+    return b.build()
+
+
+def empty_reset_scene(config=DEEP):
+    """Boxes 1, 2, 3 in bins z = 0, 2, 3 of the same pixels (bin 1 empty),
+    each nearer than the last (sprite depth offsets +400, +200, +0).  The
+    empty bin resets the adjacent-hit counter, so the walk stops after bin
+    3, not bin 2, and box 3 wins under the early exit too."""
+    tile = make_tile_floor()
+
+    def offset(d):
+        return SpriteAtlas(color=tile.color, depth=tile.depth + d,
+                           normal=tile.normal)
+
+    b = SceneBuilder(atlas=concat_atlases(tile, offset(400), offset(200)),
+                     config=config)
+    b.insert((60, 0, 0), (10, 10, 10))
+    b.insert((10, 40, 20), (20, 20, 15), sprite_id=1)
+    b.insert((10, -25, 85), (20, 20, 15), sprite_id=2)
+    b.insert((10, -65, 125), (20, 20, 15), sprite_id=0)
     return b.build()
 
 
@@ -110,6 +139,69 @@ def jax_trace(scene, config):
         win, pos, ext, sid, jnp.asarray(a.color), jnp.asarray(a.depth),
         jnp.asarray(a.normal), jnp.asarray(config.palette_array), config)
     return np.asarray(best), np.asarray(win), gb
+
+
+def draw_model(scene, be, cnt, config, work=None):
+    """``(best, winner)`` (H, W) of one frame, by the kernels' walk.
+
+    For each bin column, the live slots (k < min(count, cap)) in walk order
+    whose footprint in the column is not empty are drawn one at a time
+    over that footprint: a pixel that the reference has stopped walking
+    (adjacent-hit count >= 2, last improving bin before this one) is
+    skipped; else the depth key replaces the best where strictly greater,
+    and on the first improvement in a bin the count becomes (0 if an empty
+    bin lies after the last improving bin, else the count) + 1.  Where
+    ``work`` is given, ``work["candidate_hits"]`` counts the pixels drawn
+    and not skipped."""
+    cfg = config
+    H, W, bs = cfg.view_height, cfg.view_width, cfg.bin_size
+    hl, cap = cfg.hash_length, cfg.bin_capacity
+    sh, sw = cfg.sprite_height, cfg.sprite_width
+    pos, ext = scene.pos.astype(np.int64), scene.ext.astype(np.int64)
+    depth_flat = scene.atlas.depth.reshape(-1).astype(np.int64)
+    best = np.full((H, W), np.iinfo(np.int32).min, np.int64)
+    winner = np.full((H, W), -1, np.int64)
+    count = np.zeros((H, W), np.int64)
+    last = np.full((H, W), -1, np.int64)
+    drawn = 0
+    for bx in range(cfg.hash_width):
+        for by in range(cfg.hash_height):
+            col = (bx * cfg.hash_height + by) * hl
+            i0, j0 = bx * bs, by * bs
+            i1, j1 = min(i0 + bs, W), min(j0 + bs, H)
+            for bz in range(hl):
+                c = int(cnt[col + bz])
+                last_empty = max((z for z in range(bz) if cnt[col + z] == 0),
+                                 default=-1)
+                for k in range(min(c, cap)):
+                    e = int(be[col + bz, k])
+                    px, py, pz = pos[e]
+                    ex, ey, ez = ext[e]
+                    top = py + ey + pz + ez
+                    xa, xb = max(px, i0), min(px + ex, i1)
+                    ja, jb = max(H - top, j0), min(H - py - pz, j1)
+                    if xa >= xb or ja >= jb:
+                        continue
+                    jj, ii = np.mgrid[ja:jb, xa:xb]
+                    win = np.s_[ja:jb, xa:xb]
+                    row = top - (H - jj)
+                    tex = ((scene.sprite_id[e] * sh + row.clip(0, sh - 1))
+                           * sw + (ii - px).clip(0, sw - 1))
+                    key = py - pz + np.minimum(0, ey - row) - depth_flat[tex]
+                    live = ~(cfg.early_exit & (count[win] >= 2)
+                             & (last[win] < bz))
+                    drawn += int(live.sum())
+                    better = live & (key > best[win])
+                    first = better & (last[win] != bz)
+                    best[win] = np.where(better, key, best[win])
+                    winner[win] = np.where(better, e, winner[win])
+                    count[win] = np.where(
+                        first, np.where(last_empty > last[win], 0,
+                                        count[win]) + 1, count[win])
+                    last[win] = np.where(first, bz, last[win])
+    if work is not None:
+        work["candidate_hits"] = drawn
+    return best.astype(np.int32), winner.astype(np.int32)
 
 
 def assert_gbuffer_equal(gb, want):
@@ -199,15 +291,176 @@ def test_wrapper_refuses_other_devices():
                                  ds.atlas_depth, be, cnt, ds.pos[:1], SMALL)
 
 
+WALK_SCENES = {
+    "tie": lambda: (tie_scene(), SMALL),
+    "dense0": lambda: (dense_scene(), SMALL),
+    "dense7": lambda: (dense_scene(seed=7, n=90), SMALL),
+    "early_exit": lambda: (early_exit_scene(), DEEP),
+    "early_exit_off": lambda: (
+        early_exit_scene(dataclasses.replace(DEEP, early_exit=False)),
+        dataclasses.replace(DEEP, early_exit=False)),
+    "empty_reset": lambda: (empty_reset_scene(), DEEP),
+    "ragged": lambda: (dense_scene(seed=5, n=70, config=RAGGED), RAGGED),
+}
+
+
+def assert_draw_model_matches(scene, cfg):
+    """The walk model, the port's trace_winner and the JAX package's agree
+    bit for bit, and the model draws as many pixels as trace_winner counts
+    candidate hits."""
+    be, cnt = tables(scene, cfg)
+    work, model_work = {}, {}
+    mbest, mwin = draw_model(scene, be[0].numpy(), cnt[0].numpy(), cfg,
+                             model_work)
+    ds = DeviceScene.from_scene(scene, cfg, device="cpu")
+    best, win = trace.trace_winner(ds.pos, ds.ext, ds.sprite_id,
+                                   ds.atlas_depth, be, cnt, ds.pos[:1], cfg,
+                                   work=work)
+    jbest, jwin, _ = jax_trace(scene, cfg)
+    np.testing.assert_array_equal(mwin, win[0].numpy())
+    np.testing.assert_array_equal(mbest, best[0].numpy())
+    np.testing.assert_array_equal(mwin, jwin)
+    np.testing.assert_array_equal(mbest, jbest)
+    assert model_work["candidate_hits"] == int(work["candidate_hits"])
+    assert int(work["candidate_hits"]) <= int(work["candidate_tests"])
+    return mwin
+
+
+@pytest.mark.parametrize("case", sorted(WALK_SCENES))
+def test_draw_model_matches_trace_winner(case):
+    scene, cfg = WALK_SCENES[case]()
+    win = assert_draw_model_matches(scene, cfg)
+    assert (win >= 0).any() and (win < 0).any()
+
+
+@settings(max_examples=8, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), early_exit=st.booleans())
+def test_draw_model_matches_on_random_deep_scenes(seed, early_exit):
+    cfg = dataclasses.replace(DEEP, early_exit=early_exit)
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(config=cfg)
+    b.insert((30, 20, 20), (20, 20, 20))
+    for _ in range(40):
+        b.insert((int(rng.integers(-5, 75)), int(rng.integers(-60, 60)),
+                  int(rng.integers(0, 150))),
+                 (int(rng.integers(2, 21)), int(rng.integers(2, 20)),
+                  int(rng.integers(2, 20))))
+    assert_draw_model_matches(b.build(), cfg)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_empty_bin_resets_the_adjacent_hit_counter(early_exit):
+    cfg = dataclasses.replace(DEEP, early_exit=early_exit)
+    scene = empty_reset_scene(cfg)
+    be, cnt = tables(scene, cfg)
+    # The boxes' column: bins 0, 2 and 3 hold one box each, bin 1 none.
+    col = cfg.bin_flat_index(0, 0, 0)
+    np.testing.assert_array_equal(cnt[0, col:col + 4].numpy(), [1, 0, 1, 1])
+    best, win, gb = port_trace(scene, cfg)
+    jbest, jwin, _ = jax_trace(scene, cfg)
+    np.testing.assert_array_equal(win.numpy(), jwin)
+    np.testing.assert_array_equal(best.numpy(), jbest)
+    assert_gbuffer_equal(gb, native.cpp_trace_pixels(scene, be[0].numpy(),
+                                                     cnt[0].numpy(), cfg))
+    # Without the reset the walk would stop after bin 2 under the early
+    # exit; with it, box 3 (bin 3) wins either way.
+    assert (win == 3).any()
+    assert not (win == 2).any()
+
+
+def test_ragged_view_matches_jax_and_cpp():
+    scene = dense_scene(seed=5, n=70, config=RAGGED)
+    best, win, gb = port_trace(scene, RAGGED)
+    jbest, jwin, jgb = jax_trace(scene, RAGGED)
+    np.testing.assert_array_equal(win.numpy(), jwin)
+    np.testing.assert_array_equal(best.numpy(), jbest)
+    be, cnt = tables(scene, RAGGED)
+    assert_gbuffer_equal(gb, native.cpp_trace_pixels(scene, be[0].numpy(),
+                                                     cnt[0].numpy(), RAGGED))
+    # The edge columns and rows are partial, and hold hits.
+    assert RAGGED.view_width % RAGGED.bin_size != 0
+    assert (win[:, 80:] >= 0).any() and (win[80:, :] >= 0).any()
+
+
+def test_shared_memory_layout():
+    from pixel_art_raytracer_tpu_torch.config import DEFAULT_CONFIG
+    # graybox: a draw list of 4 + 16 * 64 ints, an 8-bin column of 65 ints
+    # a bin, and three ints for each of the 40 x 40 pixels.
+    assert trace_cuda.smem_bytes(DEFAULT_CONFIG) == 4 * (4 + 16 * 64 + 8 * 65
+                                                         + 3 * 1600)
+    assert trace_cuda.smem_bytes(DEFAULT_CONFIG) <= trace_cuda.MAX_SMEM
+    assert trace_cuda.block_threads(DEFAULT_CONFIG) == 320
+
+
+# Scenes of the CUDA tests: (scene, config, players (F, 3)).
+def cuda_case(case):
+    if case == "multi_frame":
+        scene = dense_scene(seed=3)
+        players = np.array([[30, 20, 20], [10, 0, 50], [60, 30, 0]],
+                           np.int32)
+        return scene, SMALL, players
+    scene, cfg = {"dense": lambda: (dense_scene(seed=7, n=90), SMALL),
+                  "tie": lambda: (tie_scene(), SMALL),
+                  "early_exit": lambda: (early_exit_scene(), DEEP),
+                  "empty_reset": lambda: (empty_reset_scene(), DEEP),
+                  "ragged": lambda: (dense_scene(seed=5, n=70,
+                                                 config=RAGGED), RAGGED),
+                  }[case]()
+    return scene, cfg, scene.pos[:1].astype(np.int32)
+
+
+def kernel_inputs(case, device):
+    """trace_winners' arguments for a CUDA test case, on ``device``."""
+    scene, cfg, players = cuda_case(case)
+    ds = DeviceScene.from_scene(scene, cfg, device="cpu")
+    spans = binning.entity_span_bound(scene.ext.max(axis=0), cfg)
+    tabs = []
+    for p in players:
+        pos = ds.pos.clone()
+        pos[0] = torch.from_numpy(p)
+        tabs.append(binning.build_bins(pos, ds.ext, cfg, spans))
+    be = torch.stack([b for b, _ in tabs])
+    cnt = torch.stack([c for _, c in tabs])
+    return tuple(t.to(device) for t in (
+        ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt,
+        torch.from_numpy(players))) + (cfg,)
+
+
+CUDA_CASES = ["dense", "tie", "early_exit", "empty_reset", "ragged",
+              "multi_frame"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dense", "tie", "early_exit"])
+def test_cuda_shared_memory_matches_layout(cuda):
+    from pixel_art_raytracer_tpu_torch.config import DEFAULT_CONFIG
+    for cfg in (SMALL, DEEP, RAGGED, DEFAULT_CONFIG):
+        smem, blocks, regs, _ = trace_cuda.occupancy(cfg)
+        assert smem == trace_cuda.smem_bytes(cfg)
+        assert blocks >= 1 and 0 < regs <= 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_CASES)
 def test_cuda_kernel_matches_plain(cuda, case):
-    scene, cfg = {"dense": (dense_scene(seed=7, n=90), SMALL),
-                  "tie": (tie_scene(), SMALL),
-                  "early_exit": (early_exit_scene(), DEEP)}[case]
-    best, win, gb = port_trace(scene, cfg, device=cuda)
-    want_best, want_win, want_gb = port_trace(scene, cfg)
+    args = kernel_inputs(case, cuda)
+    launches = trace_cuda.launches
+    best, win = trace_cuda.trace_winners(*args, with_best=True)
+    torch.cuda.synchronize()
+    assert trace_cuda.launches == launches + 1
+    cpu_args = kernel_inputs(case, "cpu")
+    want_best, want_win = trace_cuda.trace_winners(*cpu_args, with_best=True)
     assert torch.equal(win.cpu(), want_win)
     assert torch.equal(best.cpu(), want_best)
+    scene, cfg, _ = cuda_case(case)
+    ds = DeviceScene.from_scene(scene, cfg, device=cuda)
+    gb = trace.materialize_gbuffer(win, ds.pos, ds.ext, ds.sprite_id,
+                                   ds.atlas_color, ds.atlas_depth,
+                                   ds.atlas_normal, ds.palette, args[6], cfg)
+    ds_cpu = DeviceScene.from_scene(scene, cfg, device="cpu")
+    want_gb = trace.materialize_gbuffer(
+        want_win, ds_cpu.pos, ds_cpu.ext, ds_cpu.sprite_id,
+        ds_cpu.atlas_color, ds_cpu.atlas_depth, ds_cpu.atlas_normal,
+        ds_cpu.palette, cpu_args[6], cfg)
     for g, w in zip(gb, want_gb):
         assert torch.equal(g.cpu(), w)
+
