@@ -22,12 +22,36 @@ fails (exit code != 0) unless:
   * both paths' frames equal ``runtime.native.cpp_render_frame`` pixel for
     pixel (frame 0 of every orbit and one mid-sweep frame of ``edge_z``).
 
+Then it renders the lighting modes at the same size (F = 64): directional
+lights (a sweep of 64 directions (cos t, 1, 0.5 sin t) with the player at
+home), additive multi-light (the three orbits' lights as (64, 3, 3)), and
+the dithered style (the center orbit with a point light on both paths, and
+the directional sweep dithered: BASELINE config 4's pair), and fails
+unless:
+
+  * the shadow kernel's directional mode equals its plain version
+    (``ops/shadow_dir.trace_light_directional``, the capped march with
+    per-pixel light bins) bit for bit on all 64 frames, its list path took
+    pixels, fewer than 1% of them took the direct march, and its longest
+    visit list equals the longest ``dda_visit_lists`` list over the
+    distinct (start bin, light bin) keys under the cap;
+  * each batch launches exactly: multi-light trace 1, shadow 3, fused 0 on
+    both settings of ``fuse_trace_shadow``; directional trace 1 and the
+    directional mode 1, fused 0, on both; dithered with a point light the
+    fused kernel once with ``fuse_trace_shadow`` and trace 1 + shadow 1
+    without;
+  * frames 0 and 32 of every new path equal the same states rendered on the
+    CPU through the plain versions, the dithered frames hold palette
+    colours only, and the dithered two-kernel and fused frames are equal.
+
 It prints the card, the build times, the three kernels' shared memory per
 block and blocks per SM, per orbit each march kernel's counters (pixels
 marched directly, the most start bins one tile held, the longest visit
 list), ms/frame, Mrays/s and the per-stage split of both paths, the
-kernels' times beside their plain versions and their bounds, a JSON line
-on the kernels and, last,
+kernels' times beside their plain versions and their bounds, the same
+for the new paths (Mrays/s counting 1 + L rays a pixel) and the
+directional mode (with its counters, shared memory and blocks per SM), a
+JSON line on the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error before printing any result.
 
@@ -63,9 +87,9 @@ from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
-from pixel_art_raytracer_tpu_torch.ops import (fused, fused_cuda, shadow,
-                                               shadow_cuda, trace,
-                                               trace_cuda)
+from pixel_art_raytracer_tpu_torch.ops import (fused, fused_cuda, shade,
+                                               shadow, shadow_cuda,
+                                               shadow_dir, trace, trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.runtime import kernels, native
 
@@ -90,6 +114,13 @@ SOURCES = {
     "fused": ("pixel_art_raytracer_tpu_torch/csrc/fused.cu",
               "pixel_art_raytracer_tpu/ops/fused_pallas.py:105"),
 }
+# The directional mode of csrc/shadow.cu replaces _shadow_kernel as the JAX
+# batched path launches it on its extended tables (models/batched.py:821).
+DIRECTIONAL_SOURCE = ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu",
+                      "pixel_art_raytracer_tpu/ops/shadow_pallas.py:626")
+# Most of a directional sweep's pixels that may take the direct march.
+DIRECT_SHARE = 0.01
+DIRECTIONAL_KEY_LABEL = "(start bin, light bin) keys"
 
 
 def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
@@ -156,14 +187,14 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def list_path(name: str, what: str, c: dict, n_pix: int,
-              longest: int | None = None) -> None:
+              longest: int | None = None, keys: str = "start bins") -> None:
     """Print a march kernel's counters ``c`` (``MarchCounters.read()``);
     raise unless its list path took some of the ``n_pix`` pixels it
     marched and, where ``longest`` is given, its longest visit list has
-    that length."""
+    that length.  ``keys`` names what its table holds."""
     print(f"{name} {what}: {n_pix - c['direct_pixels']} pixels on the list "
           f"path, {c['direct_pixels']} marched directly, at most "
-          f"{c['max_starts']} start bins in a tile, longest visit list "
+          f"{c['max_starts']} {keys} in a tile, longest visit list "
           f"{c['max_list']} bins")
     if c["direct_pixels"] >= n_pix:
         raise RuntimeError(f"{name}: the {what}'s list path took no pixel")
@@ -173,15 +204,53 @@ def list_path(name: str, what: str, c: dict, n_pix: int,
                            f"{longest}")
 
 
-def longest_visit_list(start_bin, light_bin, config) -> int:
+def longest_visit_list(start_bin, light_bin, config,
+                       max_steps: int | None = None) -> int:
     """The longest of ``shadow.dda_visit_lists`` over the distinct (start
-    bin, light bin) pairs of these rays."""
+    bin, light bin) pairs of these rays: its first visits of a bin, counted
+    by ``shadow.dda_first_visits``."""
     keys = torch.stack([t.expand(start_bin[0].shape).reshape(-1)
                         for t in (*start_bin, *light_bin)], dim=1)
     keys = torch.unique(keys, dim=0)
-    lists = shadow.dda_visit_lists(tuple(keys[:, :3].unbind(1)),
-                                   tuple(keys[:, 3:].unbind(1)), config)
-    return max(map(len, lists))
+    _, first = shadow.dda_first_visits(tuple(keys[:, :3].unbind(1)),
+                                       tuple(keys[:, 3:].unbind(1)), config,
+                                       max_steps)
+    return int(first.sum(0).max())
+
+
+def reset_launches() -> None:
+    trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
+    shadow_cuda.directional_launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches,
+            "shadow_directional": shadow_cuda.directional_launches,
+            "fused": fused_cuda.launches}
+
+
+def drive(label: str, anim, ds, players, lights, want: dict[str, int],
+          directional: bool = False):
+    """One batch through ``anim.render_states``, every launch count set to
+    0 just before and read just after; raises unless the counts are
+    ``want``.  Returns the frames and the counts."""
+    reset_launches()
+    frames = anim.render_states(ds, players, lights,
+                                directional=directional)
+    torch.cuda.synchronize()
+    got = read_launches()
+    print(f"{label}: launches per batch {got}")
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
+    return frames, got
+
+
+def direction_sweep(n: int, device) -> torch.Tensor:
+    """(n, 3) float32 directions toward the light, (cos t, 1, 0.5 sin t)
+    for t = 2 pi f / n."""
+    t = 2.0 * np.pi * np.arange(n) / n
+    d = np.stack([np.cos(t), np.ones(n), 0.5 * np.sin(t)], axis=1)
+    return torch.as_tensor(d.astype(np.float32), device=device)
 
 
 def require_equal(name: str, what: str, got: torch.Tensor,
@@ -346,7 +415,7 @@ def main() -> int:
               f"{rows_b} B of entity rows named by the bins")
 
     # -- 5. the two-kernel main path -----------------------------------------
-    trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
+    reset_launches()
     shadow_cuda.counters.reset()
     frames = {name: anim.render_states(ds, players, lights)
               for name, (players, lights) in sweeps.items()}
@@ -362,7 +431,7 @@ def main() -> int:
 
     # -- 6. the fused main path ----------------------------------------------
     renderer.fuse_trace_shadow = True
-    trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
+    reset_launches()
     fused_cuda.counters.reset()
     frames_fused = {name: anim.render_states(ds, players, lights)
                     for name, (players, lights) in sweeps.items()}
@@ -421,16 +490,17 @@ def main() -> int:
             ds.atlas_depth, ds.atlas_normal, ds.palette, players, cfg)
         s["dot"] = batched.geometry_stage(renderer, s["gbuf"], lights)[0]
 
-    def shade(s):
-        batched.shade_stage(renderer, s["gbuf"], s["dot"], s["lit"])
+    def shade_frames(s):
+        batched.shade_stage(renderer, ds, s["gbuf"],
+                            shade.factor_from_dot(s["dot"], s["lit"], cfg))
 
     for label, stages in (
             ("two-kernel", [("bins", bins), ("trace+gbuffer", trace_gbuf),
                             ("geometry", geometry), ("shadow", shadow_lit),
-                            ("shade", shade)]),
+                            ("shade", shade_frames)]),
             ("fused", [("bins", bins), ("fused", fused_kernel),
                        ("gbuffer+geometry", gbuf_geometry),
-                       ("shade", shade)])):
+                       ("shade", shade_frames)])):
         split = ", ".join(f"{k} {v:.4f}"
                           for k, v in stage_split(stages, TIMED_REPS).items())
         print(f"center {label} stage split, ms/frame at F={FRAMES}: {split}"
@@ -453,7 +523,184 @@ def main() -> int:
         print(f"{name} frame {f}: both paths pixel-exact against "
               f"cpp_render_frame")
 
-    # -- 9. kernel times beside their plain versions and bounds --------------
+    # -- 9. the directional mode of the shadow kernel against its plain ------
+    #       version, on the directional sweep
+    home = sweeps["center"][0]  # the player at home in every frame
+    dirs = direction_sweep(FRAMES, home.device)
+    steps = shadow_dir.grid_max_steps(cfg)
+    be, cnt = batched.bin_stage(renderer, cache, ds, home)
+    gbuf = batched.trace_stage(renderer, ds, be, cnt, home)
+    _, inv, K = shadow_dir.direction_constants(dirs, cfg)
+    dargs = (ds.pos, ds.ext, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index, inv,
+             K, home, cfg, steps)
+    work = {}
+    lit_p = shadow_dir.trace_light_directional(*dargs, work=work)
+    shadow_cuda.counters.reset()
+    lit_k = shadow_cuda.trace_light_directional(*dargs)
+    dir_stats = shadow_cuda.counters.read()
+    require_equal("directional", "shadow kernel lit (directional mode)",
+                  lit_k, lit_p)
+    rb, _ = shade.surface_rays(gbuf.y, gbuf.z, cfg)
+    lb = shadow_dir.pixel_light_bins(gbuf.y, gbuf.z, K, cfg)
+    list_path("directional sweep", "shadow kernel (directional mode)",
+              dir_stats, n_pix, longest_visit_list(rb, lb, cfg, steps),
+              keys=DIRECTIONAL_KEY_LABEL)
+    direct_share = dir_stats["direct_pixels"] / n_pix
+    print(f"directional sweep: {direct_share:.6f} of the pixels marched "
+          f"directly (step cap {steps})")
+    if direct_share >= DIRECT_SHARE:
+        raise RuntimeError(f"directional sweep: {direct_share:.4f} of the "
+                           f"pixels took the direct march")
+    errs["shadow_directional"] = max_abs_err(lit_k, lit_p)
+    times["shadow_directional"] = [cuda_ms(
+        lambda: shadow_cuda.trace_light_directional(*dargs), KERNEL_REPS)]
+    times["shadow_directional_plain"] = [cuda_ms(
+        lambda: shadow_dir.trace_light_directional(*dargs), PLAIN_REPS,
+        warm_up=False)]
+    bounds["shadow_directional"] = [(
+        entity_bytes(be, cnt, ds.pos, ds.ext)
+        + nbytes(home, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index, inv, K,
+                 lit_k), SLAB_OPS * int(work["slab_tests"]))]
+    smem, blocks, regs, local = shadow_cuda.directional_occupancy(cfg, steps)
+    print(f"shadow kernel (directional mode): {smem} B of shared memory per "
+          f"block, {blocks} blocks per SM at "
+          f"{shadow_cuda.march_threads(cfg)} threads, {regs} registers and "
+          f"{local} B of local memory a thread; a table of "
+          f"{shadow_cuda.DIRECTIONAL_KEYS} keys, lists of "
+          f"{shadow_cuda.list_capacity(cfg, steps)} bins  [{card}]")
+    print(f"directional sweep: F={FRAMES} directional kernel == "
+          f"trace_light_directional, bit-exact; "
+          f"{int(work['slab_tests'])} slab tests needed "
+          f"({int(work['slab_tests_every_probe'])} at every probe)")
+
+    # -- 10. the lighting modes' main paths, one batch each ------------------
+    center_players, center_lights = sweeps["center"]
+    multi = torch.stack([sweeps[n][1] for n in ("center", "edge_x",
+                                                 "edge_z")], dim=1)
+    dithered = DeferredRenderer(cfg, style="dithered").configure_for(scene)
+    anim_dithered = AnimationRenderer(dithered, cfg, static_bins=cache)
+    none = dict.fromkeys(read_launches(), 0)
+    two_kernel = {**none, "trace": 1, "shadow": 1}
+    directional_only = {**none, "trace": 1, "shadow_directional": 1}
+    paths = {}  # label -> (anim, players, lights, directional, frames)
+    counts = {}  # label -> launches per batch
+    for fuse in (False, True):
+        renderer.fuse_trace_shadow = dithered.fuse_trace_shadow = fuse
+        tag = "fused setting" if fuse else "two-kernel setting"
+        for label, a, players, lights, directional, want in (
+                ("multi-light", anim, home, multi, False,
+                 {**none, "trace": 1, "shadow": 3}),
+                ("directional", anim, home, dirs, True, directional_only),
+                ("dithered point", anim_dithered, center_players,
+                 center_lights, False,
+                 {**none, "fused": 1} if fuse else two_kernel),
+                ("dithered directional", anim_dithered, home, dirs, True,
+                 directional_only)):
+            shadow_cuda.counters.reset()
+            frames_m, counts[f"{label}, {tag}"] = drive(
+                f"{label}, {tag}", a, ds, players, lights, want,
+                directional=directional)
+            paths[f"{label}, {tag}"] = (a, players, lights, directional,
+                                        frames_m)
+            if label == "directional":
+                list_path(f"directional, {tag}",
+                          "shadow kernel (directional mode)",
+                          shadow_cuda.counters.read(), n_pix,
+                          keys=DIRECTIONAL_KEY_LABEL)
+    mode_launches = counts["directional, two-kernel setting"]
+    for label in ("multi-light", "directional", "dithered point",
+                  "dithered directional"):
+        require_equal(label, "fused-setting frames vs two-kernel frames",
+                      paths[f"{label}, fused setting"][4],
+                      paths[f"{label}, two-kernel setting"][4])
+    palette = ds.palette[:, :3].long()
+    for label in ("dithered point", "dithered directional"):
+        frames_d = paths[f"{label}, two-kernel setting"][4].long()
+        codes = (frames_d[..., 0] << 16) | (frames_d[..., 1] << 8) \
+            | frames_d[..., 2]
+        allowed = (palette[:, 0] << 16) | (palette[:, 1] << 8) | palette[:, 2]
+        if not bool(torch.isin(codes, allowed).all()):
+            raise RuntimeError(f"{label}: a frame holds a colour outside the "
+                               f"palette")
+    print("lighting modes: fused-setting frames == two-kernel frames on all "
+          f"4 paths x {FRAMES} frames; dithered frames hold palette colours "
+          "only")
+
+    # -- 11. frames 0 and 32 of every new path against the CPU ---------------
+    renderer.fuse_trace_shadow = dithered.fuse_trace_shadow = False
+    ds_cpu = DeviceScene.from_scene(scene, cfg, device="cpu")
+    cache_cpu = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans,
+                           device="cpu")
+    pick = [0, FRAMES // 2]
+    for label in ("multi-light", "directional", "dithered point",
+                  "dithered directional"):
+        a, players, lights, directional, frames = paths[
+            f"{label}, two-kernel setting"]
+        a_cpu = AnimationRenderer(a.renderer, cfg, static_bins=cache_cpu)
+        want = a_cpu.render_states(ds_cpu, players[pick].cpu(),
+                                   lights[pick].cpu(),
+                                   directional=directional)
+        require_equal(label, "frames 0 and 32 vs the CPU", frames[pick].cpu(),
+                      want)
+        print(f"{label}: frames 0 and {FRAMES // 2} == the CPU's plain "
+              f"versions")
+
+    # -- 12. the new paths' times and stage splits ---------------------------
+    for label, L in (("multi-light", 3), ("directional", 1),
+                     ("dithered point", 1), ("dithered directional", 1)):
+        ms = {}
+        for fuse in (False, True, True, False):
+            renderer.fuse_trace_shadow = dithered.fuse_trace_shadow = fuse
+            tag = "fused setting" if fuse else "two-kernel setting"
+            a, players, lights, directional, _ = paths[f"{label}, {tag}"]
+            ms.setdefault(tag, []).append(cuda_ms(
+                lambda: a.render_states(ds, players, lights,
+                                        directional=directional),
+                TIMED_REPS))
+        new_rays = (1 + L) * W * H * FRAMES
+        for tag, v in ms.items():
+            m = float(np.mean(v))
+            print(f"{label}, {tag}: F={FRAMES} {m / FRAMES:.4f} ms/frame, "
+                  f"{new_rays / (m * 1e3):.2f} Mrays/s ({1 + L} rays a "
+                  f"pixel)  [{card}]")
+    renderer.fuse_trace_shadow = dithered.fuse_trace_shadow = False
+
+    def trace_home(s):
+        s["be"], s["cnt"] = batched.bin_stage(renderer, cache, ds, home)
+        s["gbuf"] = batched.trace_stage(renderer, ds, s["be"], s["cnt"],
+                                        home)
+
+    def directional_lit(s):
+        s["dot"], s["lit"] = batched.directional_stage(
+            renderer, ds, s["be"], s["cnt"], home, s["gbuf"], dirs)
+
+    def multi_factor(s):
+        s["factor"] = batched.multi_light_stage(
+            renderer, ds, s["be"], s["cnt"], home, s["gbuf"], multi)
+
+    def factor(s):
+        s["factor"] = shade.factor_from_dot(s["dot"], s["lit"], cfg)
+
+    def shade_reference(s):
+        batched.shade_stage(renderer, ds, s["gbuf"], s["factor"])
+
+    def shade_dithered(s):
+        batched.shade_stage(dithered, ds, s["gbuf"], s["factor"])
+
+    for label, stages in (
+            ("multi-light", [("bins+trace+gbuffer", trace_home),
+                             ("3 x (geometry+shadow)+factor", multi_factor),
+                             ("shade", shade_reference)]),
+            ("dithered directional", [
+                ("bins+trace+gbuffer", trace_home),
+                ("directional (dot+kernel)", directional_lit),
+                ("factor", factor), ("dither", shade_dithered)])):
+        split = ", ".join(f"{k} {v:.4f}"
+                          for k, v in stage_split(stages, TIMED_REPS).items())
+        print(f"{label} stage split, ms/frame at F={FRAMES}: {split}"
+              f"  [{card}]")
+
+    # -- 13. kernel times beside their plain versions and bounds -------------
     mean = {k: float(np.mean(v)) for k, v in times.items()}
     rows = []
     for k, (src, rep) in SOURCES.items():
@@ -481,12 +728,24 @@ def main() -> int:
                      "max_abs_err": errs[k], "ms": mean[k],
                      "plain_ms": mean[k + "_plain"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+    k = "shadow_directional"
+    bound_ms, bound_by = bound(*bounds[k][0])
+    print(f"{k} kernel {mean[k]:.4f} ms, plain {mean[k + '_plain']:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{mean[k] / bound_ms:.1f}x) per call on F={FRAMES} {W}x{H} "
+          f"frames of the directional sweep  [{card}]")
+    rows.append({"name": k, "route": "cuda", "source": DIRECTIONAL_SOURCE[0],
+                 "replaces": DIRECTIONAL_SOURCE[1],
+                 "launches": mode_launches[k], "max_abs_err": errs[k],
+                 "ms": mean[k], "plain_ms": mean[k + "_plain"],
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None})
     print(f"fused kernel {mean['fused']:.4f} ms vs trace + shadow kernels "
           f"{mean['trace'] + mean['shadow']:.4f} ms per F={FRAMES} call  "
           f"[{card}]")
     print(json.dumps({"kernels": rows}))
 
-    # -- 10. result ----------------------------------------------------------
+    # -- 14. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,11 @@
 
 The batched graybox render path of :mod:`pixel_art_raytracer_tpu` on an
 NVIDIA H100: spatial-hash rebin, oblique primary visibility, light
-geometry, the 7-phase DDA shadow march and the ambient + Lambert shade.
-The hot stages run as hand-written CUDA kernels (``csrc/``): trace and
-shadow as two kernels, or as one fused kernel when the renderer's
+geometry, the 7-phase DDA shadow march and the ambient + Lambert shade,
+with the JAX batched path's lighting modes (additive multi-light,
+directional lights, ordered-dither shading).  The hot stages run as
+hand-written CUDA kernels (``csrc/``): trace and shadow as two kernels, or
+as one fused kernel for point lights when the renderer's
 ``fuse_trace_shadow`` is set.  Every kernel keeps an exact plain PyTorch
 version beside it, which CPU tensors take.
 

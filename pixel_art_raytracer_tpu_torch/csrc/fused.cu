@@ -41,9 +41,10 @@
 // the DDA once per distinct start bin (a warp each), stages the distinct
 // bins' boxes once as float corners and has every pixel test its start's
 // list; the light geometry is recomputed from the surface point in
-// registers.  Pixels whose start bin does not fit the table of kStarts
-// march on their own (stats[kStatDirect]).  Exact because the lit bit is an
-// OR over the probed bins, which depend only on (start bin, light bin).
+// registers.  Pixels whose start bin does not fit the table of
+// PointTable::kKeys march on their own (stats[kStatDirect]).  Exact
+// because the lit bit is an OR over the probed bins, which depend only on
+// (start bin, light bin).
 // The TPU kernel's packed picks, VMEM windows, membership tables, candidate
 // lists, divkernel division and sz-hull reduction have no counterpart.
 #include "common.cuh"
@@ -53,7 +54,8 @@ namespace {
 // Shared ints of the region the walk's draw list shares with the march:
 // the larger of the two layouts.
 __host__ __device__ int shared_region_ints(const par::Grid& g) {
-  const int march = par::MarchSmem::ints(g, g.bin_size * g.bin_size);
+  const int march = par::MarchSmem<par::PointTable>::ints(
+      g, g.bin_size * g.bin_size, par::kNoStepCap);
   return march > par::draw_ints(g) ? march : par::draw_ints(g);
 }
 
@@ -76,7 +78,7 @@ fused_trace_shadow_kernel(
   extern __shared__ __align__(16) int smem[];
   const int bs = g.bin_size;
   const int n_pix = bs * bs;
-  const par::MarchSmem s(smem, g, n_pix);
+  const par::MarchSmem<par::PointTable> s(smem, g, n_pix, par::kNoStepCap);
   int* s_col = smem + shared_region_ints(g);
   int* s_y = s_col + par::column_ints(g);  // (n_pix,)
   int* s_z = s_y + n_pix;                  // (n_pix,)
@@ -135,7 +137,8 @@ fused_trace_shadow_kernel(
   // The start bin (i / bs, (view_h - y - z) / bs, z / bs); i / bs is the
   // tile's bin_x.
   auto key_of = [&](int q, int, int) {
-    return make_int3(bin_x, (g.view_h - s_y[q] - s_z[q]) / bs, s_z[q] / bs);
+    return par::PointTable::Key{
+        {bin_x, (g.view_h - s_y[q] - s_z[q]) / bs, s_z[q] / bs}};
   };
   // Light geometry (ops/shade.py::light_geometry).
   auto ray_of = [&](int q, int i, int) {
@@ -157,8 +160,8 @@ fused_trace_shadow_kernel(
                     s_ent[q]};
   };
   par::march_tile(pos, ext, players, bins_ent, counts, f, g, bin_x, bin_y,
-                  lx / bs, (g.view_h - ly - lz) / bs, lz / bs, s, key_of,
-                  ray_of, lit_out, stats);
+                  make_int3(lx / bs, (g.view_h - ly - lz) / bs, lz / bs),
+                  par::kNoStepCap, s, key_of, ray_of, lit_out, stats);
 }
 
 size_t fused_smem(const par::Grid& g) {

@@ -76,9 +76,13 @@ class AnimationRenderer:
                       directional: bool = False) -> torch.Tensor:
         """Render one frame per state row.
 
-        player_pos, lights: (F, 3) int32 on the scene's device.  Returns
-        (F, H, W, 3) uint8.  ``directional=True`` and (F, L, 3) lights raise
-        ``NotImplementedError``.
+        player_pos: (F, 3) int32 on the scene's device.  lights: (F, 3)
+        int32, one point light per frame, or (F, L, 3) int32 for additive
+        multi-light frames (the shadow march runs once per light).  With
+        ``directional=True``, lights is (F, 3) float32 directions toward
+        the light (the JAX package's ``shade_directional``).  The
+        renderer's style applies to every mode.  Returns (F, H, W, 3)
+        uint8; see ``models/batched.py``.
         """
         return render_states_batched(self.renderer, self.static_bins, dscene,
                                      player_pos, lights,

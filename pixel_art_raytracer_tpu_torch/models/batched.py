@@ -1,7 +1,7 @@
-"""Whole-batch renderer: the five stages of a frame, each over all F frames.
+"""Whole-batch renderer: the stages of a frame, each over all F frames.
 
 Counterpart of ``pixel_art_raytracer_tpu/models/batched.py::
-render_states_batched``, cut down to its point-light reference path:
+render_states_batched``.  A point light per frame runs
 
   1. bins     — ``StaticBins.merge`` of the player into every frame's
                 tables (or a full rebuild per frame without a cache),
@@ -9,7 +9,9 @@ render_states_batched``, cut down to its point-light reference path:
                 ``materialize_gbuffer``,
   3. geometry — ``light_geometry`` and the Lambert dot,
   4. shadow   — kernel 2 → lit mask (F, H, W),
-  5. shade    — ambient + Lambert factor → (F, H, W, 3) uint8.
+  5. shade    — the ambient + Lambert factor, then the u8 scale of the
+                palette colour (``style="reference"``) or the ordered dither
+                onto the palette (``style="dithered"``) → (F, H, W, 3) uint8.
 
 With the renderer's ``fuse_trace_shadow`` set, stages 2-4 run as
 
@@ -20,6 +22,23 @@ With the renderer's ``fuse_trace_shadow`` set, stages 2-4 run as
 as the JAX package's fused path does after its kernel; the frames are the
 same.  There is no fallback: a shape the fused kernel cannot take raises.
 
+The other lighting modes replace stages 3-4, as the JAX package's batched
+path does (``models/batched.py:888-905`` there):
+
+* additive multi-light, (F, L, 3) lights: stages 3-4 run once per light
+  (L launches of kernel 2) and each light's shadowed diffuse adds over the
+  shared ambient base (:func:`multi_light_stage`);
+* directional lights, ``directional=True`` with (F, 3) float32 directions
+  toward the light: the frame's constant direction gives the Lambert dot,
+  and kernel 2's directional mode marches each pixel toward its own
+  virtual far light under the grid's step cap (:func:`directional_stage`).
+
+The JAX package runs its fused kernel only for (F, 3) point lights
+(``models/batched.py:161-172`` there), so multi-light and directional
+frames take the two-kernel path whatever ``fuse_trace_shadow`` says, and
+so does the port: this is the JAX package's path choice, not a fallback
+on failure.  The dithered style applies to every mode, after its factor.
+
 The stage functions are public so a profiler can time each one; the
 reference's per-frame loop is alternative.cpp:628-817.  CUDA tensors run
 the kernels, CPU tensors their plain versions.
@@ -29,30 +48,24 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import binning, fused_cuda, shade, shadow_cuda, trace, trace_cuda
+from ..ops import (binning, dither, fused_cuda, shade, shadow_cuda,
+                   shadow_dir, trace, trace_cuda)
 
 
-def check_supported(renderer, lights: torch.Tensor, directional: bool,
-                    upto) -> None:
-    """Raise ``NotImplementedError`` for the JAX batched path's features
-    that the port does not have yet, naming the ROADMAP item that ports
-    each."""
-    if directional:
-        raise NotImplementedError(
-            "directional lights are not ported yet (ROADMAP Queue 1 item "
-            "8.3: ops/shadow_dir.py and shade.shade_directional)")
-    if lights.dim() != 2:
-        raise NotImplementedError(
-            "multi-light (F, L, 3) frames are not ported yet (ROADMAP "
-            "Queue 1 item 8.1: shade.shade_multi)")
-    if renderer.style != "reference":
-        raise NotImplementedError(
-            f"style={renderer.style!r} is not ported yet (ROADMAP Queue 1 "
-            "item 8.2: ops/dither.py)")
+def check_supported(lights: torch.Tensor, directional: bool, upto) -> None:
+    """Raise for a request the batched path does not render: ``upto=``
+    stage cuts (``NotImplementedError``), and directional lights given as
+    (F, L, 3) (``ValueError``, as in the JAX package)."""
     if upto is not None:
         raise NotImplementedError(
             "upto= stage cuts are not ported; time the stage functions of "
             "models/batched.py instead")
+    if directional and lights.dim() != 2:
+        raise ValueError("directional mode takes (F, 3) directions, not "
+                         f"lights of shape {tuple(lights.shape)}")
+    if lights.dim() not in (2, 3) or lights.shape[-1] != 3:
+        raise ValueError(f"lights of shape {tuple(lights.shape)}: expected "
+                         f"(F, 3) or (F, L, 3)")
 
 
 def bin_stage(renderer, static_bins, dscene, players):
@@ -118,9 +131,50 @@ def fused_stage(renderer, dscene, bins_ent, counts, players, lights):
     return gbuf, winner, lit
 
 
-def shade_stage(renderer, gbuf, dot, lit):
-    """Ambient + Lambert shade → (F, H, W, 3) uint8."""
-    factor = shade.factor_from_dot(dot, lit, renderer.config)
+def multi_light_stage(renderer, dscene, bins_ent, counts, players, gbuf,
+                      lights):
+    """Stages 3-4 once per light of (F, L, 3) int32 ``lights``, each
+    light's factor accumulated as ``shade.add_light``, then
+    ``shade.multi_light_factor``.  Returns the factor (F, H, W) float32."""
+    cfg = renderer.config
+    diffuse = torch.zeros(gbuf.y.shape, dtype=torch.float32,
+                          device=gbuf.y.device)
+    for li in range(lights.shape[1]):
+        light = lights[:, li].contiguous()
+        dot, *rays = geometry_stage(renderer, gbuf, light)
+        lit = shadow_stage(renderer, dscene, bins_ent, counts, players, gbuf,
+                           *rays)
+        diffuse = shade.add_light(diffuse, shade.factor_from_dot(dot, lit,
+                                                                 cfg), cfg)
+    return shade.multi_light_factor(diffuse, cfg)
+
+
+def directional_stage(renderer, dscene, bins_ent, counts, players, gbuf,
+                      directions):
+    """The Lambert dot against each frame's constant direction and the
+    directional shadow march (kernel 2's directional mode, step cap
+    ``shadow_dir.grid_max_steps``).  ``directions``: (F, 3) toward the
+    light.  Returns ``(dot, lit)``, each (F, H, W)."""
+    cfg = renderer.config
+    F = directions.shape[0]
+    tl, inv, K = shadow_dir.direction_constants(directions, cfg)
+    dot = shade.lambert_dot(gbuf.normal,
+                            tuple(tl[:, a].view(F, 1, 1) for a in range(3)))
+    lit = shadow_cuda.trace_light_directional(
+        dscene.pos, dscene.ext, bins_ent, counts, gbuf.y, gbuf.z,
+        gbuf.entity_index, inv, K, players, cfg,
+        shadow_dir.grid_max_steps(cfg))
+    return dot, lit
+
+
+def shade_stage(renderer, dscene, gbuf, factor):
+    """The frames of a brightness factor (F, H, W): ``Color * factor`` per
+    channel with C truncation (``style="reference"``) or the palette colour
+    the ordered dither picks (``style="dithered"``).  Returns
+    (F, H, W, 3) uint8."""
+    if renderer.style == "dithered":
+        return dither.shade_dithered(gbuf.color, factor,
+                                     dscene.palette[:, :3])
     return shade.shade_u8(gbuf.color, factor)
 
 
@@ -131,21 +185,35 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
 
     ``renderer``: a ``DeferredRenderer`` configured for the scene.
     ``static_bins``: a ``StaticBins`` cache with ``n_dynamic=1``, or None
-    for a full rebuild per frame.  players, lights: (F, 3) int32 on the
-    scene's device.  Returns (F, H, W, 3) uint8.
+    for a full rebuild per frame.  players: (F, 3) int32 on the scene's
+    device.  lights: (F, 3) int32, one point light per frame; (F, L, 3)
+    int32 for additive multi-light frames; or, with ``directional=True``,
+    (F, 3) float32 directions toward the light.  Returns (F, H, W, 3)
+    uint8.
 
-    ``directional``, (F, L, 3) lights, ``style="dithered"`` and ``upto``
-    raise ``NotImplementedError``.
+    ``upto`` raises ``NotImplementedError``; directional with (F, L, 3)
+    lights raises ``ValueError``.
     """
-    check_supported(renderer, lights, directional, upto)
+    check_supported(lights, directional, upto)
+    cfg = renderer.config
     bins_ent, counts = bin_stage(renderer, static_bins, dscene, players)
-    if renderer.fuse_trace_shadow:
+    if renderer.fuse_trace_shadow and lights.dim() == 2 and not directional:
         gbuf, _, lit = fused_stage(renderer, dscene, bins_ent, counts,
                                    players, lights)
         dot = geometry_stage(renderer, gbuf, lights)[0]
-        return shade_stage(renderer, gbuf, dot, lit)
+        factor = shade.factor_from_dot(dot, lit, cfg)
+        return shade_stage(renderer, dscene, gbuf, factor)
     gbuf = trace_stage(renderer, dscene, bins_ent, counts, players)
-    dot, inv, origin, rb, lb = geometry_stage(renderer, gbuf, lights)
-    lit = shadow_stage(renderer, dscene, bins_ent, counts, players, gbuf,
-                       inv, origin, rb, lb)
-    return shade_stage(renderer, gbuf, dot, lit)
+    if directional:
+        dot, lit = directional_stage(renderer, dscene, bins_ent, counts,
+                                     players, gbuf, lights)
+        factor = shade.factor_from_dot(dot, lit, cfg)
+    elif lights.dim() == 3:
+        factor = multi_light_stage(renderer, dscene, bins_ent, counts,
+                                   players, gbuf, lights)
+    else:
+        dot, *rays = geometry_stage(renderer, gbuf, lights)
+        lit = shadow_stage(renderer, dscene, bins_ent, counts, players,
+                           gbuf, *rays)
+        factor = shade.factor_from_dot(dot, lit, cfg)
+    return shade_stage(renderer, dscene, gbuf, factor)

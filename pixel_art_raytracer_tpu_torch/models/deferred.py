@@ -17,6 +17,8 @@ from ..device import resolve
 from ..ops import binning
 from ..scene import Light, Scene
 
+STYLES = ("reference", "dithered")
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceScene:
@@ -83,7 +85,12 @@ class DeferredRenderer:
         # (2, 3, 2) covers any scene whose extents stay within one bin (the
         # reference world is all 20-cubes).
         self.spans = (2, 3, 2)
-        # 'reference' only; 'dithered' raises until ported.
+        # 'reference' scales the palette colour by the brightness factor
+        # (alternative.cpp:757-758); 'dithered' re-quantises the lit
+        # luminance onto the palette with a Bayer matrix (ops/dither.py,
+        # BASELINE config 4).
+        if style not in STYLES:
+            raise ValueError(f"style={style!r}: expected one of {STYLES}")
         self.style = style
         # Batched path: run primary visibility and the shadow march as one
         # kernel (csrc/fused.cu) instead of two, the same frames either way.

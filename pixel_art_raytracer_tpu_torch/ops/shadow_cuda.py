@@ -1,10 +1,13 @@
-"""Wrapper of kernel 2 (``csrc/shadow.cu``): the per-pixel lit mask.
+"""Wrappers of kernel 2 (``csrc/shadow.cu``): the per-pixel lit mask of a
+point light (:func:`trace_light`) or a directional light
+(:func:`trace_light_directional`) per frame.
 
-CPU tensors take the plain version, :func:`ops.shadow.trace_light_dynamic`;
-CUDA tensors launch the kernel, and anything else raises.  ``launches``
-counts kernel launches; ``counters`` holds the kernel's device counters
-(pixels marched directly, the most start bins in a tile, the longest visit
-list).
+CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`
+and :func:`ops.shadow_dir.trace_light_directional`; CUDA tensors launch the
+kernel, and anything else raises.  ``launches`` and
+``directional_launches`` count the two modes' launches; ``counters`` holds
+the kernel's device counters of both (pixels marched directly, the most
+keys in a tile, the longest visit list).
 """
 
 from __future__ import annotations
@@ -13,17 +16,20 @@ import torch
 
 from ..config import RenderConfig
 from ..runtime import kernels
-from . import shadow
+from . import shadow, shadow_dir
 
 launches = 0
+directional_launches = 0
 counters = kernels.MarchCounters()
 
 # Shared memory a block may use on Hopper (opt-in above 48 KB).
 MAX_SMEM = 227 * 1024
-# csrc/common.cuh: kStarts, the distinct start bins a tile's table holds;
+# csrc/common.cuh: the keys a tile's table holds (PointTable: start bins of
+# 3 ints; DirectionalTable: (start bin, light bin) pairs of 6 ints);
 # kChunkBins, the list entries staged at once; kMarchThreads, the most
 # threads a march block may have.
 STARTS = 4
+DIRECTIONAL_KEYS = 16
 CHUNK_BINS = 64
 MARCH_THREADS = 320
 
@@ -37,20 +43,35 @@ def march_threads(config: RenderConfig) -> int:
                  if n_pix % t == 0), 256)
 
 
-def march_smem_bytes(config: RenderConfig) -> int:
+def list_capacity(config: RenderConfig, max_steps: int | None) -> int:
+    """The entries a visit list can hold: its distinct bins, at most the
+    grid's volume V, and at most 7 a step under a step cap."""
+    V = config.hash_volume
+    return V if max_steps is None else min(V, 7 * max_steps)
+
+
+def march_smem_bytes(config: RenderConfig, keys: int = STARTS,
+                     key_ints: int = 3,
+                     max_steps: int | None = None) -> int:
     """Shared memory of csrc/common.cuh ``MarchSmem`` for one tile of
-    bin_size**2 pixels: CHUNK_BINS staged list entries of ``cap``
-    candidates (two float4: the corners and the raw id) and their live
-    counts, the tile's start bins, list lengths and table counts, each
-    warp's start bins and their index in the table, a V-bit mask and a
-    V-entry visit list per start bin, and two bytes a pixel."""
+    bin_size**2 pixels and a table of ``keys`` keys of ``key_ints`` ints
+    (the defaults: the point mode's): CHUNK_BINS staged list entries of
+    ``cap`` candidates (two float4: the corners and the raw id) and their
+    live counts, the tile's keys, list lengths and table counts, each
+    warp's keys and their index in the table, a V-bit mask and a visit list
+    of :func:`list_capacity` entries per key, and two bytes a pixel."""
     V, cap = config.hash_volume, config.bin_capacity
     n_pix = config.bin_size ** 2
     warps = MARCH_THREADS // 32
-    ints = (8 * CHUNK_BINS * cap + CHUNK_BINS + STARTS * 3 + STARTS + 2
-            + warps * (STARTS * 3 + 1 + STARTS) + STARTS * -(-V // 32)
-            + STARTS * V + (2 * n_pix + 3) // 4)
+    ints = (8 * CHUNK_BINS * cap + CHUNK_BINS + keys * key_ints + keys + 2
+            + warps * (keys * key_ints + 1 + keys) + keys * -(-V // 32)
+            + keys * list_capacity(config, max_steps) + (2 * n_pix + 3) // 4)
     return 4 * ints
+
+
+def directional_smem_bytes(config: RenderConfig, max_steps: int) -> int:
+    """Shared memory of a block of the directional mode."""
+    return march_smem_bytes(config, DIRECTIONAL_KEYS, 6, max_steps)
 
 
 def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
@@ -119,8 +140,80 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
     return lit
 
 
+def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
+                            start_ent, inv, K, players,
+                            config: RenderConfig,
+                            max_steps: int) -> torch.Tensor:
+    """Lit mask (F, H, W) bool under a directional light per frame.
+
+    Arguments as :func:`ops.shadow_dir.trace_light_directional`: the
+    G-buffer's y, z and entity (F, H, W) int32, each frame's reciprocal
+    direction ``inv`` (F, 3) float32 and far-light offsets ``K`` (F, 3)
+    int32, and the step cap ``max_steps`` >= 0.
+    """
+    global directional_launches
+    dev = bins_ent.device
+    if dev.type == "cpu":
+        return shadow_dir.trace_light_directional(
+            pos, ext, bins_ent, counts, gbuf_y, gbuf_z, start_ent, inv, K,
+            players, config, max_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_light_directional: no kernel for device "
+                         f"{dev}")
+
+    cfg = config
+    F = bins_ent.shape[0]
+    H, W = cfg.view_height, cfg.view_width
+    V, cap = cfg.hash_volume, cfg.bin_capacity
+    N = pos.shape[0]
+    pixel = (F, H, W)
+    for t, name, dtype, shape in (
+            (pos, "pos", torch.int32, (N, 3)),
+            (ext, "ext", torch.int32, (N, 3)),
+            (players, "players", torch.int32, (F, 3)),
+            (bins_ent, "bins_ent", torch.int32, (F, V, cap)),
+            (counts, "counts", torch.int32, (F, V)),
+            (gbuf_y, "gbuf_y", torch.int32, pixel),
+            (gbuf_z, "gbuf_z", torch.int32, pixel),
+            (start_ent, "start_ent", torch.int32, pixel),
+            (inv, "inv", torch.float32, (F, 3)),
+            (K, "K", torch.int32, (F, 3))):
+        kernels.require(t, name, dtype, shape, dev)
+    if max_steps < 0:
+        raise ValueError(f"trace_light_directional: max_steps {max_steps} "
+                         f"< 0")
+    smem = directional_smem_bytes(cfg, max_steps)
+    if smem > MAX_SMEM:
+        raise ValueError(f"trace_light_directional: visit lists of a "
+                         f"{V}-bin grid and a tile of {cfg.bin_size}**2 "
+                         f"pixels need {smem} B of shared memory, over the "
+                         f"{MAX_SMEM} B a block may use")
+
+    lit = torch.empty(pixel, dtype=torch.bool, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.par_shadow_dir_lit(
+            pos.data_ptr(), ext.data_ptr(), players.data_ptr(),
+            bins_ent.data_ptr(), counts.data_ptr(), gbuf_y.data_ptr(),
+            gbuf_z.data_ptr(), start_ent.data_ptr(), inv.data_ptr(),
+            K.data_ptr(), lit.data_ptr(), counters.tensor(dev).data_ptr(),
+            F, W, H, cfg.bin_size, cap, cfg.hash_width, cfg.hash_height,
+            cfg.hash_length, max_steps, march_threads(cfg),
+            kernels.stream_handle(dev))
+    kernels.check(rc, "par_shadow_dir_lit")
+    directional_launches += 1
+    return lit
+
+
 def occupancy(config: RenderConfig) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
-    local bytes per thread)`` of the kernel (needs the card)."""
+    local bytes per thread)`` of the point mode (needs the card)."""
     return kernels.occupancy("par_shadow_occupancy", config,
                              march_threads(config))
+
+
+def directional_occupancy(config: RenderConfig,
+                          max_steps: int) -> tuple[int, ...]:
+    """The same for the directional mode under step cap ``max_steps``."""
+    return kernels.occupancy("par_shadow_dir_occupancy", config,
+                             march_threads(config), max_steps)

@@ -43,9 +43,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 12 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 9 + [_P],
+    "par_shadow_dir_lit": [_P] * 12 + [_I] * 10 + [_P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
+    "par_shadow_dir_occupancy": [_I] * 9 + [_P],
     "par_fused_occupancy": [_I] * 8 + [_P],
 }
 
@@ -146,17 +148,18 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def occupancy(name: str, config, threads: int) -> tuple[int, ...]:
+def occupancy(name: str, config, threads: int,
+              *extra: int) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
     local bytes per thread)`` of a kernel at ``threads`` threads, from the
     C entry point ``name``
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
-    ``cudaFuncGetAttributes``)."""
+    ``cudaFuncGetAttributes``); ``extra`` ints follow ``threads``."""
     cfg = config
     out = (ctypes.c_int * 4)()
     rc = getattr(library(), name)(
         cfg.view_width, cfg.view_height, cfg.bin_size, cfg.bin_capacity,
-        cfg.hash_width, cfg.hash_height, cfg.hash_length, threads,
+        cfg.hash_width, cfg.hash_height, cfg.hash_length, threads, *extra,
         ctypes.addressof(out))
     check(rc, name)
     return tuple(out)
@@ -165,8 +168,9 @@ def occupancy(name: str, config, threads: int) -> tuple[int, ...]:
 class MarchCounters:
     """The march kernels' device counters (csrc/common.cuh MarchStat), one
     (3,) int32 tensor per device that each launch adds to: pixels marched
-    directly, the most start bins one tile held (kStarts + 1 where some
-    did not fit) and the longest visit list."""
+    directly, the most keys one tile held (``max_starts``: start bins, or
+    (start bin, light bin) pairs in the directional mode; the table's size
+    + 1 where some did not fit) and the longest visit list."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}

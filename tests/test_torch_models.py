@@ -28,6 +28,17 @@ from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 SMALL = RenderConfig(view_width=80, view_height=80, view_length=80)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Run each test on one PyTorch thread: the suite runs in several
+    worker processes at once, and the plain versions' many small ops slow
+    down sharply when every worker also spreads over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -1,6 +1,7 @@
 """Port packaging: no JAX and nothing of the JAX package, no build at
-import, the kernel build flags, entry points that default to the card, and
-the features the port refuses instead of rendering another path."""
+import, the kernel build flags, entry points that default to the card, the
+lighting modes rendering on both paths, and the requests the port refuses
+instead of rendering another path."""
 
 import pathlib
 import subprocess
@@ -154,37 +155,54 @@ def test_build_dir_hash_follows_sources(tmp_path, monkeypatch):
     assert kernels.build_dir() != before
 
 
-@pytest.mark.parametrize("case", ["directional", "multi_light", "dithered",
-                                  "upto"])
+FEATURES = ["directional", "multi_light", "dithered", "upto",
+            "directional_multi"]
+
+
+@pytest.mark.parametrize("case", FEATURES)
 def test_unported_features_raise(case):
-    check_unported_raises(case, fuse=False)
+    check_feature(case, fuse=False)
 
 
-@pytest.mark.parametrize("case", ["directional", "multi_light", "dithered",
-                                  "upto"])
+@pytest.mark.parametrize("case", FEATURES)
 def test_unported_features_raise_on_the_fused_path(case):
-    check_unported_raises(case, fuse=True)
+    check_feature(case, fuse=True)
 
 
-def check_unported_raises(case, fuse: bool):
+def check_feature(case, fuse: bool):
+    """The JAX batched path's lighting modes render on both settings of
+    ``fuse_trace_shadow`` (their parity with the JAX package is in
+    tests/test_torch_lights.py); ``upto=`` stage cuts still raise, and
+    directional lights given as (F, L, 3) raise as in the JAX package."""
     scene = small_scene()
     ds = DeviceScene.from_scene(scene, SMALL, device="cpu")
     style = "dithered" if case == "dithered" else "reference"
     r = DeferredRenderer(SMALL, style=style).configure_for(scene)
     r.fuse_trace_shadow = fuse
+    anim = AnimationRenderer(r, SMALL)
     players = ds.pos[:1]
     lights = torch.tensor([[60, 60, 20]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP|stage"):
-        if case == "directional":
-            AnimationRenderer(r, SMALL).render_states(
-                ds, players, lights.float(), directional=True)
-        elif case == "multi_light":
-            AnimationRenderer(r, SMALL).render_states(ds, players,
-                                                      lights[:, None])
-        elif case == "upto":
+    if case == "upto":
+        with pytest.raises(NotImplementedError, match="stage"):
             render_states_batched(r, None, ds, players, lights, upto="trace")
-        else:
-            r.render(ds, np.array([60, 60, 20]))
+        return
+    if case == "directional_multi":
+        with pytest.raises(ValueError, match="directional"):
+            anim.render_states(ds, players, lights[:, None].float(),
+                               directional=True)
+        return
+    if case == "directional":
+        frames = anim.render_states(ds, players, torch.tensor(
+            [[0.3, 1.0, -0.2]]), directional=True)
+    elif case == "multi_light":
+        frames = anim.render_states(ds, players, torch.tensor(
+            [[[60, 60, 20], [10, 70, 30]]], dtype=torch.int32))
+    else:
+        frames = r.render(ds, np.array([60, 60, 20]))[None]
+    assert frames.shape == (1, 80, 80, 3) and frames.dtype == torch.uint8
+    point = AnimationRenderer(DeferredRenderer(SMALL).configure_for(scene),
+                              SMALL).render_states(ds, players, lights)
+    assert not torch.equal(frames, point)
 
 
 @pytest.mark.parametrize("entry", ["from_scene", "from_numpy",
