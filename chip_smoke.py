@@ -44,14 +44,28 @@ unless:
     CPU through the plain versions, the dithered frames hold palette
     colours only, and the dithered two-kernel and fused frames are equal.
 
+Last, BASELINE config 5 (10,000 boxes on a 1024x1024 base view, as
+``tools/bench_scale.py`` builds it) supersampled at s = 2 and 4: a light
+sweep of F = 8 frames through ``render_states`` on the renderer of
+``SupersampledRenderer`` (2048**2 and 4096**2 pixels, bins of 80 and 160
+pixels, walked in row bands by the trace and fused kernels) on both paths.
+It fails unless the launch counts of each batch are exact, the three
+kernels equal their plain versions (all 8 frames at s = 2, frames 0 and 4
+at s = 4), both paths' frames are equal, frame 0 equals
+``cpp_render_frame`` on the scaled scene, and
+``SupersampledRenderer.render`` of frame 0 equals that oracle frame
+box-filtered to 1024x1024.
+
 It prints the card, the build times, the three kernels' shared memory per
 block and blocks per SM, per orbit each march kernel's counters (pixels
 marched directly, the most start bins one tile held, the longest visit
 list), ms/frame, Mrays/s and the per-stage split of both paths, the
 kernels' times beside their plain versions and their bounds, the same
 for the new paths (Mrays/s counting 1 + L rays a pixel) and the
-directional mode (with its counters, shared memory and blocks per SM), a
-JSON line on the kernels and, last,
+directional mode (with its counters, shared memory and blocks per SM),
+for config 5 the bands, the kernels' shared memory, blocks per SM, times,
+plain times, bounds and counters, peak memory and ms/frame, a JSON line on
+the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error before printing any result.
 
@@ -81,12 +95,15 @@ import numpy as np
 import torch
 
 from pixel_art_raytracer_tpu_torch import (DEFAULT_CONFIG, Light,
+                                           RenderConfig, SceneBuilder,
                                            default_light, graybox_world,
                                            require_cuda)
 from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
+from pixel_art_raytracer_tpu_torch.models.supersample import (
+    SupersampledRenderer, box_filter, scale_scene)
 from pixel_art_raytracer_tpu_torch.ops import (fused, fused_cuda, shade,
                                                shadow, shadow_cuda,
                                                shadow_dir, trace, trace_cuda)
@@ -122,6 +139,19 @@ DIRECTIONAL_SOURCE = ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu",
 DIRECT_SHARE = 0.01
 DIRECTIONAL_KEY_LABEL = "(start bin, light bin) keys"
 
+# BASELINE config 5 (BASELINE.json:11), as tools/bench_scale.py:37-72
+# builds it: a 1024 x 1024 base view, 10,000 boxes, rendered at s = 2 and
+# 4 (2048**2 and 4096**2) in batches of F = 8 (bench_scale's default; a
+# batch of 8 peaks at ~16 GiB at 4096**2, so BASELINE.json's 64 frames
+# would not fit in the H100's 80 GB).  The kernels are held to their plain
+# versions on all frames at s = 2 and on frames 0 and 4 at s = 4: the
+# plain versions take ~7 s a call for 33.5 M pixels.
+CONFIG5 = RenderConfig(view_width=1024, view_height=1024, view_length=320)
+CONFIG5_BOXES = 10_000
+CONFIG5_FRAMES = 8
+CONFIG5_LIGHT = (512, 200, 80)
+CONFIG5_CHECKED = {2: list(range(CONFIG5_FRAMES)), 4: [0, 4]}
+
 
 def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Mean milliseconds of ``fn()`` on the card: one warm-up call unless
@@ -140,10 +170,12 @@ def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def stage_split(stages, reps: int) -> dict[str, float]:
-    """ms/frame of each ``(name, fn)`` stage, run in order with CUDA events
-    between them; each ``fn(state)`` reads and writes the dict ``state``.
-    One warm-up pass, then the mean of ``reps``."""
+def stage_split(stages, reps: int,
+                frames: int = FRAMES) -> dict[str, float]:
+    """ms/frame of each ``(name, fn)`` stage of a batch of ``frames``, run
+    in order with CUDA events between them; each ``fn(state)`` reads and
+    writes the dict ``state``.  One warm-up pass, then the mean of
+    ``reps``."""
     total = {name: 0.0 for name, _ in stages}
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(stages) + 1)]
@@ -158,7 +190,7 @@ def stage_split(stages, reps: int) -> dict[str, float]:
         if rep:
             for k, (name, _) in enumerate(stages):
                 total[name] += (events[k].elapsed_time(events[k + 1])
-                                / reps / FRAMES)
+                                / reps / frames)
     return total
 
 
@@ -260,6 +292,273 @@ def require_equal(name: str, what: str, got: torch.Tensor,
                            f"{int((got != want).sum())} elements")
 
 
+def timed(fn):
+    """``(fn(), ms)``: one call between two CUDA events, no warm-up (for
+    the plain versions, which run once)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def config5_scene():
+    """tools/bench_scale.py:56-68: the player at (500, 36, 80), then
+    9,999 boxes of 20**3 at x = 37 i mod 1040, z = 53 i mod 300, y = 20
+    where i mod 7 = 0, else 0, all with the tile-floor sprite."""
+    b = SceneBuilder(config=CONFIG5)
+    b.insert((500, 36, 80), (20, 20, 20))
+    for i in range(CONFIG5_BOXES - 1):
+        b.insert(((i * 37) % 1040, 20 if i % 7 == 0 else 0, (i * 53) % 300),
+                 (20, 20, 20))
+    return b.build()
+
+
+def config5_phase(card: str) -> list[dict]:
+    """BASELINE config 5 at s = 2 and 4 through
+    ``AnimationRenderer.render_states`` on ``SupersampledRenderer``'s
+    renderer, on the two-kernel and the fused path.  Raises unless each
+    kernel equals its plain version on the checked frames, the launch
+    counters rose, both paths' frames are equal, frame 0 equals
+    ``cpp_render_frame`` of the scaled scene, and
+    ``SupersampledRenderer.render`` of frame 0 equals the box filter of
+    that oracle frame.  Prints the launch grid, shared memory and blocks
+    per SM, the march counters, peak memory, the kernels' times beside
+    their plain versions and bounds, and ms/frame and Mrays/s at the traced
+    size.  Returns the kernels' JSON rows."""
+    t0 = time.perf_counter()
+    scene = config5_scene()
+    print(f"config 5: {scene.n_entities} boxes, base "
+          f"{CONFIG5.view_width}x{CONFIG5.view_height}, F={CONFIG5_FRAMES}, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    rows = []
+    for s in sorted(CONFIG5_CHECKED):
+        tag = f"config 5, s={s}"
+        t0 = time.perf_counter()
+        ss = SupersampledRenderer(CONFIG5, s)
+        cfg = ss.config
+        r = ss.renderer
+        ds = ss.prepare(scene)
+        scaled = scale_scene(scene, s)
+        cache = StaticBins(scaled.pos, scaled.ext, 1, cfg, r.spans)
+        anim = AnimationRenderer(r, cfg, static_bins=cache)
+        players, lights = anim.light_sweep_states(
+            CONFIG5_FRAMES, scaled.pos[0],
+            center=tuple(c * s for c in CONFIG5_LIGHT), radius=40 * s)
+        H, W = cfg.view_height, cfg.view_width
+        n_pix = CONFIG5_FRAMES * H * W
+        torch.cuda.synchronize()
+        print(f"{tag}: {W}x{H}, bins of {cfg.bin_size} pixels "
+              f"({cfg.hash_width}x{cfg.hash_height}x{cfg.hash_length}), "
+              f"spans {r.spans}, set-up {time.perf_counter() - t0:.2f} s")
+        print(f"{tag}: trace and fused kernels walk each tile in "
+              f"{trace_cuda.bands(cfg)} bands of {trace_cuda.band_rows(cfg)} "
+              f"rows: grid {cfg.hash_width * cfg.hash_height} columns x "
+              f"{trace_cuda.bands(cfg)} bands x {CONFIG5_FRAMES} frames")
+        for k, occ, threads in (
+                ("trace", trace_cuda.occupancy(cfg),
+                 trace_cuda.block_threads(cfg)),
+                ("shadow", shadow_cuda.occupancy(cfg),
+                 shadow_cuda.march_threads(cfg)),
+                ("fused", fused_cuda.occupancy(cfg),
+                 fused_cuda.block_threads(cfg))):
+            smem, blocks, regs, local = occ
+            print(f"{tag} {k} kernel: {smem} B of shared memory per block, "
+                  f"{blocks} blocks per SM at {threads} threads, {regs} "
+                  f"registers and {local} B of local memory a thread  "
+                  f"[{card}]")
+
+        # The main path, both settings of fuse_trace_shadow.
+        none = dict.fromkeys(read_launches(), 0)
+        frames, launches = {}, {}
+        for fuse, want in ((False, {**none, "trace": 1, "shadow": 1}),
+                           (True, {**none, "fused": 1})):
+            r.fuse_trace_shadow = fuse
+            label = "fused" if fuse else "two-kernel"
+            counters = fused_cuda.counters if fuse else shadow_cuda.counters
+            counters.reset()
+            torch.cuda.reset_peak_memory_stats()
+            frames[fuse], got = drive(f"{tag} {label} path", anim, ds,
+                                      players, lights, want)
+            launches.update({k: n for k, n in got.items() if n})
+            c = counters.read()
+            list_path(f"{tag} {label} path",
+                      "fused kernel" if fuse else "shadow kernel", c, n_pix)
+            print(f"{tag} {label} path: {c['direct_pixels'] / n_pix:.6f} "
+                  f"of the pixels marched directly; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        require_equal(tag, "fused-path frames vs two-kernel frames",
+                      frames[True], frames[False])
+        print(f"{tag}: fused-path frames == two-kernel frames, all "
+              f"{CONFIG5_FRAMES} frames")
+
+        # Frame 0 against the oracle; the box-filtered frame.
+        pos = scaled.pos.copy()
+        pos[0] = players[0].cpu().numpy()
+        t0 = time.perf_counter()
+        golden, _ = native.cpp_render_frame(
+            scaled.replace_pos(pos), Light(*map(int, lights[0].tolist())),
+            cfg)
+        oracle_s = time.perf_counter() - t0
+        bad = int((frames[False][0].cpu().numpy() != golden).any(axis=-1)
+                  .sum())
+        if bad:
+            raise RuntimeError(f"{tag} frame 0: {bad} pixels differ from "
+                               f"cpp_render_frame")
+        base_light = lights[0].cpu().numpy()
+        if (base_light % s).any():
+            raise RuntimeError(f"{tag}: light {base_light} is not the "
+                               f"scaled base light")
+        r.fuse_trace_shadow = False
+        small = ss.render(ds, base_light // s)
+        require_equal(tag, "SupersampledRenderer.render of frame 0 vs the "
+                      "box-filtered oracle", small.cpu(),
+                      box_filter(torch.from_numpy(golden), s))
+        print(f"{tag} frame 0: both paths pixel-exact against "
+              f"cpp_render_frame ({oracle_s:.2f} s on the host); "
+              f"SupersampledRenderer.render == its box filter "
+              f"({CONFIG5.view_width}x{CONFIG5.view_height})")
+
+        # Each kernel against its plain version on the checked frames.
+        pick = CONFIG5_CHECKED[s]
+        p_pick, l_pick = players[pick], lights[pick]
+        be, cnt = batched.bin_stage(r, cache, ds, p_pick)
+        args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt,
+                p_pick, cfg)
+        fargs = args[:-1] + (l_pick, cfg)
+        work = {}
+        (best_p, win_p, lit_p), fused_plain = timed(
+            lambda: fused.trace_shadow(*fargs, work=work))
+        fused_cuda.counters.reset()
+        best_k, win_k, lit_k = fused_cuda.trace_shadow(*fargs, with_best=True)
+        for what, got, want in (("winner", win_k, win_p),
+                                ("best", best_k, best_p),
+                                ("lit", lit_k, lit_p)):
+            require_equal(tag, f"fused kernel {what}", got, want)
+        errs = {"fused": max(max_abs_err(win_k, win_p),
+                             max_abs_err(best_k, best_p),
+                             max_abs_err(lit_k, lit_p))}
+        stats = {"fused": fused_cuda.counters.read()}
+        ms = {"fused": cuda_ms(lambda: fused_cuda.trace_shadow(*fargs),
+                               KERNEL_REPS),
+              "fused_plain": fused_plain}
+        key_ops = DEPTH_KEY_OPS * int(work["candidate_hits"])
+        shadow_ops = SLAB_OPS * int(work["slab_tests"])
+        rows_b = entity_bytes(be, cnt, ds.pos, ds.ext, ds.sprite_id)
+        bounds = {"fused": (rows_b + nbytes(ds.atlas_depth, be, cnt, p_pick,
+                                            l_pick, win_k, lit_k),
+                            key_ops + shadow_ops)}
+
+        best_k, win_k = trace_cuda.trace_winners(*args, with_best=True)
+        require_equal(tag, "trace kernel winner", win_k, win_p)
+        require_equal(tag, "trace kernel best", best_k, best_p)
+        (best_t, win_t), ms["trace_plain"] = timed(
+            lambda: trace.trace_winner(*args))
+        require_equal(tag, "trace_winner winner", win_t, win_p)
+        errs["trace"] = max(max_abs_err(win_k, win_t),
+                            max_abs_err(best_k, best_t))
+        ms["trace"] = cuda_ms(lambda: trace_cuda.trace_winners(*args),
+                              KERNEL_REPS)
+        bounds["trace"] = (rows_b + nbytes(ds.atlas_depth, be, cnt, p_pick,
+                                           win_k), key_ops)
+
+        gbuf = trace.materialize_gbuffer(
+            win_k, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+            ds.atlas_depth, ds.atlas_normal, ds.palette, p_pick, cfg)
+        _, inv, origin, rb, lb = batched.geometry_stage(r, gbuf, l_pick)
+        sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
+                 inv, p_pick, cfg)
+        shadow_cuda.counters.reset()
+        lit_k = shadow_cuda.trace_light(*sargs)
+        stats["shadow"] = shadow_cuda.counters.read()
+        lit_s, ms["shadow_plain"] = timed(
+            lambda: shadow.trace_light_dynamic(*sargs))
+        require_equal(tag, "shadow kernel lit", lit_k, lit_s)
+        require_equal(tag, "trace_light_dynamic lit", lit_s, lit_p)
+        errs["shadow"] = max_abs_err(lit_k, lit_s)
+        ms["shadow"] = cuda_ms(lambda: shadow_cuda.trace_light(*sargs),
+                               KERNEL_REPS)
+        light_bin = torch.stack([b.reshape(len(pick)) for b in lb], dim=1)
+        bounds["shadow"] = (
+            entity_bytes(be, cnt, ds.pos, ds.ext)
+            + nbytes(p_pick, be, cnt, *rb, *origin, *inv, gbuf.entity_index,
+                     light_bin, lit_k), shadow_ops)
+        checked = len(pick) * H * W
+        print(f"{tag}: frames {pick}: kernels == plain versions (trace "
+              f"winners and best depth, shadow lit mask, fused winners, best "
+              f"depth and lit mask), bit-exact; "
+              f"{int(work['candidate_hits'])} candidate hits, "
+              f"{int(work['slab_tests'])} slab tests needed")
+        for k in ("shadow", "fused"):
+            c = stats[k]
+            print(f"{tag} {k} kernel on frames {pick}: "
+                  f"{c['direct_pixels']} of {checked} pixels "
+                  f"({c['direct_pixels'] / checked:.6f}) marched directly, "
+                  f"at most {c['max_starts']} start bins in a "
+                  f"{'band' if k == 'fused' else 'tile'}, longest visit "
+                  f"list {c['max_list']} bins")
+        for k, (src, rep) in SOURCES.items():
+            bound_ms, bound_by = bound(*bounds[k])
+            print(f"{tag} {k} kernel {ms[k]:.4f} ms, plain "
+                  f"{ms[k + '_plain']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}, {ms[k] / bound_ms:.1f}x) per call on "
+                  f"F={len(pick)} {W}x{H} frames  [{card}]")
+            rows.append({"name": f"{k} ({tag})", "route": "cuda",
+                         "source": src, "replaces": rep,
+                         "launches": launches[k], "max_abs_err": errs[k],
+                         "ms": ms[k], "plain_ms": ms[k + "_plain"],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None})
+
+        # End to end: ms/frame and Mrays/s at the traced size.
+        rays = 2 * W * H * CONFIG5_FRAMES
+        e2e = {}
+        for fuse in (False, True, True, False):
+            r.fuse_trace_shadow = fuse
+            e2e.setdefault(fuse, []).append(cuda_ms(
+                lambda: anim.render_states(ds, players, lights), TIMED_REPS))
+        for fuse, label in ((False, "two-kernel"), (True, "fused")):
+            m = float(np.mean(e2e[fuse]))
+            print(f"{tag} {label}: F={CONFIG5_FRAMES} "
+                  f"{m / CONFIG5_FRAMES:.4f} ms/frame, "
+                  f"{rays / (m * 1e3):.2f} Mrays/s at {W}x{H}  [{card}]")
+        r.fuse_trace_shadow = False
+
+        def bins(st):
+            st["be"], st["cnt"] = batched.bin_stage(r, cache, ds, players)
+
+        def trace_gbuf(st):
+            st["gbuf"] = batched.trace_stage(r, ds, st["be"], st["cnt"],
+                                             players)
+
+        def geometry(st):
+            st["dot"], *st["rays"] = batched.geometry_stage(r, st["gbuf"],
+                                                            lights)
+
+        def shadow_lit(st):
+            st["lit"] = batched.shadow_stage(r, ds, st["be"], st["cnt"],
+                                             players, st["gbuf"], *st["rays"])
+
+        def shade_frames(st):
+            batched.shade_stage(r, ds, st["gbuf"], shade.factor_from_dot(
+                st["dot"], st["lit"], cfg))
+
+        split = stage_split([("bins", bins), ("trace+gbuffer", trace_gbuf),
+                             ("geometry", geometry), ("shadow", shadow_lit),
+                             ("shade", shade_frames)], TIMED_REPS,
+                            CONFIG5_FRAMES)
+        print(f"{tag} two-kernel stage split, ms/frame at "
+              f"F={CONFIG5_FRAMES}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"  [{card}]")
+        del ds, cache, anim, frames, be, cnt, gbuf
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     cfg = DEFAULT_CONFIG
 
@@ -309,7 +608,7 @@ def main() -> int:
             ("shadow", shadow_cuda.occupancy(cfg),
              shadow_cuda.march_threads(cfg)),
             ("fused", fused_cuda.occupancy(cfg),
-             shadow_cuda.march_threads(cfg))):
+             fused_cuda.block_threads(cfg))):
         smem, blocks, regs, local = occ
         print(f"{k} kernel: {smem} B of shared memory per block, {blocks} "
               f"blocks per SM at {threads} threads, {regs} registers and "
@@ -743,9 +1042,12 @@ def main() -> int:
     print(f"fused kernel {mean['fused']:.4f} ms vs trace + shadow kernels "
           f"{mean['trace'] + mean['shadow']:.4f} ms per F={FRAMES} call  "
           f"[{card}]")
+
+    # -- 14. BASELINE config 5: supersampled at s = 2 and 4 ------------------
+    rows += config5_phase(card)
     print(json.dumps({"kernels": rows}))
 
-    # -- 14. result ----------------------------------------------------------
+    # -- 15. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

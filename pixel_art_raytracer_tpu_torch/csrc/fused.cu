@@ -47,6 +47,16 @@
 // (start bin, light bin).
 // The TPU kernel's packed picks, VMEM windows, membership tables, candidate
 // lists, divkernel division and sz-hull reduction have no counterpart.
+//
+// Large tiles (80 or 160 pixels a side in a 2x or 4x supersampled view)
+// take the walk's row bands (common.cuh Grid::band_rows) for the march
+// too: one block per (frame, bin column, band) walks the band, then
+// marches the band's pixels over the keys of their own start bins, which
+// is exact for any set of pixels.  So the block holds the surface points
+// of at most
+// kBandPixels pixels: 131,104 B at 4x on a 26x26x8 grid, where a whole
+// 160-pixel tile would need 467,104 B.  A 40-pixel tile is one band, as
+// before.
 #include "common.cuh"
 
 namespace {
@@ -55,14 +65,14 @@ namespace {
 // the larger of the two layouts.
 __host__ __device__ int shared_region_ints(const par::Grid& g) {
   const int march = par::MarchSmem<par::PointTable>::ints(
-      g, g.bin_size * g.bin_size, par::kNoStepCap);
+      g, g.band_pixels(), par::kNoStepCap);
   return march > par::draw_ints(g) ? march : par::draw_ints(g);
 }
 
 // Shared ints after that region: the column's candidates, then the
-// surface point (y, z, entity) of each of the bs * bs pixels.
+// surface point (y, z, entity) of each pixel of a band.
 int fused_tail_ints(const par::Grid& g) {
-  return par::column_ints(g) + 3 * g.bin_size * g.bin_size;
+  return par::column_ints(g) + 3 * g.band_pixels();
 }
 
 __global__ void __launch_bounds__(par::kMarchThreads,
@@ -77,12 +87,15 @@ fused_trace_shadow_kernel(
     par::Grid g, int sprite_w, int sprite_h, int early_exit) {
   extern __shared__ __align__(16) int smem[];
   const int bs = g.bin_size;
-  const int n_pix = bs * bs;
+  const par::Band b = par::Band::of_block(g);
+  if (b.j0(g) >= g.view_h) return;  // the band lies below the view
+  const int n_pix = b.pixels(g);
+  const int max_pix = g.band_pixels();
   const par::MarchSmem<par::PointTable> s(smem, g, n_pix, par::kNoStepCap);
   int* s_col = smem + shared_region_ints(g);
-  int* s_y = s_col + par::column_ints(g);  // (n_pix,)
-  int* s_z = s_y + n_pix;                  // (n_pix,)
-  int* s_ent = s_z + n_pix;                // (n_pix,)
+  int* s_y = s_col + par::column_ints(g);  // (max_pix,)
+  int* s_z = s_y + max_pix;                // (max_pix,)
+  int* s_ent = s_z + max_pix;              // (max_pix,)
   par::WalkSmem w;
   w.cnt = s_col;
   w.fld = s_col + g.hash_l;
@@ -92,19 +105,17 @@ fused_trace_shadow_kernel(
   w.hits = s_ent;
 
   const int f = blockIdx.y;
-  const int bin_x = blockIdx.x / g.hash_h;
-  const int bin_y = blockIdx.x % g.hash_h;
+  const int bin_x = b.bin_x;
   par::walk_column(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
-                   players, f, bin_x, bin_y, g, sprite_w, sprite_h,
-                   early_exit, w);
+                   players, f, b, g, sprite_w, sprite_h, early_exit, w);
 
   // Each pixel's winner and surface point (ops/trace.py::decode_winner),
   // over the walk's state of the same pixel: only the thread of pixel q
   // reads and writes q, and nothing here touches the march's region.
   for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
     const int q = p.q;
-    const int i = bin_x * bs + p.col;
-    const int j = bin_y * bs + p.row;
+    const int i = b.i0(g) + p.col;
+    const int j = b.j0(g) + p.row;
     if (i >= g.view_w || j >= g.view_h) continue;
     const int best = w.best[q];
     const int slot = w.slot[q];
@@ -159,7 +170,7 @@ fused_trace_shadow_kernel(
                     1.0f / (dz / length),
                     s_ent[q]};
   };
-  par::march_tile(pos, ext, players, bins_ent, counts, f, g, bin_x, bin_y,
+  par::march_tile(pos, ext, players, bins_ent, counts, f, g, b,
                   make_int3(lx / bs, (g.view_h - ly - lz) / bs, lz / bs),
                   par::kNoStepCap, s, key_of, ray_of, lit_out, stats);
 }
@@ -175,7 +186,8 @@ size_t fused_smem(const par::Grid& g) {
 // (F, H, W) uint8 (0/1).  Tables are bins_ent (F, V, cap) and counts (F, V);
 // players (F, 3) is entity 0's position per frame and lights (F, 3) the
 // point light per frame; stats (3,) int32 device counters (common.cuh
-// MarchStat), added to.  Returns cudaGetLastError() after the launch.
+// MarchStat), added to.  One block per (bin column, band) and frame.
+// Returns cudaGetLastError() after the launch.
 extern "C" int par_fused_trace_shadow(
     const void* pos, const void* ext, const void* sprite_id,
     const void* atlas_depth, const void* bins_ent, const void* counts,
@@ -193,7 +205,7 @@ extern "C" int par_fused_trace_shadow(
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(hash_w * hash_h, n_frames);
+  const dim3 grid(hash_w * hash_h, n_frames, g.bands);
   fused_trace_shadow_kernel<<<grid, threads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),

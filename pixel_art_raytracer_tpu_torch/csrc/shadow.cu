@@ -101,8 +101,7 @@ shadow_lit_kernel(
                                           par::kNoStepCap);
 
   const int f = blockIdx.y;
-  const int bin_x = blockIdx.x / g.hash_h;
-  const int bin_y = blockIdx.x % g.hash_h;
+  const par::Band tile = par::Band::tile(g, blockIdx.x);
   auto index = [&](int i, int j) {
     return (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
   };
@@ -117,7 +116,7 @@ shadow_lit_kernel(
                     rays.ivx[o], rays.ivy[o], rays.ivz[o],
                     rays.self[o]};
   };
-  par::march_tile(pos, ext, players, bins_ent, counts, f, g, bin_x, bin_y,
+  par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
                   make_int3(light_bin[3 * f], light_bin[3 * f + 1],
                             light_bin[3 * f + 2]),
                   par::kNoStepCap, s, key_of, ray_of, lit, stats);
@@ -137,8 +136,7 @@ shadow_dir_kernel(
                                                 max_steps);
 
   const int f = blockIdx.y;
-  const int bin_x = blockIdx.x / g.hash_h;
-  const int bin_y = blockIdx.x % g.hash_h;
+  const par::Band tile = par::Band::tile(g, blockIdx.x);
   const int kx = offsets[3 * f], ky = offsets[3 * f + 1];
   const int kz = offsets[3 * f + 2];
   const float ivx = inv[3 * f], ivy = inv[3 * f + 1], ivz = inv[3 * f + 2];
@@ -169,7 +167,7 @@ shadow_dir_kernel(
                     ivz,
                     px.self[o]};
   };
-  par::march_tile(pos, ext, players, bins_ent, counts, f, g, bin_x, bin_y,
+  par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
                   make_int3(0, 0, 0), max_steps, s, key_of, ray_of, lit,
                   stats);
 }

@@ -33,6 +33,14 @@
 // winners.  The TPU kernel's lane-selection matmul, packed picks,
 // incremental keys, column compaction and VMEM budgeting have no
 // counterpart: they worked around the TPU's lack of a per-lane gather.
+//
+// Large tiles (supersampled views scale the bin with the view: 80 or 160
+// pixels a side at 2x or 4x) are walked in row bands of at most
+// kBandPixels pixels, one block per (frame, bin column, band), each with
+// its own per-pixel state: the block keeps the 25,392 B and the 6 blocks
+// per SM of a 40-pixel tile, where a whole 160-pixel tile would need
+// 313,392 B, past the 227 KB a block may use.  Restaging the column per
+// band costs 2 KB of reads from L2.
 #include "common.cuh"
 
 namespace {
@@ -44,11 +52,10 @@ constexpr int kMaxThreads = 512;
 constexpr int kMinBlocks = 4;
 
 // Shared bytes of a block: the draw list, the column, three ints a pixel
-// (at most 48 KB, the default; the wrapper refuses more).
+// of a band (at most 48 KB, the default; the wrapper refuses more).
 size_t trace_smem(const par::Grid& g) {
-  return sizeof(int) * static_cast<size_t>(par::draw_ints(g)
-                                           + par::column_ints(g)
-                                           + 3 * g.bin_size * g.bin_size);
+  return sizeof(int) * static_cast<size_t>(
+      par::draw_ints(g) + par::column_ints(g) + 3 * g.band_pixels());
 }
 
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
@@ -61,25 +68,25 @@ trace_winner_kernel(
     int early_exit) {
   extern __shared__ __align__(16) int smem[];
   const int bs = g.bin_size;
-  const int n_pix = bs * bs;
+  const par::Band b = par::Band::of_block(g);
+  if (b.j0(g) >= g.view_h) return;  // the band lies below the view
+  const int n_pix = b.pixels(g);
+  const int max_pix = g.band_pixels();
   par::WalkSmem s;
   s.draw = smem;
   s.cnt = smem + par::draw_ints(g);
   s.fld = s.cnt + g.hash_l;
   s.best = s.cnt + par::column_ints(g);
-  s.slot = s.best + n_pix;
-  s.hits = s.slot + n_pix;
+  s.slot = s.best + max_pix;
+  s.hits = s.slot + max_pix;
 
   const int f = blockIdx.y;
-  const int bin_x = blockIdx.x / g.hash_h;
-  const int bin_y = blockIdx.x % g.hash_h;
   par::walk_column(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
-                   players, f, bin_x, bin_y, g, sprite_w, sprite_h,
-                   early_exit, s);
+                   players, f, b, g, sprite_w, sprite_h, early_exit, s);
 
   for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
-    const int i = bin_x * bs + p.col;
-    const int j = bin_y * bs + p.row;
+    const int i = b.i0(g) + p.col;
+    const int j = b.j0(g) + p.row;
     if (i >= g.view_w || j >= g.view_h) continue;
     const int slot = s.slot[p.q];
     const size_t o =
@@ -93,7 +100,8 @@ trace_winner_kernel(
 
 // winner_out (F, H, W) int32; best_out the same shape or null.  Tables are
 // bins_ent (F, V, cap) and counts (F, V); players (F, 3) is entity 0's
-// position per frame.  Returns cudaGetLastError() after the launch.
+// position per frame.  One block per (bin column, band) and frame.
+// Returns cudaGetLastError() after the launch.
 extern "C" int par_trace_winners(
     const void* pos, const void* ext, const void* sprite_id,
     const void* atlas_depth, const void* bins_ent, const void* counts,
@@ -104,7 +112,7 @@ extern "C" int par_trace_winners(
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
   const size_t smem = trace_smem(g);
-  const dim3 grid(hash_w * hash_h, n_frames);
+  const dim3 grid(hash_w * hash_h, n_frames, g.bands);
   trace_winner_kernel<<<grid, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),

@@ -111,7 +111,7 @@ class DeferredRenderer:
         where ``dscene.pos[0]`` puts it.  Returns (H, W, 3) uint8."""
         from .batched import render_states_batched
 
-        light = torch.as_tensor(np.asarray(light), dtype=torch.int32,
+        light = torch.as_tensor(light, dtype=torch.int32,
                                 device=dscene.device)
         return render_states_batched(self, None, dscene, dscene.pos[:1],
                                      light[None])[0]

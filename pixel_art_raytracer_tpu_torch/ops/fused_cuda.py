@@ -15,23 +15,30 @@ from ..config import RenderConfig
 from ..runtime import kernels
 from . import fused
 from .shadow_cuda import MAX_SMEM, march_smem_bytes, march_threads
-from .trace_cuda import draw_bytes
+from .trace_cuda import band_pixels, draw_bytes
 
 launches = 0
 counters = kernels.MarchCounters()
 
 
+def block_threads(config: RenderConfig) -> int:
+    """Threads of a block, which walks and marches one band of the walk
+    (:func:`trace_cuda.band_pixels`): 320 for 1,600-pixel bands."""
+    return march_threads(config, band_pixels(config))
+
+
 def smem_bytes(config: RenderConfig) -> int:
-    """Shared memory of one block: the bin column's staged candidates
-    (hash_l * (1 + 8 * cap) ints), the surface point (y, z, entity) of
-    each of the bin_size**2 pixels, which holds the walk's per-pixel state
-    first, and one region for the march's visit lists and staged boxes
-    (:func:`shadow_cuda.march_smem_bytes`) that holds the walk's draw list
-    (:func:`trace_cuda.draw_bytes`) first."""
+    """Shared memory of one block, which takes one band of a bin-column
+    tile (:func:`trace_cuda.band_rows`): the bin column's staged
+    candidates (hash_l * (1 + 8 * cap) ints), the surface point (y, z,
+    entity) of each pixel of the band, which holds the walk's per-pixel
+    state first, and one region for the march's visit lists and staged
+    boxes (:func:`shadow_cuda.march_smem_bytes`) that holds the walk's draw
+    list (:func:`trace_cuda.draw_bytes`) first."""
     cap = config.bin_capacity
-    return (4 * (config.hash_length * (1 + 8 * cap)
-                 + 3 * config.bin_size ** 2)
-            + max(march_smem_bytes(config), draw_bytes(config)))
+    n_pix = band_pixels(config)
+    return (4 * (config.hash_length * (1 + 8 * cap) + 3 * n_pix)
+            + max(march_smem_bytes(config, pixels=n_pix), draw_bytes(config)))
 
 
 def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
@@ -73,7 +80,7 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
     smem = smem_bytes(cfg)
     if smem > MAX_SMEM:
         raise ValueError(f"trace_shadow: a column of {cfg.hash_length} x "
-                         f"{cap} candidates, a tile of {cfg.bin_size}**2 "
+                         f"{cap} candidates, a band of {band_pixels(cfg)} "
                          f"pixels and visit lists of a {V}-bin grid need "
                          f"{smem} B of shared memory, over the {MAX_SMEM} B "
                          f"a block may use")
@@ -91,7 +98,7 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             counters.tensor(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
             cfg.hash_width, cfg.hash_height, cfg.hash_length,
             cfg.sprite_width, cfg.sprite_height, int(cfg.early_exit),
-            march_threads(cfg), kernels.stream_handle(dev))
+            block_threads(cfg), kernels.stream_handle(dev))
     kernels.check(rc, "par_fused_trace_shadow")
     launches += 1
     return best, winner, lit
@@ -101,4 +108,4 @@ def occupancy(config: RenderConfig) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
     local bytes per thread)`` of the kernel (needs the card)."""
     return kernels.occupancy("par_fused_occupancy", config,
-                             march_threads(config))
+                             block_threads(config))

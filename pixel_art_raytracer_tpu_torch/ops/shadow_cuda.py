@@ -34,11 +34,12 @@ CHUNK_BINS = 64
 MARCH_THREADS = 320
 
 
-def march_threads(config: RenderConfig) -> int:
-    """Threads of a march block (one bin-column tile of bin_size**2
-    pixels): the largest warp multiple up to MARCH_THREADS that divides the
-    pixels (320 for 40x40 tiles), else 256."""
-    n_pix = config.bin_size * config.bin_size
+def march_threads(config: RenderConfig, pixels: int | None = None) -> int:
+    """Threads of a march block of ``pixels`` pixels (default: one
+    bin-column tile of bin_size**2): the largest warp multiple up to
+    MARCH_THREADS that divides the pixels (320 for 40x40 tiles), else
+    256."""
+    n_pix = config.bin_size ** 2 if pixels is None else pixels
     return next((t for t in range(MARCH_THREADS, 31, -32)
                  if n_pix % t == 0), 256)
 
@@ -51,17 +52,18 @@ def list_capacity(config: RenderConfig, max_steps: int | None) -> int:
 
 
 def march_smem_bytes(config: RenderConfig, keys: int = STARTS,
-                     key_ints: int = 3,
-                     max_steps: int | None = None) -> int:
-    """Shared memory of csrc/common.cuh ``MarchSmem`` for one tile of
-    bin_size**2 pixels and a table of ``keys`` keys of ``key_ints`` ints
-    (the defaults: the point mode's): CHUNK_BINS staged list entries of
-    ``cap`` candidates (two float4: the corners and the raw id) and their
-    live counts, the tile's keys, list lengths and table counts, each
-    warp's keys and their index in the table, a V-bit mask and a visit list
-    of :func:`list_capacity` entries per key, and two bytes a pixel."""
+                     key_ints: int = 3, max_steps: int | None = None,
+                     pixels: int | None = None) -> int:
+    """Shared memory of csrc/common.cuh ``MarchSmem`` for ``pixels`` pixels
+    (default: one tile of bin_size**2) and a table of ``keys`` keys of
+    ``key_ints`` ints (the defaults: the point mode's): CHUNK_BINS staged
+    list entries of ``cap`` candidates (two float4: the corners and the raw
+    id) and their live counts, the tile's keys, list lengths and table
+    counts, each warp's keys and their index in the table, a V-bit mask and
+    a visit list of :func:`list_capacity` entries per key, and two bytes a
+    pixel."""
     V, cap = config.hash_volume, config.bin_capacity
-    n_pix = config.bin_size ** 2
+    n_pix = config.bin_size ** 2 if pixels is None else pixels
     warps = MARCH_THREADS // 32
     ints = (8 * CHUNK_BINS * cap + CHUNK_BINS + keys * key_ints + keys + 2
             + warps * (keys * key_ints + 1 + keys) + keys * -(-V // 32)

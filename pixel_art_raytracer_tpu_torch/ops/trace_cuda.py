@@ -17,13 +17,34 @@ launches = 0
 
 # The default limit of shared memory a block; the kernel asks for no more.
 MAX_SMEM = 48 * 1024
+# csrc/common.cuh kBandPixels: the most pixels of a walk band.
+BAND_PIXELS = 1600
+
+
+def band_rows(config: RenderConfig) -> int:
+    """Rows of a walk band (csrc/common.cuh ``Grid::band_rows``): the most
+    rows of a bin-column tile whose pixels fit BAND_PIXELS, at least one
+    (40 for 40-pixel bins: one band a tile; 20 for 80-pixel bins, 10 for
+    160)."""
+    bs = config.bin_size
+    return max(1, min(bs, BAND_PIXELS // bs))
+
+
+def bands(config: RenderConfig) -> int:
+    """Bands a bin-column tile is walked in: one block each."""
+    return -(-config.bin_size // band_rows(config))
+
+
+def band_pixels(config: RenderConfig) -> int:
+    """Pixels of the largest band."""
+    return band_rows(config) * config.bin_size
 
 
 def block_threads(config: RenderConfig) -> int:
-    """Threads per block: one block walks a bin column's bin_size**2
-    pixels, so take the largest warp multiple up to 512 (the kernel's launch
-    bound) that divides them (320 for 40x40 columns), else 256."""
-    n_pix = config.bin_size * config.bin_size
+    """Threads per block: one block walks a band's pixels, so take the
+    largest warp multiple up to 512 (the kernel's launch bound) that
+    divides them (320 for 1,600-pixel bands), else 256."""
+    n_pix = band_pixels(config)
     return next((t for t in range(512, 31, -32) if n_pix % t == 0), 256)
 
 
@@ -36,10 +57,10 @@ def draw_bytes(config: RenderConfig) -> int:
 def smem_bytes(config: RenderConfig) -> int:
     """Shared memory of one block: the bin column's draw list, its staged
     candidates (hash_l * (1 + 8 * cap) ints), and the best key, slot and
-    adjacent-hit state of each of the bin_size**2 pixels."""
+    adjacent-hit state of each pixel of a band."""
     cfg = config
     return draw_bytes(cfg) + 4 * (cfg.hash_length * (1 + 8 * cfg.bin_capacity)
-                                  + 3 * cfg.bin_size ** 2)
+                                  + 3 * band_pixels(cfg))
 
 
 def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
@@ -76,9 +97,10 @@ def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
     smem = smem_bytes(cfg)
     if smem > MAX_SMEM:
         raise ValueError(f"trace_winners: a bin column of {cfg.hash_length}"
-                         f" x {cap} slots and a tile of {cfg.bin_size}**2 "
-                         f"pixels need {smem} B of shared memory, over the "
-                         f"{MAX_SMEM} B a block may use")
+                         f" x {cap} slots and a band of "
+                         f"{band_pixels(cfg)} pixels need {smem} B of "
+                         f"shared memory, over the {MAX_SMEM} B a block may "
+                         f"use")
 
     winner = torch.empty((F, cfg.view_height, cfg.view_width),
                          dtype=torch.int32, device=dev)

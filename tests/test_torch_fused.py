@@ -28,6 +28,7 @@ from pixel_art_raytracer_tpu_torch import config, scene
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
+from pixel_art_raytracer_tpu_torch.models.supersample import scaled_config
 from pixel_art_raytracer_tpu_torch.ops import (binning, fused, fused_cuda,
                                                shadow_cuda)
 from pixel_art_raytracer_tpu_torch.ops import trace
@@ -280,6 +281,21 @@ def test_wrapper_refuses_other_devices_and_sizes_shared_memory():
                  + 10 * (4 * 4 + 1) + 2 * 1600 // 4)
     assert fused_cuda.smem_bytes(DEFAULT) == (4 * (8 * 65 + 3 * 1600)
                                               + march)
+    assert fused_cuda.block_threads(DEFAULT) == 320
+    # 80- and 160-pixel tiles take the walk's bands of 1,600 pixels for the
+    # march too, so the block is graybox's on graybox's grid, and 131,104 B
+    # on config 5's 26 x 26 x 8 grid (a 5,408-bit mask and a 5,408-entry
+    # list per start bin) where a whole 160-pixel tile would need
+    # 467,104 B.
+    for s in (2, 4):
+        assert fused_cuda.smem_bytes(scaled_config(DEFAULT, s)) == 54544
+        assert fused_cuda.block_threads(scaled_config(DEFAULT, s)) == 320
+    config5 = config.RenderConfig(1024, 1024, 320)
+    c5_march = 4 * (64 * (1 + 8 * 8) + 4 * 3 + 4 + 4 * 169 + 4 * 5408 + 2
+                    + 10 * (4 * 4 + 1) + 2 * 1600 // 4)
+    for s in (1, 2, 4):
+        assert fused_cuda.smem_bytes(scaled_config(config5, s)) == (
+            4 * (8 * 65 + 3 * 1600) + c5_march) == 131104
 
 
 def port_kernel_inputs(s, config, device, lights):
@@ -391,7 +407,9 @@ def test_cuda_kernel_matches_plain_on_many_start_bins(cuda, light):
 
 @pytest.mark.cuda
 def test_cuda_shared_memory_matches_layout(cuda):
-    for cfg in (SMALL, FINE, DEFAULT):
+    for cfg in (SMALL, FINE, DEFAULT, scaled_config(SMALL, 2),
+                scaled_config(SMALL, 4),
+                scaled_config(config.RenderConfig(1024, 1024, 320), 4)):
         smem, blocks, regs, _ = fused_cuda.occupancy(cfg)
         assert smem == fused_cuda.smem_bytes(cfg)
         assert blocks >= 1 and 0 < regs <= 255
@@ -399,10 +417,13 @@ def test_cuda_shared_memory_matches_layout(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["dense", "tie", "early_exit",
-                                  "empty_reset", "ragged", "multi_frame"])
+                                  "empty_reset", "ragged", "multi_frame",
+                                  "dense7_s2", "dense7_s4", "early_exit_s4",
+                                  "ragged_s2"])
 def test_cuda_kernel_matches_plain_on_walk_scenes(cuda, case):
     """The trace tests' scenes of the walk (tests/test_torch_trace.py
-    kernel_inputs): winners, best depths and lit masks."""
+    kernel_inputs), the supersampled ones (``_s2``, ``_s4``) walked and
+    marched in bands: winners, best depths and lit masks."""
     from test_torch_trace import kernel_inputs
     args = kernel_inputs(case, "cpu")
     F = args[4].shape[0]
@@ -425,3 +446,7 @@ def test_cuda_graybox_block_keeps_four_blocks_per_sm(cuda):
     smem, blocks, _, _ = fused_cuda.occupancy(DEFAULT)
     assert smem <= 54544
     assert blocks >= 4
+    # Config 5 at s = 4: one band of 1,600 pixels a block.
+    smem, blocks, _, _ = fused_cuda.occupancy(
+        scaled_config(config.RenderConfig(1024, 1024, 320), 4))
+    assert smem == 131104 and blocks >= 1

@@ -1,9 +1,11 @@
 """``prof_paths``: device activities read from an exported chrome trace, and
-their busy time as the union of their intervals."""
+their busy time as the union of their intervals; ``time_kernels`` refuses
+to run without a card."""
 
 import json
 
 import pytest
+import torch
 
 from pixel_art_raytracer_tpu_torch import prof_paths
 
@@ -33,3 +35,11 @@ def test_device_activities_keep_device_events_only(tmp_path):
 ])
 def test_busy_time_is_the_union_of_intervals(acts, busy):
     assert prof_paths.busy_us(acts) == busy
+
+
+def test_time_kernels_refuses_without_a_card(monkeypatch):
+    """The kernel timer measures the card or nothing."""
+    from pixel_art_raytracer_tpu_torch import time_kernels
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        time_kernels.main("tree")

@@ -25,6 +25,8 @@ from pixel_art_raytracer_tpu.ops import trace as jtrace
 from pixel_art_raytracer_tpu.runtime import native
 from pixel_art_raytracer_tpu.scene import SceneBuilder
 from pixel_art_raytracer_tpu_torch.models.deferred import DeviceScene
+from pixel_art_raytracer_tpu_torch.models.supersample import (scale_scene,
+                                                              scaled_config)
 from pixel_art_raytracer_tpu_torch.ops import binning, trace, trace_cuda
 
 SMALL = RenderConfig(view_width=80, view_height=80, view_length=80)
@@ -141,22 +143,25 @@ def jax_trace(scene, config):
     return np.asarray(best), np.asarray(win), gb
 
 
-def draw_model(scene, be, cnt, config, work=None):
+def draw_model(scene, be, cnt, config, work=None, band_rows=None):
     """``(best, winner)`` (H, W) of one frame, by the kernels' walk.
 
-    For each bin column, the live slots (k < min(count, cap)) in walk order
-    whose footprint in the column is not empty are drawn one at a time
-    over that footprint: a pixel that the reference has stopped walking
-    (adjacent-hit count >= 2, last improving bin before this one) is
-    skipped; else the depth key replaces the best where strictly greater,
-    and on the first improvement in a bin the count becomes (0 if an empty
-    bin lies after the last improving bin, else the count) + 1.  Where
-    ``work`` is given, ``work["candidate_hits"]`` counts the pixels drawn
-    and not skipped."""
+    Each bin column's tile is walked in row bands of ``band_rows`` rows
+    (default: the kernels' ``trace_cuda.band_rows``), each band on its own
+    as one block of the kernels does.  For each band, the live slots
+    (k < min(count, cap)) in walk order whose footprint in the band is not
+    empty are drawn one at a time over that footprint: a pixel that the
+    reference has stopped walking (adjacent-hit count >= 2, last improving
+    bin before this one) is skipped; else the depth key replaces the best
+    where strictly greater, and on the first improvement in a bin the count
+    becomes (0 if an empty bin lies after the last improving bin, else the
+    count) + 1.  Where ``work`` is given, ``work["candidate_hits"]`` counts
+    the pixels drawn and not skipped."""
     cfg = config
     H, W, bs = cfg.view_height, cfg.view_width, cfg.bin_size
     hl, cap = cfg.hash_length, cfg.bin_capacity
     sh, sw = cfg.sprite_height, cfg.sprite_width
+    rows = trace_cuda.band_rows(cfg) if band_rows is None else band_rows
     pos, ext = scene.pos.astype(np.int64), scene.ext.astype(np.int64)
     depth_flat = scene.atlas.depth.reshape(-1).astype(np.int64)
     best = np.full((H, W), np.iinfo(np.int32).min, np.int64)
@@ -164,41 +169,42 @@ def draw_model(scene, be, cnt, config, work=None):
     count = np.zeros((H, W), np.int64)
     last = np.full((H, W), -1, np.int64)
     drawn = 0
-    for bx in range(cfg.hash_width):
-        for by in range(cfg.hash_height):
-            col = (bx * cfg.hash_height + by) * hl
-            i0, j0 = bx * bs, by * bs
-            i1, j1 = min(i0 + bs, W), min(j0 + bs, H)
-            for bz in range(hl):
-                c = int(cnt[col + bz])
-                last_empty = max((z for z in range(bz) if cnt[col + z] == 0),
-                                 default=-1)
-                for k in range(min(c, cap)):
-                    e = int(be[col + bz, k])
-                    px, py, pz = pos[e]
-                    ex, ey, ez = ext[e]
-                    top = py + ey + pz + ez
-                    xa, xb = max(px, i0), min(px + ex, i1)
-                    ja, jb = max(H - top, j0), min(H - py - pz, j1)
-                    if xa >= xb or ja >= jb:
-                        continue
-                    jj, ii = np.mgrid[ja:jb, xa:xb]
-                    win = np.s_[ja:jb, xa:xb]
-                    row = top - (H - jj)
-                    tex = ((scene.sprite_id[e] * sh + row.clip(0, sh - 1))
-                           * sw + (ii - px).clip(0, sw - 1))
-                    key = py - pz + np.minimum(0, ey - row) - depth_flat[tex]
-                    live = ~(cfg.early_exit & (count[win] >= 2)
-                             & (last[win] < bz))
-                    drawn += int(live.sum())
-                    better = live & (key > best[win])
-                    first = better & (last[win] != bz)
-                    best[win] = np.where(better, key, best[win])
-                    winner[win] = np.where(better, e, winner[win])
-                    count[win] = np.where(
-                        first, np.where(last_empty > last[win], 0,
-                                        count[win]) + 1, count[win])
-                    last[win] = np.where(first, bz, last[win])
+    bands = [(bx, by, r0) for bx in range(cfg.hash_width)
+             for by in range(cfg.hash_height) for r0 in range(0, bs, rows)]
+    for bx, by, r0 in bands:
+        col = (bx * cfg.hash_height + by) * hl
+        i0, j0 = bx * bs, by * bs + r0
+        i1, j1 = min(i0 + bs, W), min(j0 + rows, by * bs + bs, H)
+        for bz in range(hl):
+            c = int(cnt[col + bz])
+            last_empty = max((z for z in range(bz) if cnt[col + z] == 0),
+                             default=-1)
+            for k in range(min(c, cap)):
+                e = int(be[col + bz, k])
+                px, py, pz = pos[e]
+                ex, ey, ez = ext[e]
+                top = py + ey + pz + ez
+                xa, xb = max(px, i0), min(px + ex, i1)
+                ja, jb = max(H - top, j0), min(H - py - pz, j1)
+                if xa >= xb or ja >= jb:
+                    continue
+                jj, ii = np.mgrid[ja:jb, xa:xb]
+                win = np.s_[ja:jb, xa:xb]
+                row = top - (H - jj)
+                tex = ((scene.sprite_id[e] * sh + row.clip(0, sh - 1))
+                       * sw + (ii - px).clip(0, sw - 1))
+                key = py - pz + np.minimum(0, ey - row) - depth_flat[tex]
+                live = ~(cfg.early_exit & (count[win] >= 2)
+                         & (last[win] < bz))
+                drawn += int(live.sum())
+                better = live & (key > best[win])
+                first = better & (last[win] != bz)
+                best[win] = np.where(better, key, best[win])
+                winner[win] = np.where(better, e, winner[win])
+                count[win] = np.where(
+                    first, np.where(last_empty > last[win], 0,
+                                    count[win]) + 1, count[win])
+                last[win] = np.where(first, bz, last[win])
     if work is not None:
         work["candidate_hits"] = drawn
     return best.astype(np.int32), winner.astype(np.int32)
@@ -304,14 +310,15 @@ WALK_SCENES = {
 }
 
 
-def assert_draw_model_matches(scene, cfg):
-    """The walk model, the port's trace_winner and the JAX package's agree
-    bit for bit, and the model draws as many pixels as trace_winner counts
+def assert_draw_model_matches(scene, cfg, band_rows=None):
+    """The walk model (in bands of ``band_rows`` rows, default the
+    kernels'), the port's trace_winner and the JAX package's agree bit for
+    bit, and the model draws as many pixels as trace_winner counts
     candidate hits."""
     be, cnt = tables(scene, cfg)
     work, model_work = {}, {}
     mbest, mwin = draw_model(scene, be[0].numpy(), cnt[0].numpy(), cfg,
-                             model_work)
+                             model_work, band_rows)
     ds = DeviceScene.from_scene(scene, cfg, device="cpu")
     best, win = trace.trace_winner(ds.pos, ds.ext, ds.sprite_id,
                                    ds.atlas_depth, be, cnt, ds.pos[:1], cfg,
@@ -346,6 +353,44 @@ def test_draw_model_matches_on_random_deep_scenes(seed, early_exit):
                  (int(rng.integers(2, 21)), int(rng.integers(2, 20)),
                   int(rng.integers(2, 20))))
     assert_draw_model_matches(b.build(), cfg)
+
+
+def scaled_walk_case(case, s):
+    """A walk scene and its config, supersampled by s: bins of 40 * s
+    pixels, walked in trace_cuda.bands of them."""
+    scene, cfg = WALK_SCENES[case]()
+    return scale_scene(scene, s), scaled_config(cfg, s)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("case", sorted(WALK_SCENES))
+def test_banded_draw_model_matches_trace_winner(case, s):
+    """Tiles of 80 and 160 pixels a side, walked in 4 bands of 20 rows and
+    16 bands of 10."""
+    scene, cfg = scaled_walk_case(case, s)
+    assert trace_cuda.bands(cfg) == {2: 4, 4: 16}[s]
+    win = assert_draw_model_matches(scene, cfg)
+    assert (win >= 0).any() and (win < 0).any()
+
+
+@settings(max_examples=6, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), early_exit=st.booleans(),
+       band_rows=st.sampled_from([None, 1, 7, 33]))
+def test_banded_draw_model_matches_on_random_deep_scenes(seed, early_exit,
+                                                          band_rows):
+    """Random deep scenes at s = 2 (80-pixel bins), in the kernels' bands
+    and in bands that leave a short last band."""
+    cfg = dataclasses.replace(DEEP, early_exit=early_exit)
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(config=cfg)
+    b.insert((30, 20, 20), (20, 20, 20))
+    for _ in range(40):
+        b.insert((int(rng.integers(-5, 75)), int(rng.integers(-60, 60)),
+                  int(rng.integers(0, 150))),
+                 (int(rng.integers(2, 21)), int(rng.integers(2, 20)),
+                  int(rng.integers(2, 20))))
+    assert_draw_model_matches(scale_scene(b.build(), 2),
+                              scaled_config(cfg, 2), band_rows)
 
 
 @pytest.mark.parametrize("early_exit", [True, False])
@@ -384,12 +429,27 @@ def test_ragged_view_matches_jax_and_cpp():
 
 def test_shared_memory_layout():
     from pixel_art_raytracer_tpu_torch.config import DEFAULT_CONFIG
+    from pixel_art_raytracer_tpu_torch.config import RenderConfig as Config
     # graybox: a draw list of 4 + 16 * 64 ints, an 8-bin column of 65 ints
-    # a bin, and three ints for each of the 40 x 40 pixels.
+    # a bin, and three ints for each of the 40 x 40 pixels: one band.
     assert trace_cuda.smem_bytes(DEFAULT_CONFIG) == 4 * (4 + 16 * 64 + 8 * 65
                                                          + 3 * 1600)
     assert trace_cuda.smem_bytes(DEFAULT_CONFIG) <= trace_cuda.MAX_SMEM
     assert trace_cuda.block_threads(DEFAULT_CONFIG) == 320
+    assert trace_cuda.bands(DEFAULT_CONFIG) == 1
+    # Config 5 (1024 x 1024 x 320) at s = 1, 2, 4: 40-, 80- and 160-pixel
+    # tiles in bands of 40, 20 and 10 rows, each 1,600 pixels, so the
+    # block keeps graybox's 25,392 B (it would take 25,392, 82,992 and
+    # 313,392 B for whole tiles).
+    for s, rows in ((1, 40), (2, 20), (4, 10)):
+        cfg = scaled_config(Config(1024, 1024, 320), s)
+        assert (trace_cuda.band_rows(cfg), trace_cuda.bands(cfg)) == (
+            rows, 40 * s // rows)
+        assert trace_cuda.smem_bytes(cfg) == 25392
+        assert trace_cuda.block_threads(cfg) == 320
+    # A short last band: 120-pixel bins in 9 bands of 13 rows and one of 3.
+    cfg = scaled_config(Config(1024, 1024, 320), 3)
+    assert (trace_cuda.band_rows(cfg), trace_cuda.bands(cfg)) == (13, 10)
 
 
 # Scenes of the CUDA tests: (scene, config, players (F, 3)).
@@ -399,6 +459,10 @@ def cuda_case(case):
         players = np.array([[30, 20, 20], [10, 0, 50], [60, 30, 0]],
                            np.int32)
         return scene, SMALL, players
+    if case.endswith(("_s2", "_s4")):  # a supersampled walk scene
+        name, s = case.rsplit("_s", 1)
+        scene, cfg = scaled_walk_case(name, int(s))
+        return scene, cfg, scene.pos[:1].astype(np.int32)
     scene, cfg = {"dense": lambda: (dense_scene(seed=7, n=90), SMALL),
                   "tie": lambda: (tie_scene(), SMALL),
                   "early_exit": lambda: (early_exit_scene(), DEEP),
@@ -426,17 +490,34 @@ def kernel_inputs(case, device):
         torch.from_numpy(players))) + (cfg,)
 
 
+# Supersampled walk scenes (SMALL and DEEP at s = 2 and 4): 80- and
+# 160-pixel tiles, walked in bands.
+BANDED_CASES = ["dense7_s2", "dense7_s4", "early_exit_s4", "ragged_s2"]
 CUDA_CASES = ["dense", "tie", "early_exit", "empty_reset", "ragged",
-              "multi_frame"]
+              "multi_frame"] + BANDED_CASES
 
 
 @pytest.mark.cuda
 def test_cuda_shared_memory_matches_layout(cuda):
     from pixel_art_raytracer_tpu_torch.config import DEFAULT_CONFIG
-    for cfg in (SMALL, DEEP, RAGGED, DEFAULT_CONFIG):
+    for cfg in (SMALL, DEEP, RAGGED, DEFAULT_CONFIG, scaled_config(SMALL, 2),
+                scaled_config(SMALL, 4), scaled_config(DEFAULT_CONFIG, 4)):
         smem, blocks, regs, _ = trace_cuda.occupancy(cfg)
         assert smem == trace_cuda.smem_bytes(cfg)
         assert blocks >= 1 and 0 < regs <= 255
+
+
+@pytest.mark.cuda
+def test_cuda_banded_blocks_keep_graybox_occupancy(cuda):
+    """Graybox and config 5 at s = 2 and 4 launch blocks of 25,392 B, 6 to
+    an SM."""
+    from pixel_art_raytracer_tpu_torch.config import DEFAULT_CONFIG
+    from pixel_art_raytracer_tpu_torch.config import RenderConfig as Config
+    for cfg in (DEFAULT_CONFIG, scaled_config(Config(1024, 1024, 320), 2),
+                scaled_config(Config(1024, 1024, 320), 4)):
+        smem, blocks, _, _ = trace_cuda.occupancy(cfg)
+        assert smem == 25392
+        assert blocks >= 6
 
 
 @pytest.mark.cuda
