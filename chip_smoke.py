@@ -56,6 +56,35 @@ at s = 4), both paths' frames are equal, frame 0 equals
 ``SupersampledRenderer.render`` of frame 0 equals that oracle frame
 box-filtered to 1024x1024.
 
+Then the entry points a user of the renderer meets outside a batch, each
+path driven with the launch counts set to 0 just before it and read just
+after, its kernels held to their plain versions on one batch of its
+inputs:
+
+  * ``BruteForceRenderer`` on BASELINE config 1 (two boxes, 64x64): its
+    entity index equals ``cpp_trace_pixels``', its unshadowed frame the
+    CPU's, its ``shadow=True`` frame (one shadow launch) ``cpp_render_frame``;
+    then its trace of graybox at full width, timed, with the pixels whose
+    winner differs from the deferred path's printed (graybox's bins
+    overflow, so they may);
+  * ``Session`` on graybox: a 24-frame script of every binding and cursor
+    moves (trace 1 + shadow 1 a frame), frames 0, 12 and 23 equal to
+    ``cpp_render_frame`` with the red line drawn at endpoints from
+    ``cpp_trace_pixels``' y and z, the mouse readouts, ``debug_report()``
+    (from ``cpp_build_bins``' counts) and ``normal_view()`` (from the
+    oracle's normals) equal, ``save_gif`` on the native encoder; then 8
+    frames with ``fuse_trace_shadow`` (fused 1 a frame) equal to the
+    two-kernel session's;
+  * ``LiveViewer`` on graybox through the viewer's --bench loop, 100
+    frames (trace 1 + shadow 1 a frame), frame 0 held as above; the loop's
+    median ms/frame and the render + overlay share;
+  * BASELINE config 2 (the 101-box overlap scene at 256x256): a 32-frame
+    light sweep through ``render_long`` in chunks of 8 (trace 4 + shadow
+    4), then again after the last chunk's file is deleted (trace 1 +
+    shadow 1, the same frames), frames 0 and 31 equal to
+    ``cpp_render_frame``, the GIF written by the native encoder; ms/frame
+    and Mrays/s.
+
 It prints the card, the build times, the three kernels' shared memory per
 block and blocks per SM, per orbit each march kernel's counters (pixels
 marched directly, the most start bins one tile held, the longest visit
@@ -64,8 +93,9 @@ kernels' times beside their plain versions and their bounds, the same
 for the new paths (Mrays/s counting 1 + L rays a pixel) and the
 directional mode (with its counters, shared memory and blocks per SM),
 for config 5 the bands, the kernels' shared memory, blocks per SM, times,
-plain times, bounds and counters, peak memory and ms/frame, a JSON line on
-the kernels and, last,
+plain times, bounds and counters, peak memory and ms/frame, the new
+paths' times, a JSON line on the kernels (a row for each kernel on each
+path) and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error before printing any result.
 
@@ -87,8 +117,10 @@ included.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,16 +131,28 @@ from pixel_art_raytracer_tpu_torch import (DEFAULT_CONFIG, Light,
                                            default_light, graybox_world,
                                            require_cuda)
 from pixel_art_raytracer_tpu_torch.models import batched
-from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
+from pixel_art_raytracer_tpu_torch.models.animation import (
+    KEY_BINDINGS, AnimationRenderer, scene_with_player)
+from pixel_art_raytracer_tpu_torch.models.brute import (SHADOW_SPANS,
+                                                        BruteForceRenderer)
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
 from pixel_art_raytracer_tpu_torch.models.supersample import (
     SupersampledRenderer, box_filter, scale_scene)
-from pixel_art_raytracer_tpu_torch.ops import (fused, fused_cuda, shade,
-                                               shadow, shadow_cuda,
+from pixel_art_raytracer_tpu_torch.ops import (binning, fused, fused_cuda,
+                                               shade, shadow, shadow_cuda,
                                                shadow_dir, trace, trace_cuda)
+from pixel_art_raytracer_tpu_torch.ops.cstyle import normal_to_debug_color
+from pixel_art_raytracer_tpu_torch.ops.overlay import draw_line_host
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
+from pixel_art_raytracer_tpu_torch.ops.trace import GBufferArrays
 from pixel_art_raytracer_tpu_torch.runtime import kernels, native
+from pixel_art_raytracer_tpu_torch.runtime.session import Session
+from pixel_art_raytracer_tpu_torch.runtime.viewer import (LiveViewer,
+                                                         ansi_frame,
+                                                         bench_loop)
+from pixel_art_raytracer_tpu_torch.utils.gif import write_gif
+from pixel_art_raytracer_tpu_torch.utils.metrics import RenderStats
 
 FRAMES = 64
 TIMED_REPS = 5
@@ -152,6 +196,25 @@ CONFIG5_FRAMES = 8
 CONFIG5_LIGHT = (512, 200, 80)
 CONFIG5_CHECKED = {2: list(range(CONFIG5_FRAMES)), 4: [0, 4]}
 
+# BASELINE config 1 (BASELINE.json configs[0], tests/test_configs.py:
+# 94-121): two reference boxes on a 64 x 64 frame, for the brute renderer.
+CONFIG1 = RenderConfig(view_width=64, view_height=64, view_length=64)
+CONFIG1_LIGHT = Light(64, 32, 16)
+BRUTE_REPS = 2
+# The interactive runtime on graybox: a Session script of 24 frames (8 of
+# them again with fuse_trace_shadow), frames 0, 12 and 23 held to the
+# oracle, and the viewer's --bench loop of 100 frames.
+SESSION_FRAMES = 24
+SESSION_FUSED_FRAMES = 8
+SESSION_CHECKED = (0, 12, 23)
+VIEWER_FRAMES = 100
+# BASELINE config 2 (configs[1], tests/test_configs.py:19-31, 58-72): the
+# 101-box overlap scene at 256 x 256, a 32-frame light sweep through
+# render_long in chunks of 8, to a GIF.
+CONFIG2 = RenderConfig(view_width=256, view_height=256, view_length=320)
+CONFIG2_FRAMES = 32
+CONFIG2_CHUNK = 8
+
 
 def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Mean milliseconds of ``fn()`` on the card: one warm-up call unless
@@ -192,6 +255,36 @@ def stage_split(stages, reps: int,
                 total[name] += (events[k].elapsed_time(events[k + 1])
                                 / reps / frames)
     return total
+
+
+def two_kernel_stages(r, cache, ds, players, lights):
+    """The two-kernel path's stages of one batch, as ``(name, fn)`` pairs
+    for :func:`stage_split`: bins (``cache`` or a full rebuild when None),
+    trace + G-buffer, geometry, shadow, shade."""
+
+    def bins(st):
+        st["be"], st["cnt"] = batched.bin_stage(r, cache, ds, players)
+
+    def trace_gbuf(st):
+        st["gbuf"] = batched.trace_stage(r, ds, st["be"], st["cnt"], players)
+
+    def geometry(st):
+        st["dot"], *st["rays"] = batched.geometry_stage(r, st["gbuf"],
+                                                        lights)
+
+    def shadow_lit(st):
+        st["lit"] = batched.shadow_stage(r, ds, st["be"], st["cnt"],
+                                         players, st["gbuf"], *st["rays"])
+
+    def shade_frames(st):
+        st["frames"] = batched.shade_stage(r, ds, st["gbuf"],
+                                           shade.factor_from_dot(
+                                               st["dot"], st["lit"],
+                                               r.config))
+
+    return [("bins", bins), ("trace+gbuffer", trace_gbuf),
+            ("geometry", geometry), ("shadow", shadow_lit),
+            ("shade", shade_frames)]
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -269,12 +362,7 @@ def drive(label: str, anim, ds, players, lights, want: dict[str, int],
     reset_launches()
     frames = anim.render_states(ds, players, lights,
                                 directional=directional)
-    torch.cuda.synchronize()
-    got = read_launches()
-    print(f"{label}: launches per batch {got}")
-    if got != want:
-        raise RuntimeError(f"{label}: launches {got}, expected {want}")
-    return frames, got
+    return frames, launches_are(f"{label}, per batch", want)
 
 
 def direction_sweep(n: int, device) -> torch.Tensor:
@@ -396,12 +484,9 @@ def config5_phase(card: str) -> list[dict]:
               f"{CONFIG5_FRAMES} frames")
 
         # Frame 0 against the oracle; the box-filtered frame.
-        pos = scaled.pos.copy()
-        pos[0] = players[0].cpu().numpy()
         t0 = time.perf_counter()
-        golden, _ = native.cpp_render_frame(
-            scaled.replace_pos(pos), Light(*map(int, lights[0].tolist())),
-            cfg)
+        golden, _ = oracle_frame(scaled, players[0].tolist(),
+                                 lights[0].tolist(), cfg)
         oracle_s = time.perf_counter() - t0
         bad = int((frames[False][0].cpu().numpy() != golden).any(axis=-1)
                   .sum())
@@ -424,94 +509,11 @@ def config5_phase(card: str) -> list[dict]:
 
         # Each kernel against its plain version on the checked frames.
         pick = CONFIG5_CHECKED[s]
-        p_pick, l_pick = players[pick], lights[pick]
-        be, cnt = batched.bin_stage(r, cache, ds, p_pick)
-        args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt,
-                p_pick, cfg)
-        fargs = args[:-1] + (l_pick, cfg)
-        work = {}
-        (best_p, win_p, lit_p), fused_plain = timed(
-            lambda: fused.trace_shadow(*fargs, work=work))
-        fused_cuda.counters.reset()
-        best_k, win_k, lit_k = fused_cuda.trace_shadow(*fargs, with_best=True)
-        for what, got, want in (("winner", win_k, win_p),
-                                ("best", best_k, best_p),
-                                ("lit", lit_k, lit_p)):
-            require_equal(tag, f"fused kernel {what}", got, want)
-        errs = {"fused": max(max_abs_err(win_k, win_p),
-                             max_abs_err(best_k, best_p),
-                             max_abs_err(lit_k, lit_p))}
-        stats = {"fused": fused_cuda.counters.read()}
-        ms = {"fused": cuda_ms(lambda: fused_cuda.trace_shadow(*fargs),
-                               KERNEL_REPS),
-              "fused_plain": fused_plain}
-        key_ops = DEPTH_KEY_OPS * int(work["candidate_hits"])
-        shadow_ops = SLAB_OPS * int(work["slab_tests"])
-        rows_b = entity_bytes(be, cnt, ds.pos, ds.ext, ds.sprite_id)
-        bounds = {"fused": (rows_b + nbytes(ds.atlas_depth, be, cnt, p_pick,
-                                            l_pick, win_k, lit_k),
-                            key_ops + shadow_ops)}
-
-        best_k, win_k = trace_cuda.trace_winners(*args, with_best=True)
-        require_equal(tag, "trace kernel winner", win_k, win_p)
-        require_equal(tag, "trace kernel best", best_k, best_p)
-        (best_t, win_t), ms["trace_plain"] = timed(
-            lambda: trace.trace_winner(*args))
-        require_equal(tag, "trace_winner winner", win_t, win_p)
-        errs["trace"] = max(max_abs_err(win_k, win_t),
-                            max_abs_err(best_k, best_t))
-        ms["trace"] = cuda_ms(lambda: trace_cuda.trace_winners(*args),
-                              KERNEL_REPS)
-        bounds["trace"] = (rows_b + nbytes(ds.atlas_depth, be, cnt, p_pick,
-                                           win_k), key_ops)
-
-        gbuf = trace.materialize_gbuffer(
-            win_k, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
-            ds.atlas_depth, ds.atlas_normal, ds.palette, p_pick, cfg)
-        _, inv, origin, rb, lb = batched.geometry_stage(r, gbuf, l_pick)
-        sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
-                 inv, p_pick, cfg)
-        shadow_cuda.counters.reset()
-        lit_k = shadow_cuda.trace_light(*sargs)
-        stats["shadow"] = shadow_cuda.counters.read()
-        lit_s, ms["shadow_plain"] = timed(
-            lambda: shadow.trace_light_dynamic(*sargs))
-        require_equal(tag, "shadow kernel lit", lit_k, lit_s)
-        require_equal(tag, "trace_light_dynamic lit", lit_s, lit_p)
-        errs["shadow"] = max_abs_err(lit_k, lit_s)
-        ms["shadow"] = cuda_ms(lambda: shadow_cuda.trace_light(*sargs),
-                               KERNEL_REPS)
-        light_bin = torch.stack([b.reshape(len(pick)) for b in lb], dim=1)
-        bounds["shadow"] = (
-            entity_bytes(be, cnt, ds.pos, ds.ext)
-            + nbytes(p_pick, be, cnt, *rb, *origin, *inv, gbuf.entity_index,
-                     light_bin, lit_k), shadow_ops)
-        checked = len(pick) * H * W
-        print(f"{tag}: frames {pick}: kernels == plain versions (trace "
-              f"winners and best depth, shadow lit mask, fused winners, best "
-              f"depth and lit mask), bit-exact; "
-              f"{int(work['candidate_hits'])} candidate hits, "
-              f"{int(work['slab_tests'])} slab tests needed")
-        for k in ("shadow", "fused"):
-            c = stats[k]
-            print(f"{tag} {k} kernel on frames {pick}: "
-                  f"{c['direct_pixels']} of {checked} pixels "
-                  f"({c['direct_pixels'] / checked:.6f}) marched directly, "
-                  f"at most {c['max_starts']} start bins in a "
-                  f"{'band' if k == 'fused' else 'tile'}, longest visit "
-                  f"list {c['max_list']} bins")
-        for k, (src, rep) in SOURCES.items():
-            bound_ms, bound_by = bound(*bounds[k])
-            print(f"{tag} {k} kernel {ms[k]:.4f} ms, plain "
-                  f"{ms[k + '_plain']:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}, {ms[k] / bound_ms:.1f}x) per call on "
-                  f"F={len(pick)} {W}x{H} frames  [{card}]")
-            rows.append({"name": f"{k} ({tag})", "route": "cuda",
-                         "source": src, "replaces": rep,
-                         "launches": launches[k], "max_abs_err": errs[k],
-                         "ms": ms[k], "plain_ms": ms[k + "_plain"],
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None})
+        print(f"{tag}: the kernels against their plain versions on frames "
+              f"{pick}")
+        be, cnt = batched.bin_stage(r, cache, ds, players[pick])
+        rows += path_kernels(tag, ds, be, cnt, players[pick], lights[pick],
+                             cfg, card, launches)
 
         # End to end: ms/frame and Mrays/s at the traced size.
         rays = 2 * W * H * CONFIG5_FRAMES
@@ -527,36 +529,466 @@ def config5_phase(card: str) -> list[dict]:
                   f"{rays / (m * 1e3):.2f} Mrays/s at {W}x{H}  [{card}]")
         r.fuse_trace_shadow = False
 
-        def bins(st):
-            st["be"], st["cnt"] = batched.bin_stage(r, cache, ds, players)
-
-        def trace_gbuf(st):
-            st["gbuf"] = batched.trace_stage(r, ds, st["be"], st["cnt"],
-                                             players)
-
-        def geometry(st):
-            st["dot"], *st["rays"] = batched.geometry_stage(r, st["gbuf"],
-                                                            lights)
-
-        def shadow_lit(st):
-            st["lit"] = batched.shadow_stage(r, ds, st["be"], st["cnt"],
-                                             players, st["gbuf"], *st["rays"])
-
-        def shade_frames(st):
-            batched.shade_stage(r, ds, st["gbuf"], shade.factor_from_dot(
-                st["dot"], st["lit"], cfg))
-
-        split = stage_split([("bins", bins), ("trace+gbuffer", trace_gbuf),
-                             ("geometry", geometry), ("shadow", shadow_lit),
-                             ("shade", shade_frames)], TIMED_REPS,
-                            CONFIG5_FRAMES)
+        split = stage_split(two_kernel_stages(r, cache, ds, players, lights),
+                            TIMED_REPS, CONFIG5_FRAMES)
         print(f"{tag} two-kernel stage split, ms/frame at "
               f"F={CONFIG5_FRAMES}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
               + f"  [{card}]")
-        del ds, cache, anim, frames, be, cnt, gbuf
+        del ds, cache, anim, frames, be, cnt
         torch.cuda.empty_cache()
     return rows
+
+
+def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
+                 launches: dict[str, int], gbuf=None) -> list[dict]:
+    """Hold each kernel that ``launches`` (name -> launches of one run of
+    the path ``tag``) counted against its plain version on one batch of
+    that path's inputs: the bins (F, V, cap) and (F, V), the players and
+    point lights (F, 3), and, where the path's G-buffer does not come from
+    the trace kernel (the brute renderer), that G-buffer.  Raises on any
+    difference; prints and returns the kernels' JSON rows, with their
+    times, plain times and bounds on these inputs."""
+    args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt, players,
+            cfg)
+    rows_b = entity_bytes(be, cnt, ds.pos, ds.ext, ds.sprite_id)
+    ms, errs, bounds, work, stats = {}, {}, {}, {}, {}
+    key_ops = 0
+    if gbuf is None:
+        (best_p, win_p), ms["trace_plain"] = timed(
+            lambda: trace.trace_winner(*args, work=work))
+        key_ops = DEPTH_KEY_OPS * int(work["candidate_hits"])
+        gbuf = trace.materialize_gbuffer(
+            win_p, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+            ds.atlas_depth, ds.atlas_normal, ds.palette, players, cfg)
+        if launches["trace"]:
+            best_k, win_k = trace_cuda.trace_winners(*args, with_best=True)
+            require_equal(tag, "trace kernel winner", win_k, win_p)
+            require_equal(tag, "trace kernel best", best_k, best_p)
+            errs["trace"] = max(max_abs_err(win_k, win_p),
+                                max_abs_err(best_k, best_p))
+            ms["trace"] = cuda_ms(lambda: trace_cuda.trace_winners(*args),
+                                  KERNEL_REPS)
+            bounds["trace"] = (rows_b + nbytes(ds.atlas_depth, be, cnt,
+                                               players, win_k), key_ops)
+    _, inv, origin, rb, lb = shade.light_geometry(gbuf, lights, cfg)
+    sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
+             inv, players, cfg)
+    lit_p, ms["shadow_plain"] = timed(
+        lambda: shadow.trace_light_dynamic(*sargs, work=work))
+    shadow_ops = SLAB_OPS * int(work["slab_tests"])
+    if launches["shadow"]:
+        shadow_cuda.counters.reset()
+        lit_k = shadow_cuda.trace_light(*sargs)
+        stats["shadow"] = shadow_cuda.counters.read()
+        require_equal(tag, "shadow kernel lit", lit_k, lit_p)
+        errs["shadow"] = max_abs_err(lit_k, lit_p)
+        ms["shadow"] = cuda_ms(lambda: shadow_cuda.trace_light(*sargs),
+                               KERNEL_REPS)
+        light_bin = torch.stack([b.reshape(players.shape[0]) for b in lb],
+                                dim=1)
+        bounds["shadow"] = (
+            entity_bytes(be, cnt, ds.pos, ds.ext)
+            + nbytes(players, be, cnt, *rb, *origin, *inv,
+                     gbuf.entity_index, light_bin, lit_k), shadow_ops)
+    if launches["fused"]:
+        fargs = args[:-1] + (lights, cfg)
+        (best_f, win_f, lit_f), ms["fused_plain"] = timed(
+            lambda: fused.trace_shadow(*fargs))
+        require_equal(tag, "plain fused winner vs trace_winner", win_f,
+                      win_p)
+        require_equal(tag, "plain fused lit vs trace_light_dynamic", lit_f,
+                      lit_p)
+        fused_cuda.counters.reset()
+        best_k, win_k, lit_k = fused_cuda.trace_shadow(*fargs,
+                                                       with_best=True)
+        stats["fused"] = fused_cuda.counters.read()
+        for what, got, want in (("winner", win_k, win_f),
+                                ("best", best_k, best_f),
+                                ("lit", lit_k, lit_f)):
+            require_equal(tag, f"fused kernel {what}", got, want)
+        errs["fused"] = max(max_abs_err(win_k, win_f),
+                            max_abs_err(best_k, best_f),
+                            max_abs_err(lit_k, lit_f))
+        ms["fused"] = cuda_ms(lambda: fused_cuda.trace_shadow(*fargs),
+                              KERNEL_REPS)
+        bounds["fused"] = (rows_b + nbytes(ds.atlas_depth, be, cnt, players,
+                                           lights, win_k, lit_k),
+                           key_ops + shadow_ops)
+    F, H, W = gbuf.y.shape
+    print(f"{tag}: {int(work.get('candidate_hits', 0))} candidate hits, "
+          f"{int(work['slab_tests'])} slab tests needed on F={F} {W}x{H} "
+          f"frames")
+    for k, c in stats.items():
+        print(f"{tag} {k} kernel: {c['direct_pixels']} of {F * H * W} "
+              f"pixels marched directly, at most {c['max_starts']} start "
+              f"bins in a {'band' if k == 'fused' else 'tile'}, longest "
+              f"visit list {c['max_list']} bins")
+    rows = []
+    for k, (src, rep) in SOURCES.items():
+        if not launches[k]:
+            continue
+        bound_ms, bound_by = bound(*bounds[k])
+        print(f"{tag} {k} kernel == plain version, bit-exact; {ms[k]:.4f} "
+              f"ms, plain {ms[k + '_plain']:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({bound_by}, {ms[k] / bound_ms:.1f}x) per call on F={F} "
+              f"{W}x{H} frames; {launches[k]} launches on the path  [{card}]")
+        rows.append({"name": f"{k} ({tag})", "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[k],
+                     "max_abs_err": errs[k], "ms": ms[k],
+                     "plain_ms": ms[k + "_plain"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows
+
+
+def launches_are(tag: str, want: dict[str, int]) -> dict[str, int]:
+    """The launch counts since the last ``reset_launches``; raises unless
+    they are ``want`` (names missing from ``want`` are 0)."""
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = {**dict.fromkeys(got, 0), **want}
+    print(f"{tag}: launches {got}")
+    if got != want:
+        raise RuntimeError(f"{tag}: launches {got}, expected {want}")
+    return got
+
+
+def oracle_frame(scene, player, light, config):
+    """``cpp_render_frame`` with entity 0 at ``player``: ``(rgb, GBuffer)``."""
+    pos = scene.pos.copy()
+    pos[0] = player
+    return native.cpp_render_frame(scene.replace_pos(pos), Light(*light),
+                                   config)
+
+
+def oracle_overlay(scene, player, light, mouse, line_x, config):
+    """The oracle's frame with the session's red line drawn as the
+    reference does (alternative.cpp:762-772): from column ``line_x`` at the
+    hovered pixel's surface row, the hovered pixel read from
+    ``cpp_trace_pixels``' y and z at the clamped ``mouse``, to the light.
+    Returns ``(image, (y, z), GBuffer)``."""
+    image, gb = oracle_frame(scene, player, light, config)
+    mx = min(max(mouse[0], 0), config.view_width - 1)
+    my = min(max(mouse[1], 0), config.view_height - 1)
+    mp = (int(gb.y[my, mx]), int(gb.z[my, mx]))
+    H = config.view_height
+    draw_line_host(image, line_x, H - sum(mp), light[0],
+                   H - (light[1] + light[2]), (255, 0, 0))
+    return image, mp, gb
+
+
+def brute_phase(card: str, scene, ds, renderer) -> list[dict]:
+    """BASELINE config 1 through ``BruteForceRenderer`` on the card:
+    raises unless its entity index equals ``cpp_trace_pixels``', its
+    unshadowed frame the same renderer's frame on the CPU, and its
+    ``shadow=True`` frame (one launch of the shadow kernel)
+    ``cpp_render_frame``.  Then the brute trace of graybox at full width:
+    its time, and the pixels whose winner differs from the deferred path's
+    (printed, not gated: graybox's bins overflow).  Returns the shadow
+    kernel's row on the brute path."""
+    tag = "brute, config 1"
+    b = SceneBuilder(config=CONFIG1)
+    b.insert((10, 0, 10), (20, 20, 20))
+    b.insert((30, 10, 20), (20, 20, 20))
+    scene1 = b.build()
+    ds1 = DeviceScene.from_scene(scene1, CONFIG1)
+    light = CONFIG1_LIGHT.as_array()
+    brute = BruteForceRenderer(CONFIG1)
+    gbuf = brute.trace(ds1)
+    be_c, cnt_c = native.cpp_build_bins(scene1, CONFIG1)
+    want = native.cpp_trace_pixels(scene1, be_c, cnt_c, CONFIG1)
+    require_equal(tag, "entity index vs cpp_trace_pixels",
+                  gbuf.entity_index.cpu(), torch.from_numpy(want.entity_index))
+    ds1_cpu = DeviceScene.from_scene(scene1, CONFIG1, device="cpu")
+    require_equal(tag, "unshadowed frame vs the CPU's",
+                  brute.render(ds1, light).cpu(), brute.render(ds1_cpu, light))
+    shadowed = BruteForceRenderer(CONFIG1, shadow=True)
+    reset_launches()
+    frame = shadowed.render(ds1, light)
+    launches = launches_are(f"{tag}, shadow=True", {"shadow": 1})
+    golden, _ = native.cpp_render_frame(scene1, CONFIG1_LIGHT, CONFIG1)
+    require_equal(tag, "shadow=True frame vs cpp_render_frame", frame.cpu(),
+                  torch.from_numpy(golden))
+    print(f"{tag}: entity index == cpp_trace_pixels, unshadowed frame == "
+          f"the CPU's, shadow=True frame == cpp_render_frame")
+    be, cnt = binning.build_bins(ds1.pos, ds1.ext, CONFIG1, SHADOW_SPANS)
+    lights = torch.as_tensor(light, device=be.device)[None]
+    rows = path_kernels(f"{tag}, shadow=True", ds1, be[None], cnt[None],
+                        ds1.pos[:1], lights, CONFIG1, card, launches,
+                        gbuf=GBufferArrays(*(t[None] for t in gbuf)))
+
+    cfg = renderer.config
+    brute = BruteForceRenderer(cfg)
+    trace_ms = cuda_ms(lambda: brute.trace(ds), BRUTE_REPS)
+    be, cnt = renderer.build_bins(ds)
+    deferred = trace_cuda.trace_winners(ds.pos, ds.ext, ds.sprite_id,
+                                        ds.atlas_depth, be[None], cnt[None],
+                                        ds.pos[:1], cfg)[0]
+    differ = int((brute.winners(ds) != deferred).sum())
+    print(f"brute, graybox: trace {trace_ms:.1f} ms a frame "
+          f"({scene.n_entities} entities in chunks of {brute.entity_chunk}, "
+          f"{cfg.view_width}x{cfg.view_height}); {differ} pixels' winners "
+          f"differ from the deferred path's (its bins overflow)  [{card}]")
+    return rows
+
+
+def session_script(cfg) -> list[tuple[list[str], tuple[int, int]]]:
+    """``SESSION_FRAMES`` frames of (keys, mouse): every binding in turn,
+    two keys on every third frame, the cursor seeded inside the frame and
+    around it."""
+    bindings = list(KEY_BINDINGS)
+    rng = np.random.default_rng(7)
+    W, H = cfg.view_width, cfg.view_height
+    script = []
+    for f in range(SESSION_FRAMES):
+        keys = [bindings[f % len(bindings)]]
+        if f % 3 == 2:
+            keys.append(bindings[(5 * f) % len(bindings)])
+        mouse = (int(rng.integers(-40, W + 40)),
+                 int(rng.integers(-40, H + 40)))
+        script.append((keys, mouse))
+    # The checked frames: the cursor inside, on a corner, outside.
+    for f, mouse in zip(SESSION_CHECKED,
+                        ((W // 3, H // 2), (W - 1, 0), (-25, H + 30))):
+        script[f] = (script[f][0], mouse)
+    return script
+
+
+def session_report(cfg, player, ext0, counts) -> str:
+    """``Session.debug_report`` built from the oracle's bin counts (V,)."""
+    counts = counts.reshape(cfg.hash_width, cfg.hash_height, cfg.hash_length)
+    bx = min(max(player[0] // cfg.bin_size, 0), cfg.hash_width - 1)
+    lines = [f"<{player[0]}, {player[1]}, {player[2]}>",
+             f"<{player[0] + ext0[0]}, {player[1] + ext0[1]}, "
+             f"{player[2] + ext0[2]}>"]
+    lines += [" ".join(str(counts[bx, j, k]) for k in range(cfg.hash_length))
+              for j in range(cfg.hash_height)]
+    return "\n".join(lines)
+
+
+def session_phase(card: str, scene, cfg) -> list[dict]:
+    """``Session`` on graybox on the card, ``SESSION_FRAMES`` frames of
+    ``session_script`` on the two-kernel path, then the first
+    ``SESSION_FUSED_FRAMES`` again with ``fuse_trace_shadow``.  Raises
+    unless each frame launches trace 1 + shadow 1 (fused 1); the images of
+    frames ``SESSION_CHECKED`` and their mouse readouts equal
+    ``cpp_render_frame`` with the red line drawn at endpoints from
+    ``cpp_trace_pixels``' y and z; ``debug_report()`` equals the report
+    built from ``cpp_build_bins``' counts and ``normal_view()`` the debug
+    colours of the oracle's normals, at the final state; the fused
+    session's images equal the two-kernel session's; and ``save_gif``
+    runs the native encoder.  Returns the kernels' rows on both paths."""
+    script = session_script(cfg)
+    s = Session(scene, config=cfg)
+    states, ms = [], []
+    reset_launches()
+    for keys, mouse in script:
+        t0 = time.perf_counter()
+        s.feed(keys, mouse)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        states.append((s.state.player_pos.tolist(), s.state.light.tolist(),
+                       s.mouse))
+    launches = launches_are(f"session, {SESSION_FRAMES} frames",
+                            {"trace": SESSION_FRAMES,
+                             "shadow": SESSION_FRAMES})
+    print(f"session: feed {float(np.median(ms[1:])):.2f} ms/frame (median "
+          f"of frames 1-{SESSION_FRAMES - 1}; frame 0 {ms[0]:.2f} ms), "
+          f"{cfg.view_width}x{cfg.view_height}, {scene.n_entities} entities "
+          f"rebinned every frame  [{card}]")
+    for f in SESSION_CHECKED:
+        player, light, mouse = states[f]
+        image, mp, _ = oracle_overlay(scene, player, light, mouse, mouse[0],
+                                      cfg)
+        rec = s.frames[f]
+        require_equal("session", f"frame {f} image vs cpp_render_frame + "
+                      "the red line", torch.from_numpy(rec.image),
+                      torch.from_numpy(image))
+        if (rec.mouse_pixel_y, rec.mouse_pixel_z) != mp:
+            raise RuntimeError(f"session frame {f}: mouse pixel "
+                               f"{(rec.mouse_pixel_y, rec.mouse_pixel_z)}, "
+                               f"oracle {mp}")
+    player, light, _ = states[-1]
+    _, gb = oracle_frame(scene, player, light, cfg)
+    pos = scene.pos.copy()
+    pos[0] = player
+    _, counts = native.cpp_build_bins(scene.replace_pos(pos), cfg)
+    report = session_report(cfg, player, scene.ext[0].tolist(), counts)
+    if s.debug_report() != report:
+        raise RuntimeError(f"session debug_report:\n{s.debug_report()}\n"
+                           f"oracle:\n{report}")
+    with np.errstate(invalid="ignore"):
+        normals = np.stack(normal_to_debug_color(
+            gb.normal[..., 0], gb.normal[..., 1], gb.normal[..., 2]), -1)
+    require_equal("session", "normal_view vs the oracle's normals",
+                  torch.from_numpy(s.normal_view()), torch.from_numpy(normals))
+    with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
+        path = os.path.join(tmp, "session.gif")
+        encoder = s.save_gif(path)
+        size = os.path.getsize(path)
+    if encoder != "native":
+        raise RuntimeError(f"session save_gif ran the {encoder} encoder")
+    print(f"session: frames {list(SESSION_CHECKED)} == cpp_render_frame + "
+          f"the red line, mouse readouts, debug_report and normal_view == "
+          f"the oracle's; save_gif: native encoder, {size} B")
+    ds_f = scene_with_player(s.dscene, player)
+    be, cnt = s.renderer.build_bins(ds_f)
+    players = ds_f.pos[:1]
+    lights = torch.tensor([light], dtype=torch.int32, device=be.device)
+    rows = path_kernels("session", ds_f, be[None], cnt[None], players,
+                        lights, cfg, card, launches)
+
+    r = DeferredRenderer(cfg)
+    r.fuse_trace_shadow = True
+    s_fused = Session(scene, config=cfg, renderer=r)
+    reset_launches()
+    for keys, mouse in script[:SESSION_FUSED_FRAMES]:
+        s_fused.feed(keys, mouse)
+    launches = launches_are(f"session, fused, {SESSION_FUSED_FRAMES} frames",
+                            {"fused": SESSION_FUSED_FRAMES})
+    for f in range(SESSION_FUSED_FRAMES):
+        require_equal("fused session", f"frame {f} vs the two-kernel "
+                      "session", torch.from_numpy(s_fused.frames[f].image),
+                      torch.from_numpy(s.frames[f].image))
+    print(f"session, fused: frames 0-{SESSION_FUSED_FRAMES - 1} == the "
+          f"two-kernel session's")
+    return rows + path_kernels("session, fused", ds_f, be[None], cnt[None],
+                               players, lights, cfg, card, launches)
+
+
+def viewer_phase(card: str, scene, cfg) -> list[dict]:
+    """``LiveViewer`` on graybox on the card through ``bench_loop``, the
+    viewer's --bench loop, for ``VIEWER_FRAMES`` frames.  Raises unless
+    each frame launches trace 1 + shadow 1 and frame 0's image equals
+    ``cpp_render_frame`` with the red line from the clamped cursor.
+    Prints the loop's median ms/frame and the share of render + overlay
+    in it.  Returns the kernels' rows on the viewer's path."""
+    v = LiveViewer(scene, config=cfg)
+    render_overlay = v._render_with_overlay
+    render_ms, first = [], {}
+
+    def timed_render_overlay():
+        state = (v.state.player_pos.tolist(), v.state.light.tolist(),
+                 v.mouse)
+        t0 = time.perf_counter()
+        image = render_overlay()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        first.setdefault("frame", (state, image.copy(), v.mouse_pixel))
+        return image
+
+    v._render_with_overlay = timed_render_overlay
+    reset_launches()
+    n, steps, wall = bench_loop(v, VIEWER_FRAMES)
+    launches = launches_are(f"viewer, {n} frames",
+                            {"trace": VIEWER_FRAMES,
+                             "shadow": VIEWER_FRAMES})
+    loop = float(np.median(steps)) * 1e3
+    render = float(np.median(render_ms[1:]))
+    print(f"viewer --bench loop: {n} frames, median {loop:.2f} ms/frame "
+          f"({1e3 / loop:.1f} fps), render + overlay {render:.2f} ms "
+          f"({render / loop:.3f} of the loop), ANSI blit and the rest "
+          f"{loop - render:.2f} ms; scale {v.scale}, wall {wall:.2f} s  "
+          f"[{card}]")
+    (player, light, mouse), image, mp = first["frame"]
+    mx = min(max(mouse[0], 0), cfg.view_width - 1)
+    want, want_mp, _ = oracle_overlay(scene, player, light, mouse, mx, cfg)
+    require_equal("viewer", "frame 0 image vs cpp_render_frame + the red "
+                  "line", torch.from_numpy(image), torch.from_numpy(want))
+    if mp != want_mp:
+        raise RuntimeError(f"viewer frame 0: mouse pixel {mp}, oracle "
+                           f"{want_mp}")
+    print("viewer: frame 0 == cpp_render_frame + the red line")
+    ds_f = scene_with_player(v.dscene, v.state.player_pos)
+    players = ds_f.pos[:1]
+    lights = v.state.light.to(players.device)[None]
+    # The live frame's split: the batched stages at F = 1 with a full rebin
+    # and the frame's fetch (CUDA events between them), then the blit.
+    stages = two_kernel_stages(v.renderer, None, ds_f, players, lights)
+    stages.append(("fetch", lambda st: st["frames"].cpu()))
+    split = stage_split(stages, TIMED_REPS, frames=1)
+    image = v.render_current()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_REPS):
+        ansi_frame(image, v.scale)
+    blit = (time.perf_counter() - t0) * 1e3 / TIMED_REPS
+    print("viewer frame split, ms: " + ", ".join(
+        f"{k} {t:.4f}" for k, t in split.items())
+        + f", ANSI blit on the host {blit:.2f}  [{card}]")
+    be, cnt = v.renderer.build_bins(ds_f)
+    return path_kernels("viewer", ds_f, be[None], cnt[None], players,
+                        lights, cfg, card, launches)
+
+
+def overlap_scene(config, n_side: int, seed: int = 3):
+    """tests/test_configs.py:19-31 with the port's ``SceneBuilder``: the
+    player and n_side**2 seeded 20-cubes at varied y and z."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(config=config)
+    b.insert((config.view_width // 2, 36, config.view_length // 4),
+             (20, 20, 20))
+    for _ in range(n_side * n_side):
+        x = int(rng.integers(0, config.view_width - 4))
+        y = int(rng.integers(0, 60))
+        z = int(rng.integers(0, config.view_length - 4))
+        b.insert((x, y, z), (20, 20, 20))
+    return b.build()
+
+
+def config2_phase(card: str) -> list[dict]:
+    """BASELINE config 2: the 101-box overlap scene at 256 x 256, a
+    32-frame light sweep through ``render_long`` in chunks of 8 into a
+    checkpoint directory, then again after its last chunk is deleted.
+    Raises unless the first run launches trace 4 + shadow 4 and the
+    second trace 1 + shadow 1, the two runs' frames are equal, frames 0
+    and 31 equal ``cpp_render_frame`` and the GIF is written by the native
+    encoder.  Prints ms/frame and Mrays/s.  Returns the kernels' rows."""
+    cfg = CONFIG2
+    scene = overlap_scene(cfg, n_side=10)
+    r = DeferredRenderer(cfg).configure_for(scene)
+    anim = AnimationRenderer(r, cfg)
+    ds = DeviceScene.from_scene(scene, cfg)
+    players, lights = anim.light_sweep_states(CONFIG2_FRAMES, scene.pos[0])
+    chunks = CONFIG2_FRAMES // CONFIG2_CHUNK
+    with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        frames = anim.render_long(ds, players, lights, tmp, CONFIG2_CHUNK)
+        seconds = time.perf_counter() - t0
+        launches = launches_are("config 2, render_long",
+                                {"trace": chunks, "shadow": chunks})
+        os.remove(os.path.join(tmp, f"chunk_{chunks - 1:05d}.npz"))
+        reset_launches()
+        again = anim.render_long(ds, players, lights, tmp, CONFIG2_CHUNK)
+        launches_are("config 2, render_long after its last chunk was "
+                     "deleted", {"trace": 1, "shadow": 1})
+        if not np.array_equal(again, frames):
+            raise RuntimeError("config 2: the resumed render's frames differ")
+        path = os.path.join(tmp, "config2.gif")
+        encoder = write_gif(path, frames)
+        size = os.path.getsize(path)
+    H, W = cfg.view_height, cfg.view_width
+    if frames.shape != (CONFIG2_FRAMES, H, W, 3) or encoder != "native":
+        raise RuntimeError(f"config 2: frames {frames.shape}, GIF encoder "
+                           f"{encoder}")
+    for f in (0, CONFIG2_FRAMES - 1):
+        golden, _ = oracle_frame(scene, players[f].tolist(),
+                                 lights[f].tolist(), cfg)
+        require_equal("config 2", f"frame {f} vs cpp_render_frame",
+                      torch.from_numpy(frames[f]), torch.from_numpy(golden))
+    stats = RenderStats(CONFIG2_FRAMES, H, W, seconds)
+    batch_ms = cuda_ms(lambda: anim.render_states(
+        ds, players[:CONFIG2_CHUNK], lights[:CONFIG2_CHUNK]), TIMED_REPS)
+    batch = RenderStats(CONFIG2_CHUNK, H, W, batch_ms / 1e3)
+    print(f"config 2: {scene.n_entities} boxes, {CONFIG2_FRAMES} frames "
+          f"through render_long in chunks of {CONFIG2_CHUNK}: "
+          f"{1e3 / stats.frames_per_sec:.4f} ms/frame, "
+          f"{stats.mrays_per_sec:.2f} Mrays/s with the checkpoints written; "
+          f"render_states {1e3 / batch.frames_per_sec:.4f} ms/frame, "
+          f"{batch.mrays_per_sec:.2f} Mrays/s; the resume re-rendered 1 "
+          f"chunk, same frames; frames 0 and {CONFIG2_FRAMES - 1} == "
+          f"cpp_render_frame; GIF {size} B (native)  [{card}]")
+    be, cnt = batched.bin_stage(r, None, ds, players[:CONFIG2_CHUNK])
+    return path_kernels("config 2", ds, be, cnt, players[:CONFIG2_CHUNK],
+                        lights[:CONFIG2_CHUNK], cfg, card, launches)
 
 
 def main() -> int:
@@ -763,20 +1195,7 @@ def main() -> int:
 
     players, lights = sweeps["center"]
 
-    def bins(s):
-        s["be"], s["cnt"] = batched.bin_stage(renderer, cache, ds, players)
-
-    def trace_gbuf(s):
-        s["gbuf"] = batched.trace_stage(renderer, ds, s["be"], s["cnt"],
-                                        players)
-
-    def geometry(s):
-        s["dot"], *s["rays"] = batched.geometry_stage(renderer, s["gbuf"],
-                                                      lights)
-
-    def shadow_lit(s):
-        s["lit"] = batched.shadow_stage(renderer, ds, s["be"], s["cnt"],
-                                        players, s["gbuf"], *s["rays"])
+    two_kernel = two_kernel_stages(renderer, cache, ds, players, lights)
 
     def fused_kernel(s):
         _, s["win"], s["lit"] = fused_cuda.trace_shadow(
@@ -789,17 +1208,10 @@ def main() -> int:
             ds.atlas_depth, ds.atlas_normal, ds.palette, players, cfg)
         s["dot"] = batched.geometry_stage(renderer, s["gbuf"], lights)[0]
 
-    def shade_frames(s):
-        batched.shade_stage(renderer, ds, s["gbuf"],
-                            shade.factor_from_dot(s["dot"], s["lit"], cfg))
-
     for label, stages in (
-            ("two-kernel", [("bins", bins), ("trace+gbuffer", trace_gbuf),
-                            ("geometry", geometry), ("shadow", shadow_lit),
-                            ("shade", shade_frames)]),
-            ("fused", [("bins", bins), ("fused", fused_kernel),
-                       ("gbuffer+geometry", gbuf_geometry),
-                       ("shade", shade_frames)])):
+            ("two-kernel", two_kernel),
+            ("fused", [two_kernel[0], ("fused", fused_kernel),
+                       ("gbuffer+geometry", gbuf_geometry), two_kernel[-1]])):
         split = ", ".join(f"{k} {v:.4f}"
                           for k, v in stage_split(stages, TIMED_REPS).items())
         print(f"center {label} stage split, ms/frame at F={FRAMES}: {split}"
@@ -809,10 +1221,8 @@ def main() -> int:
     checks = [(name, 0) for name in sweeps] + [("edge_z", FRAMES // 2)]
     for name, f in checks:
         players, lights = sweeps[name]
-        pos = scene.pos.copy()
-        pos[0] = players[f].cpu().numpy()
-        golden, _ = native.cpp_render_frame(
-            scene.replace_pos(pos), Light(*map(int, lights[f].tolist())), cfg)
+        golden, _ = oracle_frame(scene, players[f].tolist(),
+                                 lights[f].tolist(), cfg)
         for label, out in (("two-kernel", frames), ("fused", frames_fused)):
             bad = int((out[name][f].cpu().numpy() != golden).any(axis=-1)
                       .sum())
@@ -1045,9 +1455,15 @@ def main() -> int:
 
     # -- 14. BASELINE config 5: supersampled at s = 2 and 4 ------------------
     rows += config5_phase(card)
+
+    # -- 15. the brute renderer, the session, the viewer, render_long -------
+    rows += brute_phase(card, scene, ds, renderer)
+    rows += session_phase(card, scene, cfg)
+    rows += viewer_phase(card, scene, cfg)
+    rows += config2_phase(card)
     print(json.dumps({"kernels": rows}))
 
-    # -- 15. result ----------------------------------------------------------
+    # -- 16. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,7 @@ Here a batch of per-frame states renders through the batched path
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +46,15 @@ class WorldState(NamedTuple):
 
     player_pos: torch.Tensor  # (3,) int32 — entity 0 position
     light: torch.Tensor       # (3,) int32
+
+
+def scene_with_player(dscene: DeviceScene, player_pos) -> DeviceScene:
+    """A new scene with entity 0 (the reference's player) at
+    ``player_pos`` (3,): ``pos`` is cloned with row 0 set, so the caller's
+    tensor is never written."""
+    pos = dscene.pos.clone()
+    pos[0] = torch.as_tensor(player_pos, dtype=torch.int32).to(pos.device)
+    return dataclasses.replace(dscene, pos=pos)
 
 
 def apply_keys(state: WorldState, keys: list[str]) -> WorldState:
@@ -110,3 +120,51 @@ class AnimationRenderer:
         dev = resolve(device)
         return (torch.as_tensor(players.copy(), device=dev),
                 torch.as_tensor(lights, device=dev))
+
+    def render_long(self, dscene: DeviceScene, player_pos, lights,
+                    checkpoint_dir, chunk_size: int = 16) -> np.ndarray:
+        """Long animation render with chunked checkpoint/resume.
+
+        Renders ``player_pos``/``lights`` ((F, 3) int32 each, one point
+        light per frame) in batches of ``chunk_size`` frames, the last one
+        padded with the last state; each finished chunk persists to
+        ``checkpoint_dir`` and a restart skips the chunks on disk
+        (``utils/checkpoint.py``).  Returns all (F, H, W, 3) uint8 frames
+        as numpy.
+        """
+        from ..utils.checkpoint import render_with_checkpoints
+
+        dev = dscene.device
+        players = torch.as_tensor(player_pos, dtype=torch.int32, device=dev)
+        lights = torch.as_tensor(lights, dtype=torch.int32, device=dev)
+        F = players.shape[0]
+        pad = (-F) % chunk_size
+        players_p = torch.cat([players, players[-1:].expand(pad, 3)])
+        lights_p = torch.cat([lights, lights[-1:].expand(pad, 3)])
+
+        def render_chunk(start, count):
+            frames = self.render_states(
+                dscene, players_p[start:start + chunk_size],
+                lights_p[start:start + chunk_size])
+            return frames[:count].cpu().numpy()
+
+        return render_with_checkpoints(render_chunk, F, checkpoint_dir,
+                                       chunk_size)
+
+    def render_script(self, dscene: DeviceScene, initial: WorldState,
+                      script: list[list[str]]):
+        """Apply a per-frame key-event script and render each resulting
+        frame, as the reference's event loop does: events mutate the state,
+        the next frame renders the mutated world.  Returns ``(frames,
+        final_state)``, frames (len(script), H, W, 3) uint8 on the scene's
+        device."""
+        players, lights = [], []
+        state = initial
+        for keys in script:
+            state = apply_keys(state, keys)
+            players.append(state.player_pos.cpu())
+            lights.append(state.light.cpu())
+        dev = dscene.device
+        frames = self.render_states(dscene, torch.stack(players).to(dev),
+                                    torch.stack(lights).to(dev))
+        return frames, state

@@ -195,6 +195,15 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
     lights raises ``ValueError``.
     """
     check_supported(lights, directional, upto)
+    return gbuffer_and_frames(renderer, static_bins, dscene, players, lights,
+                              directional)[1]
+
+
+def gbuffer_and_frames(renderer, static_bins, dscene, players, lights,
+                       directional: bool = False):
+    """The body of :func:`render_states_batched` (which checks the request
+    first): ``(gbuf, frames)``, the frames' G-buffer (``trace.GBufferArrays``
+    batched over F) beside the (F, H, W, 3) uint8 frames."""
     cfg = renderer.config
     bins_ent, counts = bin_stage(renderer, static_bins, dscene, players)
     if renderer.fuse_trace_shadow and lights.dim() == 2 and not directional:
@@ -202,7 +211,7 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
                                    players, lights)
         dot = geometry_stage(renderer, gbuf, lights)[0]
         factor = shade.factor_from_dot(dot, lit, cfg)
-        return shade_stage(renderer, dscene, gbuf, factor)
+        return gbuf, shade_stage(renderer, dscene, gbuf, factor)
     gbuf = trace_stage(renderer, dscene, bins_ent, counts, players)
     if directional:
         dot, lit = directional_stage(renderer, dscene, bins_ent, counts,
@@ -216,4 +225,4 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
         lit = shadow_stage(renderer, dscene, bins_ent, counts, players,
                            gbuf, *rays)
         factor = shade.factor_from_dot(dot, lit, cfg)
-    return shade_stage(renderer, dscene, gbuf, factor)
+    return gbuf, shade_stage(renderer, dscene, gbuf, factor)

@@ -1,7 +1,10 @@
 """The deferred renderer: rebin → primary trace → shadowed shade.
 
 Counterpart of ``pixel_art_raytracer_tpu/models/deferred.py``.  A single
-frame is the batched path (models/batched.py) at F = 1 with a full rebin.
+frame is the batched path (models/batched.py) at F = 1 with a full rebin;
+its stages are public as in the JAX package (``build_bins``, ``trace``,
+``shade``), and ``render_with_gbuffer`` hands back the G-buffer beside the
+frame for the session, the viewer and their mouse inspector.
 """
 
 from __future__ import annotations
@@ -15,7 +18,10 @@ import torch
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..device import resolve
 from ..ops import binning
+from ..ops import shade as shade_ops
+from ..ops.trace import GBufferArrays
 from ..scene import Light, Scene
+from . import batched
 
 STYLES = ("reference", "dithered")
 
@@ -76,6 +82,7 @@ class DeferredRenderer:
         r = DeferredRenderer(config).configure_for(scene)
         dscene = DeviceScene.from_scene(scene, config)  # on the card
         frame = r.render(dscene, light_xyz)          # (H, W, 3) uint8
+        gbuf, frame = r.render_with_gbuffer(dscene, light_xyz)
     """
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
@@ -106,15 +113,61 @@ class DeferredRenderer:
         return binning.entity_span_bound(np.asarray(scene.ext).max(axis=0),
                                          self.config)
 
-    def render(self, dscene: DeviceScene, light) -> torch.Tensor:
-        """One frame under point light ``light`` (x, y, z) with the player
-        where ``dscene.pos[0]`` puts it.  Returns (H, W, 3) uint8."""
-        from .batched import render_states_batched
+    # -- the stages of one frame (models/batched.py at F = 1) ---------------
 
-        light = torch.as_tensor(light, dtype=torch.int32,
-                                device=dscene.device)
-        return render_states_batched(self, None, dscene, dscene.pos[:1],
-                                     light[None])[0]
+    def build_bins(self, dscene: DeviceScene):
+        """The frame's bin tables, rebuilt from every entity:
+        ``(bins_ent (V, cap), counts (V,))`` int32."""
+        bins_ent, counts = batched.bin_stage(self, None, dscene,
+                                             dscene.pos[:1])
+        return bins_ent[0], counts[0]
+
+    def trace(self, dscene: DeviceScene, bins_ent, counts) -> GBufferArrays:
+        """Primary visibility (kernel 1) into the frame's G-buffer, fields
+        shaped (H, W, ...)."""
+        gbuf = batched.trace_stage(self, dscene, bins_ent[None],
+                                   counts[None], dscene.pos[:1])
+        return GBufferArrays(*(t[0] for t in gbuf))
+
+    def shade(self, dscene: DeviceScene, gbuf: GBufferArrays, bins_ent,
+              counts, light) -> torch.Tensor:
+        """Light geometry, the shadow march (kernel 2) and the shade of a
+        G-buffer from :meth:`trace` under point light ``light`` (x, y, z).
+        Returns (H, W, 3) uint8."""
+        lights = self._lights(dscene, light)
+        gbuf = GBufferArrays(*(t[None] for t in gbuf))
+        dot, *rays = batched.geometry_stage(self, gbuf, lights)
+        lit = batched.shadow_stage(self, dscene, bins_ent[None],
+                                   counts[None], dscene.pos[:1], gbuf, *rays)
+        factor = shade_ops.factor_from_dot(dot, lit, self.config)
+        return batched.shade_stage(self, dscene, gbuf, factor)[0]
+
+    # -- whole-frame entry points --------------------------------------------
+
+    def render_with_gbuffer(self, dscene: DeviceScene, light):
+        """One frame under point light ``light`` (x, y, z) with the player
+        where ``dscene.pos[0]`` puts it: ``(gbuf, frame)``, the G-buffer
+        (fields (H, W, ...)) and the (H, W, 3) uint8 frame.
+
+        The batched path at F = 1 with a full rebin: :meth:`build_bins`,
+        :meth:`trace` and :meth:`shade`, or, with ``fuse_trace_shadow``,
+        the fused kernel in place of the last two's kernels."""
+        lights = self._lights(dscene, light)
+        batched.check_supported(lights, False, None)
+        gbuf, frames = batched.gbuffer_and_frames(self, None, dscene,
+                                                  dscene.pos[:1], lights)
+        return GBufferArrays(*(t[0] for t in gbuf)), frames[0]
+
+    def render(self, dscene: DeviceScene, light) -> torch.Tensor:
+        """The frame of :meth:`render_with_gbuffer`: (H, W, 3) uint8."""
+        return self.render_with_gbuffer(dscene, light)[1]
+
+    @staticmethod
+    def _lights(dscene: DeviceScene, light) -> torch.Tensor:
+        """``light`` as the (1, 3) int32 batch of one frame on the scene's
+        device."""
+        return torch.as_tensor(light, dtype=torch.int32,
+                               device=dscene.device)[None]
 
     def render_numpy(self, scene: Scene, light: Light, *,
                      device=None) -> np.ndarray:

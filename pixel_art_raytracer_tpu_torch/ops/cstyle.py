@@ -16,6 +16,7 @@ package's float64 emulation exists only for XLA:TPU's inexact divide).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -51,3 +52,23 @@ def l1_normalize(x, y, z):
     reference."""
     length = x.abs() + y.abs() + z.abs()
     return x / length, y / length, z / length
+
+
+def normal_to_debug_color(nx: np.ndarray, ny: np.ndarray, nz: np.ndarray):
+    """``Vector::operator Color`` (sprites.hpp:37-51): the reference's debug
+    visualisation of a normal as an RGB color, on float32 numpy arrays.
+
+    Shifts components positive by the L1 length, renormalises by the shifted
+    sum, scales by 255 with C truncation.  Returns (r, g, b) uint8 arrays.
+
+    It works on the host copy, as the JAX package's ``Session.normal_view``
+    does: a background pixel's zero normal gives 0 / 0 = NaN, whose cast to
+    uint8 is undefined and differs between numpy, torch on the CPU and
+    CUDA, so only numpy reproduces the JAX package's bytes there.
+    """
+    length = np.abs(nx) + np.abs(ny) + np.abs(nz)
+    px, py, pz = nx + length, ny + length, nz + length
+    total = px + py + pz
+    return tuple(((comp / total).astype(np.float32)
+                  * np.float32(255)).astype(np.uint8)
+                 for comp in (px, py, pz))

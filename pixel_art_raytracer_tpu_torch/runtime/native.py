@@ -3,8 +3,9 @@
 The oracle is an independently written CPU renderer with the reference's
 exact semantics; the tests and ``chip_smoke.py`` hold the port's frames
 against it.  Only the entry points the port uses are bound:
-:func:`cpp_build_bins`, :func:`cpp_trace_pixels`, :func:`cpp_shade` and
-:func:`cpp_render_frame`.
+:func:`cpp_build_bins`, :func:`cpp_trace_pixels`, :func:`cpp_shade`,
+:func:`cpp_render_frame` and the GIF encoder that ``utils/gif.py`` writes
+with (:func:`gif_write_native`).
 
 The library is built with g++ at first use into ``build/native-<hash>/``,
 the hash covering the source and the flags, with ``native/Makefile``'s
@@ -114,6 +115,10 @@ def library() -> ctypes.CDLL:
         cfg_p, _i32p, _i32p, _i32p, _i32p, _f32p, _u8p, _i32p, _i32p,
         _i32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _u8p]
     lib.par_shade.restype = None
+    lib.par_gif_write.argtypes = [
+        ctypes.c_char_p, _u8p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, _u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]
+    lib.par_gif_write.restype = ctypes.c_int32
     return lib
 
 
@@ -173,3 +178,19 @@ def cpp_render_frame(scene: Scene, light: Light,
     bins_ent, counts = cpp_build_bins(scene, config)
     gbuf = cpp_trace_pixels(scene, bins_ent, counts, config)
     return cpp_shade(scene, gbuf, bins_ent, counts, light, config), gbuf
+
+
+def gif_write_native(path, frames_idx: np.ndarray, palette: np.ndarray,
+                     delay_cs: int = 4, loop: int = 0) -> bool:
+    """Encode palette-indexed frames to an animated GIF with the native LZW
+    encoder (``par_gif_write``).  frames_idx: (F, H, W) uint8, palette:
+    (P, 3) uint8.  Returns whether the library call succeeded (it refuses
+    palettes of fewer than 2 or more than 256 colours, and paths it cannot
+    open)."""
+    f, h, w = frames_idx.shape
+    rc = library().par_gif_write(str(path).encode(),
+                                 np.ascontiguousarray(frames_idx, np.uint8),
+                                 f, w, h,
+                                 np.ascontiguousarray(palette, np.uint8),
+                                 palette.shape[0], delay_cs, loop)
+    return rc == 0

@@ -16,10 +16,13 @@ from pixel_art_raytracer_tpu_torch.config import RenderConfig
 from pixel_art_raytracer_tpu_torch.device import require_cuda
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.batched import render_states_batched
+from pixel_art_raytracer_tpu_torch.models.brute import BruteForceRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
-from pixel_art_raytracer_tpu_torch.runtime import kernels
+from pixel_art_raytracer_tpu_torch.runtime import kernels, viewer
+from pixel_art_raytracer_tpu_torch.runtime.session import Session
+from pixel_art_raytracer_tpu_torch.runtime.viewer import LiveViewer
 from pixel_art_raytracer_tpu_torch.scene import Light, SceneBuilder
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -97,6 +100,13 @@ def test_package_sources_never_import_jax():
         assert "jax" not in imported_roots(path), path
 
 
+def test_package_sources_never_import_pil():
+    """The machine with the card has no PIL: GIF and PNG are written by the
+    port's own encoders."""
+    for path in PACKAGE.rglob("*.py"):
+        assert "PIL" not in imported_roots(path), path
+
+
 def test_package_sources_never_import_the_jax_package():
     for path in PORT_SOURCES:
         assert "pixel_art_raytracer_tpu" not in imported_roots(path), path
@@ -157,10 +167,21 @@ def test_build_dir_hash_follows_sources(tmp_path, monkeypatch):
 
 FEATURES = ["directional", "multi_light", "dithered", "upto",
             "directional_multi"]
+# Arguments of the JAX package that pick among its TPU shadow march's
+# variants; the port has one march, with no step bound.
+JAX_ONLY_ARGUMENTS = ["brute_shadow_max_steps", "viewer_shadow"]
 
 
-@pytest.mark.parametrize("case", FEATURES)
+@pytest.mark.parametrize("case", FEATURES + JAX_ONLY_ARGUMENTS)
 def test_unported_features_raise(case):
+    if case == "brute_shadow_max_steps":
+        with pytest.raises(TypeError, match="shadow_max_steps"):
+            BruteForceRenderer(SMALL, shadow=True, shadow_max_steps=16)
+        return
+    if case == "viewer_shadow":
+        with pytest.raises(SystemExit):
+            viewer.main(["--shadow", "fast", "--bench"])
+        return
     check_feature(case, fuse=False)
 
 
@@ -207,10 +228,12 @@ def check_feature(case, fuse: bool):
 
 @pytest.mark.parametrize("entry", ["from_scene", "from_numpy",
                                    "render_numpy", "light_sweep_states",
-                                   "static_bins"])
-def test_entry_points_default_to_the_card(entry):
+                                   "static_bins", "session", "live_viewer",
+                                   "render_long"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
     scene = small_scene()
     r = DeferredRenderer(SMALL).configure_for(scene)
+    light = Light(60, 60, 20)
     call = {
         "from_scene": lambda: DeviceScene.from_scene(scene, SMALL).pos,
         "from_numpy": lambda: DeviceScene.from_numpy(
@@ -225,9 +248,16 @@ def test_entry_points_default_to_the_card(entry):
         .light_sweep_states(4, scene.pos[0])[0],
         "static_bins": lambda: StaticBins(scene.pos, scene.ext, 1, SMALL,
                                           r.spans).static_total,
+        "session": lambda: Session(scene, light, SMALL).dscene.pos,
+        "live_viewer": lambda: LiveViewer(scene, light, SMALL).dscene.pos,
+        "render_long": lambda: torch.as_tensor(
+            AnimationRenderer(r, SMALL).render_long(
+                DeviceScene.from_scene(scene, SMALL), scene.pos[:1],
+                light.as_array()[None], tmp_path)),
     }[entry]
     if torch.cuda.is_available():
-        if entry != "render_numpy":  # which returns a numpy frame
+        # render_numpy and render_long return numpy frames.
+        if entry not in ("render_numpy", "render_long"):
             assert call().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
