@@ -85,6 +85,29 @@ inputs:
     ``cpp_render_frame``, the GIF written by the native encoder; ms/frame
     and Mrays/s.
 
+Last, the inverse fitter and the sharded paths (``inverse_phase``,
+``parallel_phase``):
+
+  * ``InverseLightFitter`` on graybox, 25 Adam steps at lr 2.0 toward the
+    center orbit's first 8 frames (/ 255 by a tensor): with shadows from
+    (20, 20, 40) (every lit pixel there has no Lambert gain: the gradient
+    is exactly 0 and the light stays, which the phase checks), with
+    shadows from (400, 120, 60), and without shadows from (20, 20, 40);
+    exact launches (trace 1, and shadow 1 with shadows, a step); the loss
+    decreasing; ``soft_frame`` and the gradient with the kernels equal to
+    the same with the plain versions on the card at the start and the
+    fitted light; ``trace.cu`` and the point mode of ``shadow.cu`` under
+    the step cap of 16 equal to their plain versions on a step's inputs;
+    ``1 / t`` at t == 0 equal to the CPU's, infinities signed;
+  * ``parallel/`` over 2 ranks that share the card over gloo: the frame x
+    row render of 8 frames on (frames 2, rows 1) and (frames 1, rows 2),
+    one ``sharded_train_step`` on both, the entity-sharded render of
+    ``demo_world(24)`` (early_exit off); every rank's result equal to the
+    single process's, trace 1 + shadow 1 launches a rank in each run; the
+    windowed and shard kernels equal to their plain versions on the
+    ranks' inputs; ms per call (a functional check on one card, not a
+    scaling measurement).
+
 It prints the card, the build times, the three kernels' shared memory per
 block and blocks per SM, per orbit each march kernel's counters (pixels
 marched directly, the most start bins one tile held, the longest visit
@@ -116,6 +139,8 @@ included.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -125,11 +150,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pixel_art_raytracer_tpu_torch import (DEFAULT_CONFIG, Light,
                                            RenderConfig, SceneBuilder,
-                                           default_light, graybox_world,
-                                           require_cuda)
+                                           default_light, demo_world,
+                                           graybox_world, require_cuda)
 from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import (
     KEY_BINDINGS, AnimationRenderer, scene_with_player)
@@ -137,6 +163,7 @@ from pixel_art_raytracer_tpu_torch.models.brute import (SHADOW_SPANS,
                                                         BruteForceRenderer)
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
+from pixel_art_raytracer_tpu_torch.models.inverse import InverseLightFitter
 from pixel_art_raytracer_tpu_torch.models.supersample import (
     SupersampledRenderer, box_filter, scale_scene)
 from pixel_art_raytracer_tpu_torch.ops import (binning, fused, fused_cuda,
@@ -146,6 +173,10 @@ from pixel_art_raytracer_tpu_torch.ops.cstyle import normal_to_debug_color
 from pixel_art_raytracer_tpu_torch.ops.overlay import draw_line_host
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.ops.trace import GBufferArrays
+from pixel_art_raytracer_tpu_torch.parallel import (
+    make_entity_mesh, make_mesh, render_frame_entity_sharded,
+    render_frames_sharded, sharded_train_step)
+from pixel_art_raytracer_tpu_torch.parallel.launch import run_ranks
 from pixel_art_raytracer_tpu_torch.runtime import kernels, native
 from pixel_art_raytracer_tpu_torch.runtime.session import Session
 from pixel_art_raytracer_tpu_torch.runtime.viewer import (LiveViewer,
@@ -214,6 +245,38 @@ VIEWER_FRAMES = 100
 CONFIG2 = RenderConfig(view_width=256, view_height=256, view_length=320)
 CONFIG2_FRAMES = 32
 CONFIG2_CHUNK = 8
+# The inverse fitter (models/inverse.py) on graybox: the targets are the
+# uint8 frames of the center orbit's first 8 states divided by 255 (by a
+# tensor), fitted from (20, 20, 40) by 25 Adam steps at lr 2.0, with and
+# without shadows (the shadow march capped at the renderer's
+# shadow_max_steps, 16).
+INVERSE_TARGETS = 8
+INVERSE_STEPS = 25
+INVERSE_LR = 2.0
+INVERSE_START = (20.0, 20.0, 40.0)
+# With shadows, 99.3% of graybox's pixels are in shadow from (20, 20, 40)
+# and every lit one has no Lambert gain, so the gradient there is exactly 0
+# and Adam cannot move (measured on the card and the CPU alike): the
+# shadowed fit also runs from (400, 120, 60), where 0.83 of them are lit.
+INVERSE_LIT_START = (400.0, 120.0, 60.0)
+INVERSE_RUNS = (("with shadows", True, INVERSE_START),
+                ("with shadows, from a lit start", True, INVERSE_LIT_START),
+                ("without shadows", False, INVERSE_START))
+# The sharded paths (parallel/) over 2 ranks that share the one card over
+# gloo (NCCL refuses two ranks on one device): a functional check, not a
+# scaling measurement.  F = 8 states of the center orbit, meshes of
+# (frames 2, rows 1) and (frames 1, rows 2); ms per call over 3 calls.
+PARALLEL_RANKS = 2
+PARALLEL_FRAMES = 8
+PARALLEL_REPS = 3
+MESHES = {"frames 2 x rows 1": 2, "frames 1 x rows 2": 1}
+# The entity-sharded render's scene: demo_world(24) at graybox's 480 x 320
+# with early_exit off, the largest of the repo's scenes that envelope_ok
+# accepts (graybox's bins take up to 14 insertions and config 5's up to
+# 112, over the capacity of 8; demo_world lays 20-cubes on a 20-pixel
+# grid, and 24 a side covers the view's width), with one culled box
+# appended so its 578 entities divide 2 ranks.
+ENTITY_SIDE = 24
 
 
 def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
@@ -991,10 +1054,475 @@ def config2_phase(card: str) -> list[dict]:
                         lights[:CONFIG2_CHUNK], cfg, card, launches)
 
 
-def main() -> int:
-    cfg = DEFAULT_CONFIG
+def kernel_row(name: str, kernel: str, launches: int, err: int, ms: float,
+               plain_ms: float, n_bytes: float, n_ops: float, what: str,
+               card: str) -> dict:
+    """Print a kernel's check and times on ``what``; its JSON row."""
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"{name}: kernel == plain version, bit-exact; {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{ms / bound_ms:.1f}x) per call on {what}; {launches} launches "
+          f"on the path  [{card}]")
+    src, rep = SOURCES[kernel]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
-    # -- 1. the card ---------------------------------------------------------
+
+def window_tables(be, cnt, config, rows):
+    """The bin columns of the bin rows of window ``rows`` (all for None):
+    the tables a windowed trace reads, (F, V', cap) and (F, V')."""
+    row0, n_rows = trace.row_window(config, rows)
+    bs = config.bin_size
+    y = (torch.arange(config.hash_volume, device=be.device)
+         // config.hash_length) % config.hash_height
+    keep = (y >= row0 // bs) & (y < -(-(row0 + n_rows) // bs))
+    return be[:, keep], cnt[:, keep]
+
+
+def check_trace(tag: str, ds, be, cnt, players, config, rows=None):
+    """``trace.cu`` (over window ``rows``) against ``trace.trace_winner``
+    on the card; raises on a difference.  Returns ``(max_abs_err, ms,
+    plain_ms, bytes, operations)``, the bound's bytes those of the
+    window's bin columns."""
+    args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt, players,
+            config)
+    work = {}
+    (best_p, win_p), plain_ms = timed(
+        lambda: trace.trace_winner(*args, work=work, rows=rows))
+    best_k, win_k = trace_cuda.trace_winners(*args, with_best=True,
+                                             rows=rows)
+    require_equal(tag, "trace kernel winner", win_k, win_p)
+    require_equal(tag, "trace kernel best", best_k, best_p)
+    ms = cuda_ms(lambda: trace_cuda.trace_winners(*args, rows=rows),
+                 KERNEL_REPS)
+    be_w, cnt_w = window_tables(be, cnt, config, rows)
+    n_bytes = (entity_bytes(be_w, cnt_w, ds.pos, ds.ext, ds.sprite_id)
+               + nbytes(ds.atlas_depth, be_w, cnt_w, players, win_k))
+    return (max(max_abs_err(win_k, win_p), max_abs_err(best_k, best_p)),
+            ms, plain_ms, n_bytes,
+            DEPTH_KEY_OPS * int(work["candidate_hits"]))
+
+
+def check_shadow(tag: str, sargs, max_steps=None, rows=None):
+    """The point mode of ``shadow.cu`` (under ``max_steps``, over window
+    ``rows``) on ``shadow_cuda.trace_light``'s arguments ``sargs`` against
+    ``shadow.trace_light_dynamic``; raises on a difference.  Returns
+    ``(max_abs_err, ms, plain_ms, bytes, operations, lit)``."""
+    work = {}
+    lit_p, plain_ms = timed(lambda: shadow.trace_light_dynamic(
+        *sargs, work=work, max_steps=max_steps))
+    lit_k = shadow_cuda.trace_light(*sargs, max_steps=max_steps, rows=rows)
+    require_equal(tag, "shadow kernel lit", lit_k, lit_p)
+    ms = cuda_ms(lambda: shadow_cuda.trace_light(*sargs, max_steps=max_steps,
+                                                 rows=rows), KERNEL_REPS)
+    pos, ext, be, cnt, rb, lb, ent, origin, inv, players, _ = sargs
+    light_bin = torch.stack([b.reshape(players.shape[0]) for b in lb], dim=1)
+    n_bytes = (entity_bytes(be, cnt, pos, ext)
+               + nbytes(players, be, cnt, *rb, *origin, *inv, ent, light_bin,
+                        lit_k))
+    return (max_abs_err(lit_k, lit_p), ms, plain_ms, n_bytes,
+            SLAB_OPS * int(work["slab_tests"]), lit_k)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, the trace and point-mode shadow wrappers run their
+    plain versions on CUDA tensors too (and count no launch): for the
+    comparison of a whole path with its plain self, never for a run that
+    is checked for launches."""
+    saved = trace_cuda.trace_winners, shadow_cuda.trace_light
+
+    def trace_plain(*args, with_best=False, rows=None):
+        best, winner = trace.trace_winner(*args, rows=rows)
+        return (best, winner) if with_best else winner
+
+    def shadow_plain(*args, max_steps=None, rows=None):
+        return shadow.trace_light_dynamic(*args, max_steps=max_steps)
+
+    trace_cuda.trace_winners, shadow_cuda.trace_light = (trace_plain,
+                                                         shadow_plain)
+    try:
+        yield
+    finally:
+        trace_cuda.trace_winners, shadow_cuda.trace_light = saved
+
+
+def soft_frame_and_grad(fitter, ds, targets, at):
+    """``(frame, grad)``: ``fitter.soft_frame`` at light ``at`` and the
+    gradient of ``batch_loss`` over ``targets`` there."""
+    light = torch.tensor(at, dtype=torch.float32, device=ds.device,
+                         requires_grad=True)
+    with torch.no_grad():
+        frame = fitter.soft_frame(ds, light)
+    fitter.batch_loss(light, ds, targets).backward()
+    return frame, light.grad
+
+
+def inverse_kernels(card: str, ds, fitter, light, launches) -> list[dict]:
+    """The inverse path's kernels on one step's inputs at ``light``:
+    ``trace.cu`` and the capped point mode of ``shadow.cu`` against their
+    plain versions; the reciprocal directions at the start light (where
+    t == 0 on pixel column 20) on the card against the CPU's, bit for bit
+    with the signs of the infinities.  Returns the JSON rows."""
+    r, cfg = fitter.renderer, fitter.config
+    tag = "inverse"
+    be, cnt = r.build_bins(ds)
+    what = f"one {cfg.view_width}x{cfg.view_height} frame"
+    trace_err, *trace_t = check_trace(tag, ds, be[None], cnt[None],
+                                      ds.pos[:1], cfg)
+    with torch.no_grad():
+        gbuf = r.trace(ds, be, cnt)
+        sargs = fitter.shadow_inputs(
+            ds, be, cnt, gbuf, light,
+            fitter.towards_light(gbuf.y, gbuf.z, light))
+        cap = r.shadow_max_steps
+        shadow_err, *shadow_t, lit = check_shadow(tag, sargs, cap)
+        exact = shadow_cuda.trace_light(*sargs)
+        start = torch.tensor(INVERSE_START, device=ds.device)
+        tl = fitter.towards_light(gbuf.y, gbuf.z, start)
+        inv = fitter.shadow_inputs(ds, be, cnt, gbuf, start, tl)[8]
+        tl_cpu = fitter.towards_light(gbuf.y.cpu(), gbuf.z.cpu(),
+                                      start.cpu())
+    zeros = sum(int((t == 0).sum()) for t in tl_cpu)
+    for a, (got, t) in enumerate(zip(inv, tl_cpu)):
+        require_equal(tag, f"1 / t[{a}] at {INVERSE_START}, card vs CPU",
+                      got[0].cpu().view(torch.int32),
+                      torch.reciprocal(t).view(torch.int32))
+    if zeros == 0:
+        raise RuntimeError(f"{tag}: no t == 0 at {INVERSE_START}")
+    print(f"{tag}: the cap of {cap} steps changes {int((lit != exact).sum())}"
+          f" pixels' lit bit against the exact march at the fitted light; "
+          f"1 / t on the card == the CPU's at {INVERSE_START} ({zeros} zero "
+          f"components, their infinities signed as the zeros)")
+    return [kernel_row("trace (inverse)", "trace", launches["trace"],
+                       trace_err, *trace_t, what, card),
+            kernel_row(f"shadow, capped at {cap} (inverse)", "shadow",
+                       launches["shadow"], shadow_err, *shadow_t, what,
+                       card)]
+
+
+def inverse_phase(card: str, ds, renderer, anim, center) -> list[dict]:
+    """``InverseLightFitter`` on graybox: 25 Adam steps toward the center
+    orbit's first 8 frames, for each of INVERSE_RUNS, each run with the
+    launch counts set to 0 just before and read just after (trace 1 a
+    step, shadow 1 a step with shadows).  Raises unless the loss decreases
+    (or, from a start whose gradient is exactly 0, stays), ``soft_frame``
+    and the gradient with the kernels equal the same with the plain
+    versions on the card (the frame bit for bit, the gradient to rtol
+    1e-6: its sums reduce on the card in an order the two runs share, so
+    they are expected equal) at the start and the fitted light, and the
+    kernels equal their plain versions on the lit run's inputs.  Prints
+    ms per step (host clock around each step, the card synchronised; the
+    median) and the loss and light at steps 0 and 25.  Returns the
+    kernels' JSON rows."""
+    cfg = renderer.config
+    players, lights = (t[:INVERSE_TARGETS] for t in center)
+    frames = anim.render_states(ds, players, lights)
+    targets = frames.to(torch.float32) / torch.tensor(255.0,
+                                                      device=frames.device)
+    rows = []
+    for label, shadows, start in INVERSE_RUNS:
+        tag = f"inverse, {label}"
+        fitter = InverseLightFitter(cfg, renderer, INVERSE_LR, shadows)
+        light, opt = fitter.init(start, device=ds.device)
+        with torch.no_grad():
+            loss0 = float(fitter.batch_loss(light, ds, targets))
+        reset_launches()
+        step_ms = []
+        for _ in range(INVERSE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            light, opt, _ = fitter.train_step(light, opt, ds, targets)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launches_are(
+            f"{tag}, {INVERSE_STEPS} steps",
+            {"trace": INVERSE_STEPS, "shadow": INVERSE_STEPS * shadows})
+        fitted = light.detach()
+        with torch.no_grad():
+            loss_n = float(fitter.batch_loss(fitted, ds, targets))
+        print(f"{tag}: {INVERSE_STEPS} Adam steps at lr {INVERSE_LR} on "
+              f"{INVERSE_TARGETS} graybox targets, {np.median(step_ms):.2f} "
+              f"ms/step (median; step 1 {step_ms[0]:.2f} ms); step 0 "
+              f"loss {loss0:.8f} at light {list(start)}, step "
+              f"{INVERSE_STEPS} loss {loss_n:.8f} at light "
+              f"{fitted.tolist()}  [{card}]")
+        grad0 = None
+        for at in (start, tuple(fitted.tolist())):
+            frame_k, grad_k = soft_frame_and_grad(fitter, ds, targets, at)
+            with plain_kernels():
+                frame_p, grad_p = soft_frame_and_grad(fitter, ds, targets,
+                                                      at)
+            require_equal(tag, f"soft_frame at {at} with the kernels vs "
+                          f"the plain versions", frame_k.view(torch.int32),
+                          frame_p.view(torch.int32))
+            if not torch.allclose(grad_k, grad_p, rtol=1e-6, atol=0.0):
+                raise RuntimeError(f"{tag}: the gradient at {at} is "
+                                   f"{grad_k.tolist()} with the kernels, "
+                                   f"{grad_p.tolist()} with the plain "
+                                   f"versions")
+            grad0 = grad_k if grad0 is None else grad0
+        stuck = not bool(grad0.any())
+        if not (loss_n < loss0 or (stuck and loss_n == loss0)):
+            raise RuntimeError(f"{tag}: the loss went from {loss0} to "
+                               f"{loss_n}, the gradient at the start "
+                               f"{grad0.tolist()}")
+        print(f"{tag}: soft_frame == the plain versions' bit for bit, "
+              f"gradient within rtol 1e-6, at the start and the fitted "
+              f"light; gradient at the start {grad0.tolist()}"
+              + ("; exactly 0, so the light stays" if stuck else ""))
+        if start == INVERSE_LIT_START:
+            rows += inverse_kernels(card, ds, fitter, fitted, launches)
+    return rows
+
+
+def entity_scene():
+    """``(scene, config)`` of the entity-sharded render (ENTITY_SIDE)."""
+    config = dataclasses.replace(DEFAULT_CONFIG, early_exit=False)
+    scene = demo_world(ENTITY_SIDE, config)
+    if scene.n_entities % PARALLEL_RANKS:
+        pad = PARALLEL_RANKS - scene.n_entities % PARALLEL_RANKS
+        scene = dataclasses.replace(
+            scene,
+            pos=np.concatenate([scene.pos, np.full((pad, 3), -1000,
+                                                   np.int32)]),
+            ext=np.concatenate([scene.ext, np.full((pad, 3), 20, np.int32)]),
+            sprite_id=np.concatenate([scene.sprite_id,
+                                      np.zeros(pad, np.int32)]))
+    return scene, config
+
+
+def collective_ms(fn, reps: int) -> float:
+    """Mean milliseconds of a call of ``fn`` on every rank: one warm-up,
+    then ``reps`` calls between two barriers of the synchronised card."""
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def parallel_rank(device, scene, escene, players, lights, targets):
+    """One rank of ``parallel_phase``: each sharded path once with the
+    launch counts set to 0 just before and read just after, then timed.
+    Returns ``{path: (result, launches, ms)}``."""
+    cfg = DEFAULT_CONFIG
+    renderer = DeferredRenderer(cfg).configure_for(scene)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans,
+                       device=device)
+    anim = AnimationRenderer(renderer, cfg, static_bins=cache)
+    ds = DeviceScene.from_scene(scene, cfg, device=device)
+    players, lights, targets = (t.to(device) for t in (players, lights,
+                                                      targets))
+    out = {}
+    for name, fp in MESHES.items():
+        mesh = make_mesh(frame_parallel=fp)
+
+        def render():
+            return render_frames_sharded(anim, ds, players, lights, mesh)
+
+        reset_launches()
+        frames = render()
+        torch.cuda.synchronize()
+        out[f"render, {name}"] = (frames.cpu(), read_launches(),
+                                  collective_ms(render, PARALLEL_REPS))
+    fitter = InverseLightFitter(cfg, renderer, INVERSE_LR, True)
+    for name, fp in MESHES.items():
+        mesh = make_mesh(frame_parallel=fp)
+        light, opt = fitter.init(INVERSE_LIT_START, device=device)
+        reset_launches()
+        light, opt, loss = sharded_train_step(fitter, light, opt, ds,
+                                              targets, mesh)
+        torch.cuda.synchronize()
+        result = (light.detach().cpu().clone(), float(loss),
+                  light.grad.cpu().clone())
+        launches = read_launches()
+        out[f"train step, {name}"] = (result, launches, collective_ms(
+            lambda: sharded_train_step(fitter, light, opt, ds, targets,
+                                       mesh), PARALLEL_REPS))
+    ecfg = dataclasses.replace(cfg, early_exit=False)
+    er = DeferredRenderer(ecfg).configure_for(escene)
+    eds = DeviceScene.from_scene(escene, ecfg, device=device)
+    light = default_light(ecfg).as_array()
+
+    def entity():
+        return render_frame_entity_sharded(er, eds, light,
+                                           make_entity_mesh())
+
+    reset_launches()
+    frame = entity()
+    torch.cuda.synchronize()
+    out["entity-sharded render"] = (frame.cpu(), read_launches(),
+                                    collective_ms(entity, PARALLEL_REPS))
+    return out
+
+
+def parallel_phase(card: str, scene, ds, renderer, anim,
+                   center) -> list[dict]:
+    """``parallel/`` over PARALLEL_RANKS processes sharing the card over
+    gloo (``launch.run_ranks``; the kernels were built before they
+    start): the frame x row render of 8 graybox frames on both meshes, one
+    ``sharded_train_step`` (with shadows, from INVERSE_LIT_START, where no
+    component of the gradient is 0) on both, and the entity-sharded
+    render of ENTITY_SIDE's scene.  Raises unless every rank's frames equal
+    ``render_states``', its step's loss is within 1e-6 and the gradient it
+    applied (summed over the ranks) and its light within rtol 1e-5 of
+    ``train_step``'s, its entity-sharded frame equals
+    the unsharded render, and every rank launched trace 1 + shadow 1 in
+    each run.  Then the windowed and the shard kernels against their plain
+    versions on the card, on each rank's inputs.  Prints ms per call
+    (a functional check on one card, not a scaling measurement).  Returns
+    the kernels' JSON rows."""
+    cfg = renderer.config
+    players, lights = (t[:PARALLEL_FRAMES] for t in center)
+    frames = anim.render_states(ds, players, lights)
+    targets = frames.to(torch.float32) / torch.tensor(255.0,
+                                                      device=frames.device)
+    fitter = InverseLightFitter(cfg, renderer, INVERSE_LR, True)
+    light, opt = fitter.init(INVERSE_LIT_START, device=ds.device)
+    light, _, loss = fitter.train_step(light, opt, ds, targets)
+    grad = light.grad.cpu()
+    if not bool(grad.all()):
+        raise RuntimeError(f"parallel: train_step's gradient at "
+                           f"{INVERSE_LIT_START} is {grad.tolist()}: a 0 "
+                           f"component cannot show the ranks' exchange")
+    escene, ecfg = entity_scene()
+    er = DeferredRenderer(ecfg).configure_for(escene)
+    eds = DeviceScene.from_scene(escene, ecfg)
+    elight = default_light(ecfg).as_array()
+    eframe = er.render(eds, elight)
+    t0 = time.perf_counter()
+    results = run_ranks(parallel_rank, PARALLEL_RANKS,
+                        (scene, escene, players.cpu(), lights.cpu(),
+                         targets.cpu()), device="cuda")
+    print(f"parallel: {PARALLEL_RANKS} ranks sharing the card over gloo, "
+          f"{time.perf_counter() - t0:.1f} s with their start-up; a "
+          f"functional check on one card, not a scaling measurement")
+    want = {"trace": 1, "shadow": 1}
+    launched = {}
+    for path in results[0]:
+        note = ""
+        for rank, res in enumerate(results):
+            got, launches, _ = res[path]
+            launches = {k: v for k, v in launches.items() if v}
+            if launches != want:
+                raise RuntimeError(f"{path}, rank {rank}: launches "
+                                   f"{launches}, expected {want}")
+            if path.startswith("render"):
+                require_equal(path, f"rank {rank}'s frames vs render_states",
+                              got, frames.cpu())
+            elif path.startswith("train"):
+                light_r, loss_r, grad_r = got
+                if not (abs(loss_r - float(loss)) < 1e-6
+                        and torch.allclose(grad_r, grad, rtol=1e-5, atol=0)
+                        and torch.allclose(light_r, light.detach().cpu(),
+                                           rtol=1e-5, atol=0)):
+                    raise RuntimeError(
+                        f"{path}, rank {rank}: light {light_r.tolist()}, "
+                        f"loss {loss_r}, gradient {grad_r.tolist()}; "
+                        f"train_step's {light.detach().tolist()}, "
+                        f"{float(loss)}, {grad.tolist()}")
+                rel = float(((grad_r - grad).abs() / grad.abs()).max())
+                note = (f"; gradient {grad_r.tolist()}, at most {rel:.3g} "
+                        f"from train_step's (relative)")
+            else:
+                require_equal(path, f"rank {rank}'s frame vs the unsharded "
+                              f"render", got, eframe.cpu())
+        launched[path] = sum(res[path][1]["trace"] for res in results)
+        ms = max(res[path][2] for res in results)
+        print(f"{path}: every rank == the single process, trace 1 + shadow "
+              f"1 launches a rank; {ms:.2f} ms per call{note}  [{card}]")
+
+    # The kernels on the ranks' inputs, here in one process.
+    rows = []
+    be, cnt = batched.bin_stage(renderer, anim.static_bins, ds, players)
+    n_rows = cfg.view_height // PARALLEL_RANKS
+    windows = [(k * n_rows, n_rows) for k in range(PARALLEL_RANKS)]
+    checks = []
+    for rows_w in windows:
+        tag = f"row window {rows_w}"
+        t = check_trace(tag, ds, be, cnt, players, cfg, rows_w)
+        gbuf = batched.trace_stage(renderer, ds, be, cnt, players, rows_w)
+        _, inv, origin, rb, lb = batched.geometry_stage(renderer, gbuf,
+                                                        lights)
+        s = check_shadow(tag, (ds.pos, ds.ext, be, cnt, rb, lb,
+                               gbuf.entity_index, origin, inv, players, cfg),
+                         rows=rows_w)
+        checks.append((t, s[:-1]))
+    what = (f"F={PARALLEL_FRAMES} frames of rows {windows[0][0]}.."
+            f"{sum(windows[0]) - 1} (every window bit-exact)")
+    n = launched["render, frames 1 x rows 2"]
+    rows.append(kernel_row("trace (row window)", "trace", n, *checks[0][0],
+                           what, card))
+    rows.append(kernel_row("shadow (row window)", "shadow", n,
+                           *checks[0][1], what, card))
+
+    Np = escene.n_entities // PARALLEL_RANKS
+    gbuf = er.trace(eds, *er.build_bins(eds))
+    lights_e = torch.as_tensor(elight, dtype=torch.int32,
+                               device=eds.device)[None]
+    checks = []
+    for k in range(PARALLEL_RANKS):
+        shard = slice(k * Np, (k + 1) * Np)
+        ds_k = dataclasses.replace(eds, pos=eds.pos[shard],
+                                   ext=eds.ext[shard],
+                                   sprite_id=eds.sprite_id[shard])
+        be_k, cnt_k = binning.build_bins(ds_k.pos, ds_k.ext, ecfg, er.spans)
+        be_k, cnt_k = be_k[None], cnt_k[None]
+        tag = f"entity shard {k}"
+        t = check_trace(tag, ds_k, be_k, cnt_k, ds_k.pos[:1], ecfg)
+        g = GBufferArrays(*(f[None] for f in gbuf))
+        _, inv, origin, rb, lb = shade.light_geometry(g, lights_e, ecfg)
+        s = check_shadow(tag, (ds_k.pos, ds_k.ext, be_k, cnt_k, rb, lb,
+                               g.entity_index - k * Np, origin, inv,
+                               ds_k.pos[:1], ecfg))
+        checks.append((t, s[:-1]))
+    what = (f"shard 0 of {escene.n_entities} entities, one "
+            f"{ecfg.view_width}x{ecfg.view_height} frame (every shard "
+            f"bit-exact)")
+    n = launched["entity-sharded render"]
+    rows.append(kernel_row("trace (entity shard)", "trace", n,
+                           *checks[0][0], what, card))
+    rows.append(kernel_row("shadow (entity shard)", "shadow", n,
+                           *checks[0][1], what, card))
+    return rows
+
+
+def run_phases(names=("inverse", "parallel")) -> None:
+    """The inverse and sharded phases alone on graybox (for a quick check
+    on the card): ``python3 -c "import chip_smoke as cs;
+    cs.run_phases()"``.  Builds the kernels, the graybox scene, its cache
+    and the center orbit, runs the named phases and prints their kernels'
+    JSON line."""
+    card = require_card()
+    kernels.library()
+    cfg = DEFAULT_CONFIG
+    scene = graybox_world(cfg)
+    renderer = DeferredRenderer(cfg).configure_for(scene)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans)
+    anim = AnimationRenderer(renderer, cfg, static_bins=cache)
+    ds = DeviceScene.from_scene(scene, cfg)
+    light = default_light(cfg)
+    center = anim.light_sweep_states(FRAMES, scene.pos[0],
+                                     center=(light.x, light.y, light.z),
+                                     radius=40)
+    phases = {"inverse": lambda: inverse_phase(card, ds, renderer, anim,
+                                               center),
+              "parallel": lambda: parallel_phase(card, scene, ds, renderer,
+                                                 anim, center)}
+    rows = [row for name in names for row in phases[name]()]
+    print(json.dumps({"kernels": rows}))
+
+
+def require_card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them,
+    printed with the device; raises without a CUDA device."""
     require_cuda()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1004,6 +1532,14 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
+    return card
+
+
+def main() -> int:
+    cfg = DEFAULT_CONFIG
+
+    # -- 1. the card ---------------------------------------------------------
+    card = require_card()
 
     # -- 2. build the kernels and the C++ oracle -----------------------------
     t0 = time.perf_counter()
@@ -1461,9 +1997,14 @@ def main() -> int:
     rows += session_phase(card, scene, cfg)
     rows += viewer_phase(card, scene, cfg)
     rows += config2_phase(card)
+
+    # -- 16. the inverse fitter and the sharded paths ------------------------
+    renderer.fuse_trace_shadow = False
+    rows += inverse_phase(card, ds, renderer, anim, sweeps["center"])
+    rows += parallel_phase(card, scene, ds, renderer, anim, sweeps["center"])
     print(json.dumps({"kernels": rows}))
 
-    # -- 16. result ----------------------------------------------------------
+    # -- 17. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

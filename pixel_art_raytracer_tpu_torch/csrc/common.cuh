@@ -47,7 +47,27 @@ struct Grid {
                   : kBandPixels / bin_size > bin_size ? bin_size
                   : kBandPixels / bin_size;
   int bands = (bin_size + band_rows - 1) / band_rows;  // bands a tile
+  // The launch's window: tiles of bin rows row_bin0 .. row_bin0 +
+  // bin_rows - 1, whose per-pixel arrays hold pixel rows row0 ..
+  // row0 + rows - 1 of the view (set by window(); all of them by default).
+  int row_bin0 = 0, bin_rows = hash_h;
+  int row0 = 0, rows = view_h;
 
+  // This grid with the window of bin rows first_bin_row .. + n_bin_rows - 1.
+  __host__ Grid window(int first_bin_row, int n_bin_rows) const {
+    Grid w = *this;
+    w.row_bin0 = first_bin_row;
+    w.bin_rows = n_bin_rows;
+    w.row0 = first_bin_row * bin_size;
+    const int end = (first_bin_row + n_bin_rows) * bin_size;
+    w.rows = (end < view_h ? end : view_h) - w.row0;
+    return w;
+  }
+  // Index of pixel (i, j) of frame f in the window's (F, rows, view_w)
+  // per-pixel arrays; j is the view's row.
+  __host__ __device__ size_t pixel(int f, int i, int j) const {
+    return (static_cast<size_t>(f) * rows + (j - row0)) * view_w + i;
+  }
   __host__ __device__ int volume() const { return hash_w * hash_h * hash_l; }
   // Pixels of the largest band: what a block's per-pixel buffers hold.
   __host__ __device__ int band_pixels() const { return band_rows * bin_size; }
@@ -92,17 +112,18 @@ struct TilePixel {
 struct Band {
   int bin_x, bin_y, row0, rows;
 
-  // This block's band in a grid of (hash_w * hash_h, frames, g.bands)
-  // blocks: blockIdx.x the bin column, blockIdx.z the band.
+  // This block's band in a grid of (hash_w * g.bin_rows, frames, g.bands)
+  // blocks: blockIdx.x the bin column of the window, blockIdx.z the band.
   __device__ static Band of_block(const Grid& g) {
     const int row0 = blockIdx.z * g.band_rows;
-    return Band{static_cast<int>(blockIdx.x) / g.hash_h,
-                static_cast<int>(blockIdx.x) % g.hash_h, row0,
+    return Band{static_cast<int>(blockIdx.x) / g.bin_rows,
+                g.row_bin0 + static_cast<int>(blockIdx.x) % g.bin_rows, row0,
                 min(g.band_rows, g.bin_size - row0)};
   }
-  // The whole tile as one band.
+  // The whole tile of bin column `column` of the window as one band.
   __device__ static Band tile(const Grid& g, int column) {
-    return Band{column / g.hash_h, column % g.hash_h, 0, g.bin_size};
+    return Band{column / g.bin_rows, g.row_bin0 + column % g.bin_rows, 0,
+                g.bin_size};
   }
   __device__ int i0(const Grid& g) const { return bin_x * g.bin_size; }
   __device__ int j0(const Grid& g) const {
@@ -676,13 +697,13 @@ __device__ __forceinline__ int pick(const int (&off)[kKeys + 1], int k) {
 }
 
 // The lit mask of band b of frame f (a whole tile or some of its rows),
-// written to lit_out (F, H, W) for every pixel in the view.  The band's
-// pixels are q = 0..b.rows*bs-1 at column i = b.i0(g) + q % bs and row
-// j = b.j0(g) + q / bs; key_of(q, i, j) gives pixel q's key (Table::Key)
-// and ray_of(q, i, j) its Ray.  frame_light is the frame's
-// light bin (read for a point table only) and max_steps the step cap
-// (kNoStepCap for none).  All threads of the block call it; blockDim.x is
-// a multiple of 32 and at most kMarchThreads.
+// written to lit_out (F, g.rows, W) at g.pixel() for every pixel in the
+// view.  The band's pixels are q = 0..b.rows*bs-1 at column
+// i = b.i0(g) + q % bs and row j = b.j0(g) + q / bs; key_of(q, i, j)
+// gives pixel q's key (Table::Key) and ray_of(q, i, j) its Ray.
+// frame_light is the frame's light bin (read for a point table only) and
+// max_steps the step cap (kNoStepCap for none).  All threads of the block
+// call it; blockDim.x is a multiple of 32 and at most kMarchThreads.
 //
 // 1. Collect the tile's distinct keys, up to Table::kKeys: each warp lists
 //    the distinct keys of its pixels (up to kKeys; a key missing from the
@@ -886,8 +907,7 @@ __device__ void march_tile(const int* pos, const int* ext, const int* players,
                                 max_steps);
       ++direct;
     }
-    lit_out[(static_cast<size_t>(f) * g.view_h + j) * g.view_w + i] =
-        occluded ? 0 : 1;
+    lit_out[g.pixel(f, i, j)] = occluded ? 0 : 1;
   }
   if (direct > 0) atomicAdd(stats + kStatDirect, direct);
   if (tid == 0) {

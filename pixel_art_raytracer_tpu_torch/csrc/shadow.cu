@@ -14,8 +14,14 @@
 // and in-range aliased bins are used as they are.  Every pixel is marched,
 // background included.
 //
-// Point mode (par_shadow_lit): the light bin is the frame's, there is no
-// step cap, and the march is exact for any light, with no table or reroute.
+// Point mode (par_shadow_lit): the light bin is the frame's, and the march
+// is exact for any light, with no table or reroute.  It takes an optional
+// step cap: a ray probes 7 * min(int(largest), max_steps) phases, the
+// statically bounded march of the JAX package's ops/shadow.py::trace_light
+// (max_steps < 0 for none, as the render paths call it; the inverse
+// fitter's soft_frame passes the renderer's shadow_max_steps).  A launch
+// covers a window of whole bin rows of the view (all of them, or a row
+// shard's, parallel/mesh.py), with per-pixel arrays of the window's rows.
 //
 // Directional mode (par_shadow_dir_lit): the march of the JAX package's
 // shade_directional, i.e. trace_light_dynamic with the per-pixel light bins
@@ -52,8 +58,9 @@
 // counted in stats[kStatDirect].  Exact because the lit bit is an OR over
 // the probed bins, which ignores order and repeats.  Under the step cap a
 // list holds at most 7 * max_steps bins, which sizes the directional
-// table's lists.  The TPU kernel's per-tile candidate lists, membership
-// words, extended start space and division helpers have no counterpart.
+// table's lists and a capped point table's.  The TPU kernel's per-tile
+// candidate lists, membership words, extended start space and division
+// helpers have no counterpart.
 #include "common.cuh"
 
 namespace {
@@ -94,17 +101,14 @@ shadow_lit_kernel(
     const int* __restrict__ players, const int* __restrict__ bins_ent,
     const int* __restrict__ counts, PixelRays rays,
     const int* __restrict__ light_bin, unsigned char* __restrict__ lit,
-    int* __restrict__ stats, par::Grid g) {
+    int* __restrict__ stats, par::Grid g, int max_steps) {
   extern __shared__ __align__(16) int smem[];
   const int bs = g.bin_size;
-  const par::MarchSmem<par::PointTable> s(smem, g, bs * bs,
-                                          par::kNoStepCap);
+  const par::MarchSmem<par::PointTable> s(smem, g, bs * bs, max_steps);
 
   const int f = blockIdx.y;
   const par::Band tile = par::Band::tile(g, blockIdx.x);
-  auto index = [&](int i, int j) {
-    return (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
-  };
+  auto index = [&](int i, int j) { return g.pixel(f, i, j); };
   auto key_of = [&](int, int i, int j) {
     const size_t o = index(i, j);
     return par::PointTable::Key{{rays.rbx[o], rays.rby[o], rays.rbz[o]}};
@@ -119,7 +123,7 @@ shadow_lit_kernel(
   par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
                   make_int3(light_bin[3 * f], light_bin[3 * f + 1],
                             light_bin[3 * f + 2]),
-                  par::kNoStepCap, s, key_of, ray_of, lit, stats);
+                  max_steps, s, key_of, ray_of, lit, stats);
 }
 
 __global__ void __launch_bounds__(par::kMarchThreads, kDirBlocksPerSM)
@@ -140,9 +144,7 @@ shadow_dir_kernel(
   const int kx = offsets[3 * f], ky = offsets[3 * f + 1];
   const int kz = offsets[3 * f + 2];
   const float ivx = inv[3 * f], ivy = inv[3 * f + 1], ivz = inv[3 * f + 2];
-  auto index = [&](int i, int j) {
-    return (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
-  };
+  auto index = [&](int i, int j) { return g.pixel(f, i, j); };
   // (start bin, light bin) of the ray from surface point (i, y, z).
   auto key_of = [&](int, int i, int j) {
     const size_t o = index(i, j);
@@ -172,10 +174,10 @@ shadow_dir_kernel(
                   stats);
 }
 
-size_t shadow_smem(const par::Grid& g) {
+size_t shadow_smem(const par::Grid& g, int max_steps) {
   return sizeof(int) * static_cast<size_t>(
       par::MarchSmem<par::PointTable>::ints(g, g.bin_size * g.bin_size,
-                                            par::kNoStepCap));
+                                            max_steps));
 }
 
 size_t dir_smem(const par::Grid& g, int max_steps) {
@@ -213,11 +215,14 @@ int occupancy(Kernel kernel, size_t smem, int threads, int* out) {
 
 }  // namespace
 
-// lit (F, H, W) uint8 (0/1).  The ten ray inputs are (F, H, W): start bin
-// x/y/z int32, origin x/y/z and inverse direction x/y/z float32, own entity
+// lit (F, rows, W) uint8 (0/1) for the window of bin rows row_bin0 ..
+// row_bin0 + bin_rows - 1, as for par_trace_winners (the whole view for 0
+// and hash_h).  The ten ray inputs are (F, rows, W): start bin x/y/z
+// int32, origin x/y/z and inverse direction x/y/z float32, own entity
 // int32; light_bin (F, 3) int32; tables as for par_trace_winners; stats
-// (3,) int32 device counters (common.cuh MarchStat), added to.  One block
-// of `threads` per (frame, bin column).  Returns cudaGetLastError().
+// (3,) int32 device counters (common.cuh MarchStat), added to; max_steps
+// the step cap, < 0 for none.  One block of `threads` per (frame, bin
+// column of the window).  Returns cudaGetLastError().
 extern "C" int par_shadow_lit(
     const void* pos, const void* ext, const void* players,
     const void* bins_ent, const void* counts, const void* rbx,
@@ -225,10 +230,12 @@ extern "C" int par_shadow_lit(
     const void* oz, const void* ivx, const void* ivy, const void* ivz,
     const void* start_ent, const void* light_bin, void* lit, void* stats,
     int n_frames, int view_w, int view_h, int bin_size, int bin_cap,
-    int hash_w, int hash_h, int hash_l, int threads, void* stream) {
-  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
-                    hash_l};
-  const size_t smem = shadow_smem(g);
+    int hash_w, int hash_h, int hash_l, int row_bin0, int bin_rows,
+    int max_steps, int threads, void* stream) {
+  const par::Grid g = par::Grid{view_w, view_h, bin_size, bin_cap, hash_w,
+                                hash_h, hash_l}.window(row_bin0, bin_rows);
+  const int cap = max_steps < 0 ? par::kNoStepCap : max_steps;
+  const size_t smem = shadow_smem(g, cap);
   const int rc = allow_smem(shadow_lit_kernel, smem);
   if (rc != 0) return rc;
   const PixelRays rays{
@@ -237,14 +244,14 @@ extern "C" int par_shadow_lit(
       static_cast<const float*>(oy),  static_cast<const float*>(oz),
       static_cast<const float*>(ivx), static_cast<const float*>(ivy),
       static_cast<const float*>(ivz), static_cast<const int*>(start_ent)};
-  const dim3 grid(hash_w * hash_h, n_frames);
+  const dim3 grid(hash_w * bin_rows, n_frames);
   shadow_lit_kernel<<<grid, threads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),
       static_cast<const int*>(players), static_cast<const int*>(bins_ent),
       static_cast<const int*>(counts), rays,
       static_cast<const int*>(light_bin), static_cast<unsigned char*>(lit),
-      static_cast<int*>(stats), g);
+      static_cast<int*>(stats), g, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,7 +295,8 @@ extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
                                     int hash_l, int threads, int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_lit_kernel, shadow_smem(g), threads, out);
+  return occupancy(shadow_lit_kernel, shadow_smem(g, par::kNoStepCap),
+                   threads, out);
 }
 
 // The same for the directional mode under step cap max_steps.

@@ -6,7 +6,10 @@
 // bin z = 0..hash_l-1 and slot k < count in the reference's order, strictly
 // greater depth wins (first candidate wins ties), the adjacent-hit counter
 // counts bins with an improving candidate and resets on an empty bin, and
-// the walk stops once it reaches 2 (quirk Q5).  Background is -1.
+// the walk stops once it reaches 2 (quirk Q5).  Background is -1.  A
+// launch covers a window of whole bin rows of the view (all of them, or a
+// row shard's, parallel/mesh.py): a pixel's walk reads only its own bin
+// column, so a window's winners are the full frame's rows.
 //
 // What bounds it on the H100: bytes.  It must write 4 B of winner a pixel
 // (39.3 MB for 64 frames of 480x320) and read its bin tables and the
@@ -89,8 +92,7 @@ trace_winner_kernel(
     const int j = b.j0(g) + p.row;
     if (i >= g.view_w || j >= g.view_h) continue;
     const int slot = s.slot[p.q];
-    const size_t o =
-        (static_cast<size_t>(f) * g.view_h + j) * g.view_w + i;
+    const size_t o = g.pixel(f, i, j);
     winner_out[o] = slot >= 0 ? s.fld[slot * par::kFields] : -1;
     if (best_out != nullptr) best_out[o] = s.best[p.q];
   }
@@ -98,21 +100,24 @@ trace_winner_kernel(
 
 }  // namespace
 
-// winner_out (F, H, W) int32; best_out the same shape or null.  Tables are
-// bins_ent (F, V, cap) and counts (F, V); players (F, 3) is entity 0's
-// position per frame.  One block per (bin column, band) and frame.
-// Returns cudaGetLastError() after the launch.
+// winner_out (F, rows, W) int32 for the window of bin rows row_bin0 ..
+// row_bin0 + bin_rows - 1 (pixel rows row_bin0 * bin_size on, at most
+// bin_rows * bin_size of them: the whole view for 0 and hash_h); best_out
+// the same shape or null.  Tables are bins_ent (F, V, cap) and counts
+// (F, V); players (F, 3) is entity 0's position per frame.  One block per
+// (bin column of the window, band) and frame.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int par_trace_winners(
     const void* pos, const void* ext, const void* sprite_id,
     const void* atlas_depth, const void* bins_ent, const void* counts,
     const void* players, void* winner_out, void* best_out, int n_frames,
     int view_w, int view_h, int bin_size, int bin_cap, int hash_w,
     int hash_h, int hash_l, int sprite_w, int sprite_h, int early_exit,
-    int threads, void* stream) {
-  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
-                    hash_l};
+    int row_bin0, int bin_rows, int threads, void* stream) {
+  const par::Grid g = par::Grid{view_w, view_h, bin_size, bin_cap, hash_w,
+                                hash_h, hash_l}.window(row_bin0, bin_rows);
   const size_t smem = trace_smem(g);
-  const dim3 grid(hash_w * hash_h, n_frames, g.bands);
+  const dim3 grid(hash_w * bin_rows, n_frames, g.bands);
   trace_winner_kernel<<<grid, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),

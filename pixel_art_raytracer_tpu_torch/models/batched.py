@@ -39,6 +39,12 @@ frames take the two-kernel path whatever ``fuse_trace_shadow`` says, and
 so does the port: this is the JAX package's path choice, not a fallback
 on failure.  The dithered style applies to every mode, after its factor.
 
+A row shard of ``parallel/mesh.py`` passes ``rows=(row0, n_rows)``, a
+window of whole bin rows: its stages trace, march and shade that window's
+pixels only, for (F, n_rows, W, 3) frames.  It takes the two-kernel path
+for point lights, as the JAX package's row shards call ``trace`` and
+``shade``; directional lights take no window.
+
 The stage functions are public so a profiler can time each one; the
 reference's per-frame loop is alternative.cpp:628-817.  CUDA tensors run
 the kernels, CPU tensors their plain versions.
@@ -87,16 +93,17 @@ def bin_stage(renderer, static_bins, dscene, players):
             torch.stack([c for _, c in tables]))
 
 
-def trace_stage(renderer, dscene, bins_ent, counts, players):
-    """Primary visibility → G-buffer (``trace.GBufferArrays``)."""
+def trace_stage(renderer, dscene, bins_ent, counts, players, rows=None):
+    """Primary visibility → G-buffer (``trace.GBufferArrays``) of the view
+    or of the window ``rows``."""
     cfg = renderer.config
     winners = trace_cuda.trace_winners(
         dscene.pos, dscene.ext, dscene.sprite_id, dscene.atlas_depth,
-        bins_ent, counts, players, cfg)
+        bins_ent, counts, players, cfg, rows=rows)
     return trace.materialize_gbuffer(
         winners, dscene.pos, dscene.ext, dscene.sprite_id,
         dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
-        dscene.palette, players, cfg)
+        dscene.palette, players, cfg, rows=rows)
 
 
 def geometry_stage(renderer, gbuf, lights):
@@ -108,11 +115,12 @@ def geometry_stage(renderer, gbuf, lights):
 
 
 def shadow_stage(renderer, dscene, bins_ent, counts, players, gbuf, inv,
-                 origin, rb, lb):
-    """Shadow march of every pixel → lit mask (F, H, W) bool."""
+                 origin, rb, lb, rows=None):
+    """Shadow march of every pixel (of the window ``rows``) → lit mask
+    (F, H, W) bool."""
     return shadow_cuda.trace_light(dscene.pos, dscene.ext, bins_ent, counts,
                                    rb, lb, gbuf.entity_index, origin, inv,
-                                   players, renderer.config)
+                                   players, renderer.config, rows=rows)
 
 
 def fused_stage(renderer, dscene, bins_ent, counts, players, lights):
@@ -132,7 +140,7 @@ def fused_stage(renderer, dscene, bins_ent, counts, players, lights):
 
 
 def multi_light_stage(renderer, dscene, bins_ent, counts, players, gbuf,
-                      lights):
+                      lights, rows=None):
     """Stages 3-4 once per light of (F, L, 3) int32 ``lights``, each
     light's factor accumulated as ``shade.add_light``, then
     ``shade.multi_light_factor``.  Returns the factor (F, H, W) float32."""
@@ -143,7 +151,7 @@ def multi_light_stage(renderer, dscene, bins_ent, counts, players, gbuf,
         light = lights[:, li].contiguous()
         dot, *rays = geometry_stage(renderer, gbuf, light)
         lit = shadow_stage(renderer, dscene, bins_ent, counts, players, gbuf,
-                           *rays)
+                           *rays, rows=rows)
         diffuse = shade.add_light(diffuse, shade.factor_from_dot(dot, lit,
                                                                  cfg), cfg)
     return shade.multi_light_factor(diffuse, cfg)
@@ -167,14 +175,16 @@ def directional_stage(renderer, dscene, bins_ent, counts, players, gbuf,
     return dot, lit
 
 
-def shade_stage(renderer, dscene, gbuf, factor):
+def shade_stage(renderer, dscene, gbuf, factor, rows=None):
     """The frames of a brightness factor (F, H, W): ``Color * factor`` per
     channel with C truncation (``style="reference"``) or the palette colour
-    the ordered dither picks (``style="dithered"``).  Returns
-    (F, H, W, 3) uint8."""
+    the ordered dither picks (``style="dithered"``, at the view rows of
+    the window ``rows``).  Returns (F, H, W, 3) uint8."""
     if renderer.style == "dithered":
         return dither.shade_dithered(gbuf.color, factor,
-                                     dscene.palette[:, :3])
+                                     dscene.palette[:, :3],
+                                     row0=trace.row_window(renderer.config,
+                                                           rows)[0])
     return shade.shade_u8(gbuf.color, factor)
 
 
@@ -200,29 +210,35 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
 
 
 def gbuffer_and_frames(renderer, static_bins, dscene, players, lights,
-                       directional: bool = False):
+                       directional: bool = False, rows=None):
     """The body of :func:`render_states_batched` (which checks the request
     first): ``(gbuf, frames)``, the frames' G-buffer (``trace.GBufferArrays``
-    batched over F) beside the (F, H, W, 3) uint8 frames."""
+    batched over F) beside the (F, H, W, 3) uint8 frames.  With
+    ``rows=(row0, n_rows)``, whole bin rows (``trace.row_window``), both
+    hold that window's rows only, on the two-kernel path."""
     cfg = renderer.config
+    if rows is not None and directional:
+        raise ValueError("a row window takes point lights, not directional "
+                         "ones")
     bins_ent, counts = bin_stage(renderer, static_bins, dscene, players)
-    if renderer.fuse_trace_shadow and lights.dim() == 2 and not directional:
+    if (renderer.fuse_trace_shadow and lights.dim() == 2 and not directional
+            and rows is None):
         gbuf, _, lit = fused_stage(renderer, dscene, bins_ent, counts,
                                    players, lights)
         dot = geometry_stage(renderer, gbuf, lights)[0]
         factor = shade.factor_from_dot(dot, lit, cfg)
         return gbuf, shade_stage(renderer, dscene, gbuf, factor)
-    gbuf = trace_stage(renderer, dscene, bins_ent, counts, players)
+    gbuf = trace_stage(renderer, dscene, bins_ent, counts, players, rows)
     if directional:
         dot, lit = directional_stage(renderer, dscene, bins_ent, counts,
                                      players, gbuf, lights)
         factor = shade.factor_from_dot(dot, lit, cfg)
     elif lights.dim() == 3:
         factor = multi_light_stage(renderer, dscene, bins_ent, counts,
-                                   players, gbuf, lights)
+                                   players, gbuf, lights, rows)
     else:
         dot, *rays = geometry_stage(renderer, gbuf, lights)
         lit = shadow_stage(renderer, dscene, bins_ent, counts, players,
-                           gbuf, *rays)
+                           gbuf, *rays, rows=rows)
         factor = shade.factor_from_dot(dot, lit, cfg)
-    return gbuf, shade_stage(renderer, dscene, gbuf, factor)
+    return gbuf, shade_stage(renderer, dscene, gbuf, factor, rows)

@@ -83,11 +83,23 @@ class DeferredRenderer:
         dscene = DeviceScene.from_scene(scene, config)  # on the card
         frame = r.render(dscene, light_xyz)          # (H, W, 3) uint8
         gbuf, frame = r.render_with_gbuffer(dscene, light_xyz)
+
+    ``shadow_max_steps`` is read by ``InverseLightFitter`` only: the render
+    paths march exactly, whatever it is.
     """
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
-                 style: str = "reference"):
+                 style: str = "reference", shadow_max_steps: int = 16):
         self.config = config
+        # The step cap of the JAX package's statically bounded shadow march
+        # (ops/shadow.py::trace_light there), which its inverse fitter's
+        # soft_frame runs: a ray probes 7 * min(int(largest),
+        # shadow_max_steps) phases.  The render paths march exactly and do
+        # not read it.
+        if shadow_max_steps is None or shadow_max_steps < 1:
+            raise ValueError(f"shadow_max_steps={shadow_max_steps!r}: a cap "
+                             f"of at least 1 step")
+        self.shadow_max_steps = shadow_max_steps
         # Static per-entity bin-span bound until configure_for derives it;
         # (2, 3, 2) covers any scene whose extents stay within one bin (the
         # reference world is all 20-cubes).
@@ -122,11 +134,13 @@ class DeferredRenderer:
                                              dscene.pos[:1])
         return bins_ent[0], counts[0]
 
-    def trace(self, dscene: DeviceScene, bins_ent, counts) -> GBufferArrays:
+    def trace(self, dscene: DeviceScene, bins_ent, counts,
+              rows=None) -> GBufferArrays:
         """Primary visibility (kernel 1) into the frame's G-buffer, fields
-        shaped (H, W, ...)."""
+        shaped (H, W, ...); ``rows=(row0, n_rows)``, whole bin rows, traces
+        that window only, as the JAX package's ``row0``/``n_rows``."""
         gbuf = batched.trace_stage(self, dscene, bins_ent[None],
-                                   counts[None], dscene.pos[:1])
+                                   counts[None], dscene.pos[:1], rows)
         return GBufferArrays(*(t[0] for t in gbuf))
 
     def shade(self, dscene: DeviceScene, gbuf: GBufferArrays, bins_ent,

@@ -77,6 +77,23 @@ def covered_bins(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
     return flat, valid
 
 
+def bin_totals_numpy(pos, ext, config: RenderConfig) -> np.ndarray:
+    """Per-bin insertion totals before the wrap, (hash_volume,) int64, of
+    (N, 3) numpy positions and extents, on the host.
+
+    The port's copy of the JAX package's ``bin_totals_numpy``: the cull and
+    covered-range enumeration of :func:`covered_bins` over the scene's own
+    span bound, counted per flat bin, on CPU tensors whatever device
+    renders (a static check of the scene, as ``parallel.envelope_ok``).
+    """
+    pos_t = torch.as_tensor(np.asarray(pos, np.int64))
+    ext_t = torch.as_tensor(np.asarray(ext, np.int64))
+    spans = entity_span_bound(ext_t.max(dim=0).values.numpy(), config)
+    flat, valid = covered_bins(pos_t, ext_t, config, spans)
+    return torch.bincount(flat[valid].long(),
+                          minlength=config.hash_volume).numpy()
+
+
 def ranked_pairs(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
                  spans: tuple[int, int, int]):
     """Covered (entity, bin) pairs stable-sorted by bin, with ranks.

@@ -55,20 +55,21 @@ def luminance(rgb: torch.Tensor) -> torch.Tensor:
 
 
 def dither_to_palette(target: torch.Tensor, palette_luma: torch.Tensor,
-                      n: int = 4) -> torch.Tensor:
+                      n: int = 4, row0: int = 0) -> torch.Tensor:
     """Quantise per-pixel target luminance onto palette indices with ordered
     dithering.
 
     target: (..., H, W) float32 lit luminance in [0, 1]; palette_luma: (P,)
     float32 palette luminance in [0, 1], ascending; n: Bayer matrix size (a
-    power of two).  Returns (..., H, W) int64 palette indices: the target
+    power of two); row0: the view row of the target's first row (a row
+    window's).  Returns (..., H, W) int64 palette indices: the target
     lands between two palette entries and the Bayer threshold of the
     pixel's position picks which.
     """
     H, W = target.shape[-2:]
     P = palette_luma.shape[0]
     bayer = torch.from_numpy(bayer_matrix(n)).to(target.device)
-    tile = bayer.repeat(-(-H // n), -(-W // n))[:H, :W]
+    tile = bayer.repeat(-(-(row0 + H) // n), -(-W // n))[row0:row0 + H, :W]
 
     # The highest palette entry <= target (the lower neighbour).
     below = (palette_luma <= target[..., None]).sum(-1) - 1
@@ -83,14 +84,15 @@ def dither_to_palette(target: torch.Tensor, palette_luma: torch.Tensor,
 
 
 def shade_dithered(gbuf_color: torch.Tensor, brightness: torch.Tensor,
-                   palette_rgb: torch.Tensor, n: int = 4) -> torch.Tensor:
+                   palette_rgb: torch.Tensor, n: int = 4,
+                   row0: int = 0) -> torch.Tensor:
     """Lit pixels re-quantised onto the palette.
 
     gbuf_color: (..., H, W, >=3) uint8 G-buffer colours; brightness:
     (..., H, W) float32 lighting factor in [0, 1]; palette_rgb: (P, 3)
-    uint8, sorted by luminance.  Returns (..., H, W, 3) uint8 frames made
-    of palette colours only.
+    uint8, sorted by luminance; row0 as for :func:`dither_to_palette`.
+    Returns (..., H, W, 3) uint8 frames made of palette colours only.
     """
     idx = dither_to_palette(luminance(gbuf_color) * brightness,
-                            luminance(palette_rgb), n)
+                            luminance(palette_rgb), n, row0)
     return palette_rgb[idx]

@@ -16,7 +16,7 @@ import torch
 
 from ..config import RenderConfig
 from ..runtime import kernels
-from . import shadow, shadow_dir
+from . import shadow, shadow_dir, trace
 
 launches = 0
 directional_launches = 0
@@ -77,19 +77,28 @@ def directional_smem_bytes(config: RenderConfig, max_steps: int) -> int:
 
 
 def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
-                origin, inv_dir, players,
-                config: RenderConfig) -> torch.Tensor:
+                origin, inv_dir, players, config: RenderConfig,
+                max_steps: int | None = None, rows=None) -> torch.Tensor:
     """Lit mask (F, H, W) bool: True where the light is reachable.
 
     Arguments as :func:`ops.shadow.trace_light_dynamic`; ``end_bin`` holds
-    one light bin per frame, each component of shape (F, 1, 1).
+    one light bin per frame, each component of shape (F, 1, 1), and
+    ``max_steps`` caps each ray at ``7 * min(int(largest), max_steps)``
+    phases (None: no cap, the render paths' exact march).
+    ``rows=(row0, n_rows)``, a window of whole bin rows
+    (``trace.row_window``), launches over that window only: the per-pixel
+    inputs and the mask are then (F, n_rows, W).
     """
     global launches
     dev = bins_ent.device
+    row0, n_rows = trace.row_window(config, rows)
+    if max_steps is not None and max_steps < 0:
+        raise ValueError(f"trace_light: max_steps {max_steps} < 0")
     if dev.type == "cpu":
         return shadow.trace_light_dynamic(pos, ext, bins_ent, counts,
                                           start_bin, end_bin, start_ent,
-                                          origin, inv_dir, players, config)
+                                          origin, inv_dir, players, config,
+                                          max_steps=max_steps)
     if dev.type != "cuda":
         raise ValueError(f"trace_light: no kernel for device {dev}")
 
@@ -99,7 +108,7 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
     V, cap = cfg.hash_volume, cfg.bin_capacity
     N = pos.shape[0]
     light_bin = torch.stack([b.reshape(F) for b in end_bin], dim=1)
-    pixel = (F, H, W)
+    pixel = (F, n_rows, W)
     checks = [
         (pos, "pos", torch.int32, (N, 3)),
         (ext, "ext", torch.int32, (N, 3)),
@@ -117,7 +126,7 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
                for a, t in enumerate(inv_dir)]
     for t, name, dtype, shape in checks:
         kernels.require(t, name, dtype, shape, dev)
-    smem = march_smem_bytes(cfg)
+    smem = march_smem_bytes(cfg, max_steps=max_steps)
     if smem > MAX_SMEM:
         raise ValueError(f"trace_light: visit lists of a {V}-bin grid and "
                          f"a tile of {cfg.bin_size}**2 pixels need {smem} B "
@@ -136,7 +145,10 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
             start_ent.data_ptr(), light_bin.data_ptr(), lit.data_ptr(),
             counters.tensor(dev).data_ptr(),
             F, W, H, cfg.bin_size, cap, cfg.hash_width, cfg.hash_height,
-            cfg.hash_length, march_threads(cfg), kernels.stream_handle(dev))
+            cfg.hash_length, row0 // cfg.bin_size,
+            -(-n_rows // cfg.bin_size),
+            -1 if max_steps is None else max_steps, march_threads(cfg),
+            kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_lit")
     launches += 1
     return lit

@@ -10,7 +10,10 @@ compare and the early exit.  It is what ``csrc/trace.cu`` computes, and what
 
 Every function takes frame-batched tables (leading axis F) and the
 per-frame position of entity 0, the player (``players`` (F, 3)); entity 0's
-row of ``pos`` is not read.
+row of ``pos`` is not read.  Each computes the whole view, or with
+``rows=(row0, n_rows)`` a window of whole bin rows of it (a row shard of
+``parallel/mesh.py``), shaped (F, n_rows, W): a pixel's walk reads only its
+own bin column, so a window's pixels are the full frame's.
 """
 
 from __future__ import annotations
@@ -47,12 +50,28 @@ def entity_pos(pos: torch.Tensor, players: torch.Tensor,
     return torch.where((ent == 0)[..., None], pl, p)
 
 
-def _pixel_grid(config: RenderConfig, device):
-    """Column index i (1, 1, W), row index j (1, H, 1) and the world row
-    ``H - j``."""
+def row_window(config: RenderConfig, rows=None) -> tuple[int, int]:
+    """``(row0, n_rows)`` of a window of pixel rows ``rows``, None for the
+    whole view.  A window is whole bin rows: ``row0`` and ``n_rows``
+    multiples of the bin size.  Raises ``ValueError`` otherwise."""
+    H, bs = config.view_height, config.bin_size
+    if rows is None:
+        return 0, H
+    row0, n_rows = (int(v) for v in rows)
+    end = row0 + n_rows
+    if row0 < 0 or n_rows <= 0 or end > H or row0 % bs or n_rows % bs:
+        raise ValueError(f"rows {row0}..{end - 1}: a window must be whole "
+                         f"bin rows of {bs} pixels within the view's {H}")
+    return row0, n_rows
+
+
+def _pixel_grid(config: RenderConfig, device, rows=None):
+    """Column index i (1, 1, W), row index j (1, n_rows, 1) of the window
+    ``rows`` (:func:`row_window`) and the world row ``H - j``."""
+    row0, n_rows = row_window(config, rows)
     i = torch.arange(config.view_width, dtype=torch.int32,
                      device=device)[None, None, :]
-    j = torch.arange(config.view_height, dtype=torch.int32,
+    j = torch.arange(row0, row0 + n_rows, dtype=torch.int32,
                      device=device)[None, :, None]
     return i, j, config.view_height - j
 
@@ -66,9 +85,10 @@ def _texel(sid, row, col, config: RenderConfig):
 
 
 def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
-                 players, config: RenderConfig, work: dict | None = None):
-    """Per-pixel ``(best_depth, winner_entity)``, (F, H, W) int32 each;
-    winner -1 for background.
+                 players, config: RenderConfig, work: dict | None = None,
+                 rows=None):
+    """Per-pixel ``(best_depth, winner_entity)``, (F, H, W) int32 each
+    ((F, n_rows, W) for a window ``rows``); winner -1 for background.
 
     Args:
       pos, ext: (N, 3) int32; sprite_id: (N,) int32.
@@ -84,9 +104,9 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
     cfg = config
     dev = bins_ent.device
     F = bins_ent.shape[0]
-    H, W = cfg.view_height, cfg.view_width
+    H, W = row_window(cfg, rows)[1], cfg.view_width
     cap = cfg.bin_capacity
-    i, j, world_j = _pixel_grid(cfg, dev)
+    i, j, world_j = _pixel_grid(cfg, dev, rows)
     base_flat = ((i // cfg.bin_size) * cfg.hash_height
                  + j // cfg.bin_size) * cfg.hash_length
     frame = torch.arange(F, device=dev)[:, None, None]
@@ -139,8 +159,8 @@ def trace_winner(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
 
 
 def decode_winner(winner, pos, ext, sprite_id, atlas_depth, players,
-                  config: RenderConfig):
-    """The surface point of each pixel's winner.
+                  config: RenderConfig, rows=None):
+    """The surface point of each pixel's winner (of the window ``rows``).
 
     Returns ``(y, z, entity, texel)``, (F, H, W) each: the world y and z of
     the hit, the winner entity and its clipped atlas texel.  Background
@@ -148,7 +168,7 @@ def decode_winner(winner, pos, ext, sprite_id, atlas_depth, players,
     texel.
     """
     cfg = config
-    i, _, world_j = _pixel_grid(cfg, winner.device)
+    i, _, world_j = _pixel_grid(cfg, winner.device, rows)
     hit = winner >= 0
     ent = torch.where(hit, winner, 0)
     apx, apy, apz = entity_pos(pos, players, ent).unbind(-1)
@@ -163,15 +183,16 @@ def decode_winner(winner, pos, ext, sprite_id, atlas_depth, players,
 
 def materialize_gbuffer(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
                         atlas_normal, palette, players,
-                        config: RenderConfig) -> GBufferArrays:
-    """Expand a per-pixel winner map (F, H, W) into the G-buffer.
+                        config: RenderConfig, rows=None) -> GBufferArrays:
+    """Expand a per-pixel winner map (F, H, W) (or (F, n_rows, W) of the
+    window ``rows``) into the G-buffer.
 
     Background pixels (winner -1) take the background color, a zero normal
     and zero y/z/entity fields (quirk Q6).
     """
     cfg = config
     y, z, ent, texel = decode_winner(winner, pos, ext, sprite_id,
-                                     atlas_depth, players, cfg)
+                                     atlas_depth, players, cfg, rows)
     hit = winner >= 0
     cidx = atlas_color.reshape(-1)[texel]
     bg = torch.tensor(cfg.background, dtype=torch.uint8, device=winner.device)

@@ -64,17 +64,22 @@ def smem_bytes(config: RenderConfig) -> int:
 
 
 def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
-                  players, config: RenderConfig, with_best: bool = False):
+                  players, config: RenderConfig, with_best: bool = False,
+                  rows=None):
     """Winner entity per pixel, (F, H, W) int32, -1 for background.
 
-    Arguments as :func:`ops.trace.trace_winner`.  With ``with_best`` the
-    result is ``(best_depth, winner)`` as that function returns it.
+    Arguments as :func:`ops.trace.trace_winner`; ``rows=(row0, n_rows)``
+    launches over that window of whole bin rows only
+    (``trace.row_window``), for (F, n_rows, W) winners.  With ``with_best``
+    the result is ``(best_depth, winner)`` as that function returns it.
     """
     global launches
     dev = bins_ent.device
+    row0, n_rows = trace.row_window(config, rows)
     if dev.type == "cpu":
         best, winner = trace.trace_winner(pos, ext, sprite_id, atlas_depth,
-                                          bins_ent, counts, players, config)
+                                          bins_ent, counts, players, config,
+                                          rows=rows)
         return (best, winner) if with_best else winner
     if dev.type != "cuda":
         raise ValueError(f"trace_winners: no kernel for device {dev}")
@@ -102,8 +107,8 @@ def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
                          f"shared memory, over the {MAX_SMEM} B a block may "
                          f"use")
 
-    winner = torch.empty((F, cfg.view_height, cfg.view_width),
-                         dtype=torch.int32, device=dev)
+    winner = torch.empty((F, n_rows, cfg.view_width), dtype=torch.int32,
+                         device=dev)
     best = torch.empty_like(winner) if with_best else None
     lib = kernels.library()
     with torch.cuda.device(dev):
@@ -115,6 +120,7 @@ def trace_winners(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             F, cfg.view_width, cfg.view_height, cfg.bin_size, cap,
             cfg.hash_width, cfg.hash_height, cfg.hash_length,
             cfg.sprite_width, cfg.sprite_height, int(cfg.early_exit),
+            row0 // cfg.bin_size, -(-n_rows // cfg.bin_size),
             block_threads(cfg), kernels.stream_handle(dev))
     kernels.check(rc, "par_trace_winners")
     launches += 1

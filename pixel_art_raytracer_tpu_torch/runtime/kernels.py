@@ -41,8 +41,8 @@ _I = ctypes.c_int
 # Argument types of each C entry point: pointers and the stream as void*,
 # sizes as int.
 SIGNATURES = {
-    "par_trace_winners": [_P] * 9 + [_I] * 12 + [_P],
-    "par_shadow_lit": [_P] * 18 + [_I] * 9 + [_P],
+    "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
+    "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
     "par_shadow_dir_lit": [_P] * 12 + [_I] * 10 + [_P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],

@@ -19,7 +19,9 @@ from pixel_art_raytracer_tpu_torch.models.batched import render_states_batched
 from pixel_art_raytracer_tpu_torch.models.brute import BruteForceRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
+from pixel_art_raytracer_tpu_torch.models.inverse import InverseLightFitter
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
+from pixel_art_raytracer_tpu_torch.parallel.launch import run_ranks
 from pixel_art_raytracer_tpu_torch.runtime import kernels, viewer
 from pixel_art_raytracer_tpu_torch.runtime.session import Session
 from pixel_art_raytracer_tpu_torch.runtime.viewer import LiveViewer
@@ -109,7 +111,11 @@ def test_package_sources_never_import_pil():
 
 def test_package_sources_never_import_the_jax_package():
     for path in PORT_SOURCES:
-        assert "pixel_art_raytracer_tpu" not in imported_roots(path), path
+        roots = imported_roots(path)
+        assert "pixel_art_raytracer_tpu" not in roots, path
+        assert "optax" not in roots, path
+    assert {"inverse.py", "mesh.py", "entity_sharded.py"} <= {
+        p.name for p in PORT_SOURCES}
     assert "pixel_art_raytracer_tpu_torch" in imported_roots(
         REPO / "chip_smoke.py")
 
@@ -226,10 +232,16 @@ def check_feature(case, fuse: bool):
     assert not torch.equal(frames, point)
 
 
+def rank_tensor(device):
+    """A rank's result for ``run_ranks``: 1 on a CUDA device, else 0."""
+    return torch.tensor(int(device.type == "cuda"), device=device)
+
+
 @pytest.mark.parametrize("entry", ["from_scene", "from_numpy",
                                    "render_numpy", "light_sweep_states",
                                    "static_bins", "session", "live_viewer",
-                                   "render_long"])
+                                   "render_long", "inverse_init",
+                                   "run_ranks"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     scene = small_scene()
     r = DeferredRenderer(SMALL).configure_for(scene)
@@ -254,10 +266,16 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             AnimationRenderer(r, SMALL).render_long(
                 DeviceScene.from_scene(scene, SMALL), scene.pos[:1],
                 light.as_array()[None], tmp_path)),
+        "inverse_init": lambda: InverseLightFitter(SMALL, r).init(
+            [20.0, 20.0, 40.0])[0],
+        "run_ranks": lambda: run_ranks(rank_tensor, 1)[0],
     }[entry]
     if torch.cuda.is_available():
-        # render_numpy and render_long return numpy frames.
-        if entry not in ("render_numpy", "render_long"):
+        # render_numpy and render_long return numpy frames; a rank's
+        # result comes back on the CPU, holding its device's type.
+        if entry == "run_ranks":
+            assert int(call()) == 1
+        elif entry not in ("render_numpy", "render_long"):
             assert call().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
