@@ -32,9 +32,11 @@ unless:
   * the shadow kernel's directional mode equals its plain version
     (``ops/shadow_dir.trace_light_directional``, the capped march with
     per-pixel light bins) bit for bit on all 64 frames, its list path took
-    pixels, fewer than 1% of them took the direct march, and its longest
-    visit list equals the longest ``dda_visit_lists`` list over the
-    distinct (start bin, light bin) keys under the cap;
+    pixels, fewer than 1% of them took the direct march, its longest
+    visit list and the union entries it staged (each tile's distinct bins
+    of its (start bin, light bin) keys' visit lists under the cap) equal
+    the CPU's count (``ops/shadow_dir.tile_unions``), which is below the
+    per-key lists' entries;
   * each batch launches exactly: multi-light trace 1, shadow 3, fused 0 on
     both settings of ``fuse_trace_shadow``; directional trace 1 and the
     directional mode 1, fused 0, on both; dithered with a point light the
@@ -114,7 +116,9 @@ marched directly, the most start bins one tile held, the longest visit
 list), ms/frame, Mrays/s and the per-stage split of both paths, the
 kernels' times beside their plain versions and their bounds, the same
 for the new paths (Mrays/s counting 1 + L rays a pixel) and the
-directional mode (with its counters, shared memory and blocks per SM),
+directional mode (with its counters, the union entries staged and the slab
+tests performed beside the plain version's count, its shared memory,
+blocks per SM and registers),
 for config 5 the bands, the kernels' shared memory, blocks per SM, times,
 plain times, bounds and counters, peak memory and ms/frame, the new
 paths' times, a JSON line on the kernels (a row for each kernel on each
@@ -196,7 +200,14 @@ TRACE_OPS_PER_CANDIDATE = 9
 # The depth key of a hit: the row, ey - row and its min with 0, the clamped
 # texel row and column, the texel address, the key and its compare.
 DEPTH_KEY_OPS = 15
+# A slab test: 6 subtractions, 6 multiplies, 10 min/max and a compare.  Where
+# the reciprocal direction is finite on every axis and shared by all the
+# rays of a frame (a directional light), each staged box's near corner on
+# each axis is known once per box, and the test takes 6 subtractions, 6
+# multiplies, 2 max, 2 min and a compare.  Point-light rays each have their
+# own direction, so their tests order the corners themselves: 23.
 SLAB_OPS = 23
+NEAR_FAR_OPS = 17
 
 SOURCES = {
     "trace": ("pixel_art_raytracer_tpu_torch/csrc/trace.cu",
@@ -392,8 +403,7 @@ def list_path(name: str, what: str, c: dict, n_pix: int,
                            f"{longest}")
 
 
-def longest_visit_list(start_bin, light_bin, config,
-                       max_steps: int | None = None) -> int:
+def longest_visit_list(start_bin, light_bin, config) -> int:
     """The longest of ``shadow.dda_visit_lists`` over the distinct (start
     bin, light bin) pairs of these rays: its first visits of a bin, counted
     by ``shadow.dda_first_visits``."""
@@ -401,9 +411,35 @@ def longest_visit_list(start_bin, light_bin, config,
                         for t in (*start_bin, *light_bin)], dim=1)
     keys = torch.unique(keys, dim=0)
     _, first = shadow.dda_first_visits(tuple(keys[:, :3].unbind(1)),
-                                       tuple(keys[:, 3:].unbind(1)), config,
-                                       max_steps)
+                                       tuple(keys[:, 3:].unbind(1)), config)
     return int(first.sum(0).max())
+
+
+def directional_unions(c: dict, unions: dict, work: dict) -> None:
+    """Print the directional mode's staged union entries and slab tests
+    performed (``MarchCounters.read()`` ``c``) beside the CPU's count of
+    the tiles' unions (``shadow_dir.tile_unions``) and the plain version's
+    slab tests (``work``); raise unless the staged entries equal that
+    count, which is below the per-key lists' entries."""
+    ratio = unions["key_entries"] / max(1, unions["staged"])
+    print(f"directional sweep: {c['staged_entries']} union entries staged "
+          f"(tile_unions: {unions['staged']}; the per-key visit lists hold "
+          f"{unions['key_entries']}, {ratio:.2f}x), "
+          f"at most {unions['keys']} keys and {unions['largest']} union "
+          f"entries in a tile; {c['slab_tests']} slab tests performed, "
+          f"{int(work['slab_tests'])} needed, "
+          f"{int(work['slab_tests_every_probe'])} at every probe")
+    if unions["keys"] > shadow_dir.TABLE_KEYS:
+        raise RuntimeError(f"directional sweep: a tile holds "
+                           f"{unions['keys']} keys, over the table's "
+                           f"{shadow_dir.TABLE_KEYS}")
+    if c["staged_entries"] != unions["staged"]:
+        raise RuntimeError(f"directional sweep: the kernel staged "
+                           f"{c['staged_entries']} union entries, "
+                           f"tile_unions counts {unions['staged']}")
+    if not unions["staged"] < unions["key_entries"]:
+        raise RuntimeError("directional sweep: the unions are no smaller "
+                           "than the per-key lists")
 
 
 def reset_launches() -> None:
@@ -1785,10 +1821,9 @@ def main() -> int:
     dir_stats = shadow_cuda.counters.read()
     require_equal("directional", "shadow kernel lit (directional mode)",
                   lit_k, lit_p)
-    rb, _ = shade.surface_rays(gbuf.y, gbuf.z, cfg)
-    lb = shadow_dir.pixel_light_bins(gbuf.y, gbuf.z, K, cfg)
+    unions = shadow_dir.tile_unions(gbuf.y, gbuf.z, K, cfg, steps)
     list_path("directional sweep", "shadow kernel (directional mode)",
-              dir_stats, n_pix, longest_visit_list(rb, lb, cfg, steps),
+              dir_stats, n_pix, unions["longest"],
               keys=DIRECTIONAL_KEY_LABEL)
     direct_share = dir_stats["direct_pixels"] / n_pix
     print(f"directional sweep: {direct_share:.6f} of the pixels marched "
@@ -1796,27 +1831,33 @@ def main() -> int:
     if direct_share >= DIRECT_SHARE:
         raise RuntimeError(f"directional sweep: {direct_share:.4f} of the "
                            f"pixels took the direct march")
+    directional_unions(dir_stats, unions, work)
     errs["shadow_directional"] = max_abs_err(lit_k, lit_p)
     times["shadow_directional"] = [cuda_ms(
         lambda: shadow_cuda.trace_light_directional(*dargs), KERNEL_REPS)]
     times["shadow_directional_plain"] = [cuda_ms(
         lambda: shadow_dir.trace_light_directional(*dargs), PLAIN_REPS,
         warm_up=False)]
+    near_far = int(work["slab_tests_finite"])
     bounds["shadow_directional"] = [(
         entity_bytes(be, cnt, ds.pos, ds.ext)
         + nbytes(home, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index, inv, K,
-                 lit_k), SLAB_OPS * int(work["slab_tests"]))]
-    smem, blocks, regs, local = shadow_cuda.directional_occupancy(cfg, steps)
+                 lit_k),
+        NEAR_FAR_OPS * near_far
+        + SLAB_OPS * (int(work["slab_tests"]) - near_far))]
+    smem, blocks, regs, local = shadow_cuda.directional_occupancy(cfg)
     print(f"shadow kernel (directional mode): {smem} B of shared memory per "
           f"block, {blocks} blocks per SM at "
           f"{shadow_cuda.march_threads(cfg)} threads, {regs} registers and "
           f"{local} B of local memory a thread; a table of "
-          f"{shadow_cuda.DIRECTIONAL_KEYS} keys, lists of "
-          f"{shadow_cuda.list_capacity(cfg, steps)} bins  [{card}]")
+          f"{shadow_dir.TABLE_KEYS} keys, a key mask and a union "
+          f"entry per grid bin ({cfg.hash_volume})  [{card}]")
     print(f"directional sweep: F={FRAMES} directional kernel == "
           f"trace_light_directional, bit-exact; "
-          f"{int(work['slab_tests'])} slab tests needed "
-          f"({int(work['slab_tests_every_probe'])} at every probe)")
+          f"{int(work['slab_tests'])} slab tests needed, {near_far} of "
+          f"them in frames of a finite reciprocal direction "
+          f"({NEAR_FAR_OPS} operations each, {SLAB_OPS} the others; "
+          f"{int(work['slab_tests_every_probe'])} at every probe)")
 
     # -- 10. the lighting modes' main paths, one batch each ------------------
     center_players, center_lights = sweeps["center"]

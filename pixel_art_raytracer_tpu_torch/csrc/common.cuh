@@ -9,10 +9,10 @@
 // The bodies live here as __device__ functions: the bin-column walk of
 // primary visibility, which draws a column's candidates in walk order into
 // per-pixel state in shared memory (trace.cu), the slab test, the 7-phase
-// DDA and the tile march over per-key visit lists of the shadow ray
-// (shadow.cu: keyed by start bin for a point light, by start bin and light
-// bin for a directional one), and both in sequence (fused.cu).  The kernels
-// call the same code, so they agree by construction.
+// DDA and the tile march over per-start-bin visit lists of a point light's
+// shadow rays (shadow.cu's point mode), and both in sequence (fused.cu).
+// shadow.cu's directional mode marches on the same slab test and DDA
+// rounds.  The kernels call the same code, so they agree by construction.
 #pragma once
 
 #include <climits>
@@ -506,10 +506,8 @@ constexpr unsigned char kNoPixel = 0xFF;  // outside the view
 
 // A tile's table of march keys: up to kKeys distinct keys of kKeyInts ints.
 // A ray's probed bins depend only on its start bin, its light bin and the
-// step cap, so the key is what of those varies within a frame: the start
-// bin for a point light (3 ints; the light bin is the frame's), the start
-// bin and the light bin for a directional light (6 ints; each pixel has
-// its own virtual far light).
+// step cap, so under a point light (one light bin a frame) the key is the
+// start bin.
 template <int kKeys_, int kKeyInts_>
 struct MarchTable {
   static constexpr int kKeys = kKeys_;
@@ -520,42 +518,28 @@ struct MarchTable {
 };
 // Point lights: graybox tiles hold at most 2 start bins.
 using PointTable = MarchTable<4, 3>;
-// Directional lights: graybox tiles hold up to ~9 (start, light) keys (2
-// start bins, each light-bin axis 2 or 3 values within a start bin).
-using DirectionalTable = MarchTable<16, 6>;
 
 // Counters of the list path, one (3,) int32 array per launch's caller:
 // pixels marched directly, the most keys one tile held (kKeys + 1 where
 // some did not fit), the longest visit list.
 enum MarchStat { kStatDirect = 0, kStatStarts = 1, kStatList = 2 };
 
-// The light bin of the rays of key k: its own for a directional table, the
-// frame's for a point table.
-template <class Table>
-__device__ __forceinline__ int3 key_light(const int* k, int3 frame_light) {
-  if constexpr (Table::kKeyInts == 6) {
-    return make_int3(k[3], k[4], k[5]);
-  } else {
-    return frame_light;
-  }
-}
-
-// The distinct flat bins that dda_walk visits from start bin
-// (sbx, sby, sbz) toward light bin (lbx, lby, lbz) under step cap
-// max_steps, appended to `list` in first-visit order, with bit v of `seen`
-// (cleared by the caller) marking bin v.  Returns the list's length.  All
-// 32 lanes of a warp call it.
+// The probes of dda_walk from start bin (sbx, sby, sbz) toward light bin
+// (lbx, lby, lbz) under step cap max_steps, four steps a round: all 32
+// lanes of a warp call it, and it calls round(flat) once a round in every
+// lane, with the lane's probe (an in-range flat bin other than the start
+// bin's) or a negative value unique to the lane.
 //
 // The walk's only serial dependence is the anchor, which advances by one
 // float add of the step per 7 phases.  Each round covers 4 steps: lane
 // 7 * d + p (d < 4, p < 7; lanes 28-31 idle) takes phase p of step
 // k0 + d from the anchor reached by the same sequence of adds as dda_walk,
-// so it probes the same bin; the lowest lane of equal bins that is not yet
-// in `seen` appends it, in lane order, which is visiting order.
-__device__ inline int dda_visit_list(int sbx, int sby, int sbz, int lbx,
-                                     int lby, int lbz, const Grid& g,
-                                     int max_steps, unsigned* seen,
-                                     int* list) {
+// so it probes the same bin, and lane order within a round is visiting
+// order.
+template <class Round>
+__device__ inline void dda_rounds(int sbx, int sby, int sbz, int lbx,
+                                  int lby, int lbz, const Grid& g,
+                                  int max_steps, Round round) {
   const int V = g.volume();
   const int lane = threadIdx.x & 31;
   const float sx = static_cast<float>(sbx);
@@ -578,7 +562,6 @@ __device__ inline int dda_visit_list(int sbx, int sby, int sbz, int lbx,
   const bool az = phase == 2 || phase == 4 || phase == 5 || phase == 6;
 
   float bx = sx, by = sy, bz = sz;  // the anchor of step k0
-  int m = 0;
   for (int k0 = 0; k0 < n_steps; k0 += 4) {
     float tx = bx, ty = by, tz = bz;
     for (int a = 0; a < d && a < 4; ++a) {
@@ -593,6 +576,29 @@ __device__ inline int dda_visit_list(int sbx, int sby, int sbz, int lbx,
                            static_cast<int>(tz + (az ? stz : 0.0f)));
       if (v >= 0 && v < V && v != start_flat) flat = v;
     }
+    round(flat);
+    for (int a = 0; a < 4; ++a) {
+      bx = bx + stx;
+      by = by + sty;
+      bz = bz + stz;
+    }
+    __syncwarp();
+  }
+}
+
+// The distinct flat bins that dda_walk visits from start bin
+// (sbx, sby, sbz) toward light bin (lbx, lby, lbz) under step cap
+// max_steps, appended to `list` in first-visit order, with bit v of `seen`
+// (cleared by the caller) marking bin v.  Returns the list's length.  All
+// 32 lanes of a warp call it.  In each round of dda_rounds the lowest lane
+// of equal bins that is not yet in `seen` appends it, in lane order.
+__device__ inline int dda_visit_list(int sbx, int sby, int sbz, int lbx,
+                                     int lby, int lbz, const Grid& g,
+                                     int max_steps, unsigned* seen,
+                                     int* list) {
+  const int lane = threadIdx.x & 31;
+  int m = 0;
+  dda_rounds(sbx, sby, sbz, lbx, lby, lbz, g, max_steps, [&](int flat) {
     const unsigned same = __match_any_sync(kFullWarp, flat);
     const bool fresh = flat >= 0 && __ffs(same) - 1 == lane
                        && (seen[flat >> 5] & (1u << (flat & 31))) == 0u;
@@ -602,14 +608,29 @@ __device__ inline int dda_visit_list(int sbx, int sby, int sbz, int lbx,
       list[m + __popc(fresh_lanes & ((1u << lane) - 1u))] = flat;
     }
     m += __popc(fresh_lanes);
-    for (int a = 0; a < 4; ++a) {
-      bx = bx + stx;
-      by = by + sty;
-      bz = bz + stz;
-    }
-    __syncwarp();
-  }
+  });
   return m;
+}
+
+// A candidate box as the march stages it: float corners lo xyz with the
+// raw entity id (as int bits), then corners hi xyz.
+struct Box {
+  float4 lo, hi;
+};
+
+// The candidate box of raw entity id `id` (a slot of frame f's table):
+// entity 0 sits at players[f], and an id < 0 reads entity 0's box.
+__device__ __forceinline__ Box candidate_box(const int* pos, const int* ext,
+                                             const int* players, int id,
+                                             int f) {
+  const int es = id >= 0 ? id : 0;
+  const int* p = entity_pos(pos, players, f, es);
+  const int* x = ext + 3 * static_cast<size_t>(es);
+  return Box{make_float4(static_cast<float>(p[0]), static_cast<float>(p[1]),
+                         static_cast<float>(p[2]), __int_as_float(id)),
+             make_float4(static_cast<float>(p[0] + x[0]),
+                         static_cast<float>(p[1] + x[1]),
+                         static_cast<float>(p[2] + x[2]), 0.0f)};
 }
 
 // The shared memory march_tile works in; the base must be 16-byte aligned.
@@ -701,9 +722,9 @@ __device__ __forceinline__ int pick(const int (&off)[kKeys + 1], int k) {
 // view.  The band's pixels are q = 0..b.rows*bs-1 at column
 // i = b.i0(g) + q % bs and row j = b.j0(g) + q / bs; key_of(q, i, j)
 // gives pixel q's key (Table::Key) and ray_of(q, i, j) its Ray.
-// frame_light is the frame's light bin (read for a point table only) and
-// max_steps the step cap (kNoStepCap for none).  All threads of the block
-// call it; blockDim.x is a multiple of 32 and at most kMarchThreads.
+// frame_light is the frame's light bin and max_steps the step cap
+// (kNoStepCap for none).  All threads of the block call it; blockDim.x is
+// a multiple of 32 and at most kMarchThreads.
 //
 // 1. Collect the tile's distinct keys, up to Table::kKeys: each warp lists
 //    the distinct keys of its pixels (up to kKeys; a key missing from the
@@ -818,10 +839,9 @@ __device__ void march_tile(const int* pos, const int* ext, const int* players,
   __syncthreads();
   for (int k = tid / 32; k < n; k += nt / 32) {
     const int* kp = s.key + kKeyInts * k;
-    const int3 l = key_light<Table>(kp, frame_light);
-    const int m = dda_visit_list(kp[0], kp[1], kp[2], l.x, l.y, l.z, g,
-                                 max_steps, s.seen + k * words,
-                                 s.list + k * s.list_cap);
+    const int m = dda_visit_list(kp[0], kp[1], kp[2], frame_light.x,
+                                 frame_light.y, frame_light.z, g, max_steps,
+                                 s.seen + k * words, s.list + k * s.list_cap);
     if ((tid & 31) == 0) s.len[k] = m;
   }
   __syncthreads();
@@ -851,18 +871,10 @@ __device__ void march_tile(const int* pos, const int* ext, const int* players,
       const int live = min(counts[b], cap);
       if (k == 0) s.cand_n[t / cap] = live;
       if (k < live) {
-        const int id = bins_ent[b * cap + k];
-        const int es = id >= 0 ? id : 0;
-        const int* p = entity_pos(pos, players, f, es);
-        const int* x = ext + 3 * static_cast<size_t>(es);
-        s.cand[2 * t] = make_float4(static_cast<float>(p[0]),
-                                    static_cast<float>(p[1]),
-                                    static_cast<float>(p[2]),
-                                    __int_as_float(id));
-        s.cand[2 * t + 1] = make_float4(static_cast<float>(p[0] + x[0]),
-                                        static_cast<float>(p[1] + x[1]),
-                                        static_cast<float>(p[2] + x[2]),
-                                        0.0f);
+        const Box box = candidate_box(pos, ext, players,
+                                      bins_ent[b * cap + k], f);
+        s.cand[2 * t] = box.lo;
+        s.cand[2 * t + 1] = box.hi;
       }
     }
     __syncthreads();
@@ -900,11 +912,8 @@ __device__ void march_tile(const int* pos, const int* ext, const int* players,
     const int j = j0 + p.row;
     bool occluded = s.occ[p.q] != 0;
     if (li == kDirect) {
-      const Key k = key_of(p.q, i, j);
       occluded = march_occluded(pos, ext, players, bins_ent, counts, f, g,
-                                ray_of(p.q, i, j),
-                                key_light<Table>(k.v, frame_light),
-                                max_steps);
+                                ray_of(p.q, i, j), frame_light, max_steps);
       ++direct;
     }
     lit_out[g.pixel(f, i, j)] = occluded ? 0 : 1;

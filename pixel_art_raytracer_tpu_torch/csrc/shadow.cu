@@ -34,9 +34,11 @@
 // bin ((i + Kx) / bs, (view_h - y - z - (Ky + Kz)) / bs, (z + Kz) / bs)
 // from the frame's offsets K, C's truncating `/` throughout.
 //
-// What bounds it on the H100: its bytes bound is the 41 B of ray inputs
-// and 1 B of output a pixel in point mode (13 B in directional mode); it
-// runs at a few times that.  Marched per pixel, as the reference does,
+// What bounds it on the H100: in point mode the bytes, 41 B of ray inputs
+// and 1 B of output a pixel; in directional mode the slab tests the rays
+// need (13 B a pixel; ~190 M tests of 23 operations on chip_smoke.py's
+// sweep of 64 graybox frames).  It runs at several times its bound.
+// Marched per pixel, as the reference does,
 // each ray ran ~48 DDA phases, probed the same bins again and again (14-31
 // distinct of ~40-56 probes on graybox) and gathered every tested box's
 // 24 B from the entity arrays, in loops of different lengths within a
@@ -45,22 +47,60 @@
 //
 // What the design does about it: a ray's probed bins depend only on its
 // start bin, its light bin and the step cap, and a tile's pixels share few
-// of them (hit pixels start at (i / bs, j / bs, z / bs); under a
-// directional light each light-bin axis takes 2 or 3 values within a start
-// bin).  So one block takes one (frame, bin-column tile) of bs x bs pixels
-// and runs common.cuh march_tile over a table of keys: start bins
-// (PointTable, 4 keys) or (start bin, light bin) pairs (DirectionalTable,
-// 16 keys): one warp-parallel DDA per distinct key into a list of its
-// distinct bins in first-visit order, the candidate boxes of those bins
-// staged once in shared memory as float corners, and every pixel tests its
-// key's boxes, neighbouring lanes running the same list.  A pixel whose key
-// does not fit the tile's table marches on its own (march_occluded) and is
-// counted in stats[kStatDirect].  Exact because the lit bit is an OR over
-// the probed bins, which ignores order and repeats.  Under the step cap a
-// list holds at most 7 * max_steps bins, which sizes the directional
-// table's lists and a capped point table's.  The TPU kernel's per-tile
-// candidate lists, membership words, extended start space and division
-// helpers have no counterpart.
+// of them.  So one block takes one (frame, bin-column tile) of bs x bs
+// pixels.
+//
+// Point mode: common.cuh march_tile over the tile's start bins (PointTable,
+// 4 keys; hit pixels start at (i / bs, j / bs, z / bs)): one warp-parallel
+// DDA per start bin into a list of its distinct bins in first-visit order,
+// the candidate boxes of those bins staged once in shared memory as float
+// corners, and every pixel tests its key's boxes.
+//
+// Directional mode (shadow_dir_kernel): each pixel has its own virtual far
+// light, so a key is a (start bin, light bin) pair, ~4.8 of them a graybox
+// tile (at most 10), whose visit lists share most of their bins (~115
+// entries a tile, ~41 distinct).  The block
+// 1. packs each pixel's key into one 64-bit word (the start bin's y and z,
+//    the light bin minus the start bin; ops/shadow_dir.key_fields sizes the
+//    fields from the RenderConfig; the start bin's x is the tile's;
+//    dividing by the bin size with a multiply), finds each warp's distinct
+//    keys with __match_any_sync and inserts them into an open-addressed
+//    table in shared memory with atomicCAS, up to kDirKeys (16) keys, and
+//    sorts the pixels by key (a count per table slot, a scan, a place
+//    each), so that a warp holds pixels of one key;
+// 2. walks one warp-parallel DDA per key (common.cuh dda_rounds, the
+//    per-pixel march's float stepping and cap) that sets the key's bit in
+//    a word per grid bin;
+// 3. compacts the bins with any bit set into one union list, in flat order;
+// 4. stages the union's candidate boxes once, kDirChunk entries at a time,
+//    and walks them in lockstep: every thread holds kDirPixels pixels in
+//    registers and all lanes take the same entry at the same time, so the
+//    boxes' shared-memory reads are broadcasts; a pixel tests an entry only
+//    where the entry's mask has its key's bit, skips its own entity and
+//    stops at its first hit.
+// A pixel whose key does not fit the table or the packed fields marches on
+// its own (march_occluded) and is counted in stats[kStatDirect].  Exact
+// because the lit bit is an OR over the probed bins, which ignores order
+// and repeats: the union and its masks give each pixel exactly its key's
+// bins.
+//
+// The slab test: where the frame's reciprocal direction is finite on every
+// axis, no (corner - origin) * inv is NaN, so par::slab_hit's
+// std::min/std::max chain takes the values' min and max, and each axis's
+// min and max are the products at the corners nearer and farther along
+// the axis (the products are monotone in the corner: the rounding of a
+// difference and of a product by a positive or negative number is).  So
+// the staged boxes hold each axis's near corner first (swapped by the sign
+// of inv and the box's own order) and near_far_hit takes two maxima and
+// two minima: the same hi >= lo as slab_hit (a -0 and a +0 compare equal),
+// in 17 operations instead of slab_hit's 23 (~33 instructions: each of its
+// ten std::min/std::max is a compare and a select).  A frame with an
+// infinite or NaN component (a direction along a plane) takes slab_hit.
+//
+// The TPU kernel's per-tile candidate lists, membership words, extended
+// start space and division helpers have no counterpart.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -89,10 +129,190 @@ struct SurfacePixels {
   const int* self;
 };
 
-// The directional table's 6-int keys and 16 lists need more registers and
-// shared memory than the point table's; 3 blocks of 320 threads leave 68
-// registers a thread.
-constexpr int kDirBlocksPerSM = 3;
+// ---------------------------------------------------------------------------
+// The directional mode's march: one union of visit lists per tile.
+// ---------------------------------------------------------------------------
+
+// Keys a tile's table gives a mask bit: a tile of chip_smoke.py's graybox
+// sweep holds at most 12.
+constexpr int kDirKeys = 16;
+// Open-addressed slots of the key table (insert_key hashes to 6 bits).
+constexpr int kDirSlots = 64;
+// Pixels a thread holds in registers while it walks the staged entries: a
+// graybox tile of 1,600 pixels is one round of 320 threads.
+constexpr int kDirPixels = 5;
+// Union entries staged at once.
+constexpr int kDirChunk = 64;
+// An empty slot of the key table: no packed key is all ones, since the
+// fields take at most 63 bits.
+constexpr unsigned long long kNoKey = ~0ull;
+// 4 blocks of 320 threads leave 51 registers a thread (48 used, a few
+// bytes spilled), which measured faster than 3 blocks without spills.
+constexpr int kDirBlocksPerSM = 4;
+
+// 64-bit counters of the directional mode, one (2,) int64 array per
+// launch's caller (added to): the union entries staged, summed over the
+// tiles, and the slab tests that the list path performed.
+enum MarchWork { kWorkStaged = 0, kWorkTests = 1 };
+
+// The fields of a packed key, in order: the start bin's y and z, and the
+// light bin minus the start bin in x, y and z (the start bin's x is the
+// tile's).  Field a holds value - lo[a] in bits[a] <= 31 bits from bit
+// shift[a]; ops/shadow_dir.key_fields sizes them from the RenderConfig.
+// The keys divide by the bin size bs with a multiply: div_m, div_s1 and
+// div_s2 are its magic number and shifts (bin_divisor).
+constexpr int kKeyFields = 5;
+struct KeyFields {
+  int lo[kKeyFields];
+  int bits[kKeyFields];
+  int shift[kKeyFields];
+  unsigned div_m;
+  int div_s1, div_s2;
+};
+
+// Division of an unsigned 32-bit n by d >= 1 as a multiply and two shifts
+// (Granlund and Montgomery's round-up method, exact for every n): with
+// l = ceil(log2 d), m = floor(2^32 (2^l - d) / d) + 1,
+// n / d = (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0), t = (m n) >> 32.
+__host__ void bin_divisor(unsigned d, KeyFields& kf) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;
+  kf.div_m = static_cast<unsigned>(
+      (((1ull << 32) * ((1ull << l) - d)) / d) + 1ull);
+  kf.div_s1 = l < 1 ? l : 1;
+  kf.div_s2 = l > 1 ? l - 1 : 0;
+}
+
+__device__ __forceinline__ unsigned udiv_bs(unsigned n, const KeyFields& kf) {
+  const unsigned t = __umulhi(kf.div_m, n);
+  return (t + ((n - t) >> kf.div_s1)) >> kf.div_s2;
+}
+
+// n / bs with C's truncation toward zero.
+__device__ __forceinline__ int div_bs(int n, const KeyFields& kf) {
+  return n >= 0 ? static_cast<int>(udiv_bs(static_cast<unsigned>(n), kf))
+                : static_cast<int>(0u - udiv_bs(0u - static_cast<unsigned>(n),
+                                                kf));
+}
+
+// The packed key of field values v, or kNoKey if one does not fit.
+__device__ __forceinline__ unsigned long long pack_key(
+    const KeyFields& kf, const int (&v)[kKeyFields]) {
+  unsigned long long key = 0;
+  bool fits = true;
+#pragma unroll
+  for (int a = 0; a < kKeyFields; ++a) {
+    const unsigned u = static_cast<unsigned>(v[a])
+                       - static_cast<unsigned>(kf.lo[a]);
+    fits = fits && u < (1u << kf.bits[a]);
+    key |= static_cast<unsigned long long>(u) << kf.shift[a];
+  }
+  return fits ? key : kNoKey;
+}
+
+// Exchange a and b.
+__device__ __forceinline__ void swap_axis(float& a, float& b) {
+  const float t = a;
+  a = b;
+  b = t;
+}
+
+// Field a's value in a packed key.
+__device__ __forceinline__ int key_field(const KeyFields& kf,
+                                         unsigned long long key, int a) {
+  const unsigned long long m = (1ull << kf.bits[a]) - 1ull;
+  return static_cast<int>((key >> kf.shift[a]) & m) + kf.lo[a];
+}
+
+// A flag known at compile time: the lockstep walk's two slab tests.
+// Whether the box with near corner n and far corner r on every axis (for
+// the signs of iv) meets the ray from o: the slab test of finite
+// reciprocal directions, equal to par::slab_hit there (see the header).
+__device__ __forceinline__ bool near_far_hit(float4 n, float4 r, float ox,
+                                             float oy, float oz, float ivx,
+                                             float ivy, float ivz) {
+  const float lo = fmaxf(fmaxf((n.x - ox) * ivx, (n.y - oy) * ivy),
+                         (n.z - oz) * ivz);
+  const float hi = fminf(fminf((r.x - ox) * ivx, (r.y - oy) * ivy),
+                         (r.z - oz) * ivz);
+  return hi >= lo;
+}
+
+// The shared memory shadow_dir_kernel works in; the base must be 16-byte
+// aligned.
+struct DirSmem {
+  float4* cand;               // (kDirChunk * cap, 2) staged boxes
+                              // (common.cuh Box)
+  unsigned long long* slots;  // (kDirSlots,) the key table, kNoKey if empty
+  unsigned long long* keys;   // (kDirKeys,) the key of each index
+  int* index;                 // (kDirSlots,) each slot's key index, kDirect
+                              // past kDirKeys
+  int* ent_n;                 // (kDirChunk,) live slots of a staged entry
+  unsigned* ent_mask;         // (kDirChunk,) its key mask
+  int* ctl;                   // [0] keys inserted, [1] the longest visit
+                              // list, [2] slab tests (unsigned), [3] the
+                              // list path's pixels
+  int* warp_n;                // (kMarchWarps,) union bins each warp found
+  int* slot_n;                // (kDirSlots,) the list path's pixels of
+                              // each slot's key; after the scan, where
+                              // they start in `perm`
+  unsigned* mask;             // (V,) the key mask of each flat bin
+  int* list;                  // (V,) the union: bins with a mask, in flat
+                              // order
+  unsigned short* perm;       // (n_pix,) the list path's pixels by key
+  unsigned short* rank;       // (n_pix,) a pixel's place among its key's
+  unsigned char* slot;        // (n_pix,) each pixel's table slot, kDirect
+                              // or kNoPixel
+  unsigned char* occ;         // (n_pix,) occluded by a union entry so far
+
+  __host__ __device__ static size_t bytes(const par::Grid& g, int n_pix) {
+    return static_cast<size_t>(32 * kDirChunk * g.bin_cap
+                               + 8 * (kDirSlots + kDirKeys)
+                               + 4 * (2 * kDirSlots + 2 * kDirChunk + 4
+                                      + par::kMarchWarps)
+                               + 8 * g.volume() + 6 * n_pix);
+  }
+  __device__ DirSmem(int* base, const par::Grid& g, int n_pix) {
+    char* p = reinterpret_cast<char*>(base);
+    cand = reinterpret_cast<float4*>(p);
+    p += 32 * kDirChunk * g.bin_cap;
+    slots = reinterpret_cast<unsigned long long*>(p);
+    keys = slots + kDirSlots;
+    index = reinterpret_cast<int*>(keys + kDirKeys);
+    ent_n = index + kDirSlots;
+    ent_mask = reinterpret_cast<unsigned*>(ent_n + kDirChunk);
+    ctl = reinterpret_cast<int*>(ent_mask + kDirChunk);
+    warp_n = ctl + 4;
+    slot_n = warp_n + par::kMarchWarps;
+    mask = reinterpret_cast<unsigned*>(slot_n + kDirSlots);
+    list = reinterpret_cast<int*>(mask + g.volume());
+    perm = reinterpret_cast<unsigned short*>(list + g.volume());
+    rank = perm + n_pix;
+    slot = reinterpret_cast<unsigned char*>(rank + n_pix);
+    occ = slot + n_pix;
+  }
+};
+
+// The slot of `key` in the tile's table, inserting it where it is missing;
+// kDirect if the table is full.  A newly inserted key takes the next index
+// (s.ctl[0]) and, below kDirKeys, its entry in s.keys.
+__device__ inline int insert_key(const DirSmem& s, unsigned long long key) {
+  static_assert(kDirSlots == 64, "the hash keeps the top 6 bits");
+  int h = static_cast<int>((key * 0x9E3779B97F4A7C15ull) >> 58);
+#pragma unroll 1
+  for (int probe = 0; probe < kDirSlots; ++probe) {
+    const unsigned long long old = atomicCAS(s.slots + h, kNoKey, key);
+    if (old == kNoKey) {
+      const int k = atomicAdd(s.ctl, 1);
+      s.index[h] = k < kDirKeys ? k : par::kDirect;
+      if (k < kDirKeys) s.keys[k] = key;
+      return h;
+    }
+    if (old == key) return h;
+    h = (h + 1) & (kDirSlots - 1);
+  }
+  return par::kDirect;
+}
 
 __global__ void __launch_bounds__(par::kMarchThreads,
                                   par::kMarchBlocksPerSM)
@@ -126,52 +346,332 @@ shadow_lit_kernel(
                   max_steps, s, key_of, ray_of, lit, stats);
 }
 
+// The lit mask of bin-column tile blockIdx.x of frame blockIdx.y under a
+// directional light, in five phases (the header's 1-4, then the pixels off
+// the list path).  All threads of the block take part; blockDim.x is a
+// multiple of 32 and at most kMarchThreads.
 __global__ void __launch_bounds__(par::kMarchThreads, kDirBlocksPerSM)
 shadow_dir_kernel(
     const int* __restrict__ pos, const int* __restrict__ ext,
     const int* __restrict__ players, const int* __restrict__ bins_ent,
     const int* __restrict__ counts, SurfacePixels px,
     const float* __restrict__ inv, const int* __restrict__ offsets,
-    unsigned char* __restrict__ lit, int* __restrict__ stats, par::Grid g,
-    int max_steps) {
+    unsigned char* __restrict__ lit, int* __restrict__ stats,
+    unsigned long long* __restrict__ work, par::Grid g, int max_steps,
+    KeyFields kf) {
   extern __shared__ __align__(16) int smem[];
   const int bs = g.bin_size;
-  const par::MarchSmem<par::DirectionalTable> s(smem, g, bs * bs,
-                                                max_steps);
-
+  const int n_pix = bs * bs;
+  const DirSmem s(smem, g, n_pix);
+  const int V = g.volume();
+  const int cap = g.bin_cap;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid / 32;
   const int f = blockIdx.y;
   const par::Band tile = par::Band::tile(g, blockIdx.x);
+  const int i0 = tile.i0(g);
+  const int j0 = tile.j0(g);
   const int kx = offsets[3 * f], ky = offsets[3 * f + 1];
   const int kz = offsets[3 * f + 2];
   const float ivx = inv[3 * f], ivy = inv[3 * f + 1], ivz = inv[3 * f + 2];
-  auto index = [&](int i, int j) { return g.pixel(f, i, j); };
-  // (start bin, light bin) of the ray from surface point (i, y, z).
-  auto key_of = [&](int, int i, int j) {
-    const size_t o = index(i, j);
-    const int y = px.y[o];
-    const int z = px.z[o];
-    return par::DirectionalTable::Key{
-        {i / bs, (g.view_h - y - z) / bs, z / bs, (i + kx) / bs,
-         (g.view_h - y - z - (ky + kz)) / bs, (z + kz) / bs}};
+
+  for (int v = tid; v < V; v += nt) s.mask[v] = 0u;
+  for (int h = tid; h < kDirSlots; h += nt) {
+    s.slots[h] = kNoKey;
+    s.slot_n[h] = 0;
+  }
+  if (tid < 4) s.ctl[tid] = 0;
+  __syncthreads();
+
+  // 1. Each pixel's key, (start bin, light bin) of the ray from surface
+  //    point (i, y, z), and the tile's table of distinct keys: the lowest
+  //    lane of each key in a warp inserts it and takes places for the
+  //    key's lanes among the slot's pixels.  A thread loads the surface
+  //    points of kDirPixels pixels (those of TilePixel's order) at once.
+  par::TilePixel tp(bs);
+  for (int r0 = 0; r0 < n_pix; r0 += nt * kDirPixels) {
+    int qs[kDirPixels], is[kDirPixels], ys[kDirPixels], zs[kDirPixels];
+#pragma unroll
+    for (int p = 0; p < kDirPixels; ++p) {
+      qs[p] = tp.q;
+      is[p] = i0 + tp.col;
+      const int j = j0 + tp.row;
+      ys[p] = zs[p] = 0;
+      if (tp.q < n_pix && is[p] < g.view_w && j < g.view_h) {
+        const size_t o = g.pixel(f, is[p], j);
+        ys[p] = px.y[o];
+        zs[p] = px.z[o];
+      } else {
+        is[p] = -1;  // out of view
+      }
+      tp.next();
+    }
+#pragma unroll
+    for (int p = 0; p < kDirPixels; ++p) {
+      const bool live = is[p] >= 0;
+      unsigned long long key = kNoKey;
+      if (live) {
+        const int hy = g.view_h - ys[p] - zs[p];
+        const int sby = div_bs(hy, kf);
+        const int sbz = div_bs(zs[p], kf);
+        const int v[kKeyFields] = {sby, sbz,
+                                   div_bs(is[p] + kx, kf) - tile.bin_x,
+                                   div_bs(hy - (ky + kz), kf) - sby,
+                                   div_bs(zs[p] + kz, kf) - sbz};
+        key = pack_key(kf, v);
+      }
+      const unsigned same = __match_any_sync(par::kFullWarp, key);
+      const int leader = __ffs(same) - 1;
+      int h = par::kDirect;
+      int first = 0;
+      if (key != kNoKey && lane == leader) {
+        h = insert_key(s, key);
+        if (h < kDirSlots) first = atomicAdd(s.slot_n + h, __popc(same));
+      }
+      h = __shfl_sync(par::kFullWarp, h, leader);
+      first = __shfl_sync(par::kFullWarp, first, leader);
+      if (qs[p] < n_pix) {
+        s.slot[qs[p]] = static_cast<unsigned char>(
+            !live ? par::kNoPixel : key == kNoKey ? par::kDirect : h);
+        s.rank[qs[p]] = static_cast<unsigned short>(
+            first + __popc(same & ((1u << lane) - 1u)));
+        s.occ[qs[p]] = 0;
+      }
+    }
+  }
+  __syncthreads();
+  const int inserted = s.ctl[0];
+  const int n = min(inserted, kDirKeys);
+  // Pixel q's key index, or kDirect off the list path (or out of view).
+  auto key_index = [&](int q) {
+    const int sl = s.slot[q];
+    return sl < kDirSlots ? s.index[sl] : par::kDirect;
   };
-  auto ray_of = [&](int, int i, int j) {
-    const size_t o = index(i, j);
-    const int y = px.y[o];
-    const int z = px.z[o];
-    return par::Ray{i / bs,
-                    (g.view_h - y - z) / bs,
-                    z / bs,
-                    static_cast<float>(i),
-                    static_cast<float>(y),
-                    static_cast<float>(z),
-                    ivx,
-                    ivy,
-                    ivz,
-                    px.self[o]};
+
+  // 1b. Sort the list path's pixels by key: a scan of the slots' counts
+  //     (the slots of keys past the table hold none), then each pixel's
+  //     place, so that a warp's lanes hold pixels of one key, which take
+  //     the same union entries.
+  if (warp == 0) {
+    static_assert(kDirSlots == 64, "two slots a lane");
+    int c[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int h = 2 * lane + a;
+      c[a] = s.slots[h] != kNoKey && s.index[h] < kDirKeys ? s.slot_n[h]
+                                                          : 0;
+    }
+    int sum = c[0] + c[1];
+    for (int d = 1; d < 32; d *= 2) {
+      const int o = __shfl_up_sync(par::kFullWarp, sum, d);
+      if (lane >= d) sum += o;
+    }
+    s.slot_n[2 * lane] = sum - c[0] - c[1];
+    s.slot_n[2 * lane + 1] = sum - c[1];
+    if (lane == 31) s.ctl[3] = sum;
+  }
+  __syncthreads();
+  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int sl = s.slot[p.q];
+    if (sl < kDirSlots && s.index[sl] < kDirKeys)
+      s.perm[s.slot_n[sl] + s.rank[p.q]] = static_cast<unsigned short>(p.q);
+  }
+
+  // 2. One DDA per key, a warp each, setting the key's bit in every bin it
+  //    probes; the bins whose bit it set first are its visit list.
+  for (int k = warp; k < n; k += nt / 32) {
+    const unsigned long long key = s.keys[k];
+    const int sby = key_field(kf, key, 0);
+    const int sbz = key_field(kf, key, 1);
+    const unsigned bit = 1u << k;
+    int m = 0;
+    par::dda_rounds(tile.bin_x, sby, sbz, tile.bin_x + key_field(kf, key, 2),
+                    sby + key_field(kf, key, 3), sbz + key_field(kf, key, 4),
+                    g, max_steps, [&](int flat) {
+      const bool fresh =
+          flat >= 0 && (atomicOr(s.mask + flat, bit) & bit) == 0u;
+      m += __popc(__ballot_sync(par::kFullWarp, fresh));
+    });
+    if (lane == 0) atomicMax(s.ctl + 1, m);
+  }
+  __syncthreads();
+
+  // 3. The union: the bins with a mask, in flat order; thread t takes a
+  //    run of `per` bins, and a scan of the runs' counts places them.
+  const int per = (V + nt - 1) / nt;
+  const int v0 = min(tid * per, V);
+  const int v1 = min(v0 + per, V);
+  int c = 0;
+  for (int v = v0; v < v1; ++v) c += s.mask[v] != 0u ? 1 : 0;
+  int upto = c;  // the union bins of this warp's runs up to this thread's
+  for (int d = 1; d < 32; d *= 2) {
+    const int o = __shfl_up_sync(par::kFullWarp, upto, d);
+    if (lane >= d) upto += o;
+  }
+  if (lane == 31) s.warp_n[warp] = upto;
+  __syncthreads();
+  int at = upto - c;
+  int total = 0;
+  for (int w = 0; w < nt / 32; ++w) {
+    const int t = s.warp_n[w];
+    at += w < warp ? t : 0;
+    total += t;
+  }
+  for (int v = v0; v < v1; ++v)
+    if (s.mask[v] != 0u) s.list[at++] = v;
+  __syncthreads();
+
+  // 4. Stage the union kDirChunk entries at a time and walk each chunk in
+  //    lockstep, kDirPixels pixels a thread in registers: pixel p of lane
+  //    l of warp w in a round is perm[r0 + (w * kDirPixels + p) * 32 + l],
+  //    so a warp holds a run of 32 * kDirPixels pixels in key order, of one
+  //    key (two at a key's end), and its lanes take the same entry and
+  //    slot together.
+  const int n_list = s.ctl[3];
+  const size_t fbase = static_cast<size_t>(f) * V;
+  unsigned tests = 0;
+  auto march_chunks = [&](auto near_far) {
+    constexpr bool kNearFar = decltype(near_far)::value;
+    for (int c0 = 0; c0 < total; c0 += kDirChunk) {
+      const int nb = min(kDirChunk, total - c0);
+      for (int t = tid; t < nb * cap; t += nt) {
+        const int e = t / cap;
+        const int k = t % cap;
+        const int flat = s.list[c0 + e];
+        const size_t b = fbase + flat;
+        const int live = min(counts[b], cap);
+        if (k == 0) {
+          s.ent_n[e] = live;
+          s.ent_mask[e] = s.mask[flat];
+        }
+        if (k < live) {
+          par::Box box = par::candidate_box(pos, ext, players,
+                                            bins_ent[b * cap + k], f);
+          if constexpr (kNearFar) {  // each axis's near corner first
+            if ((ivx < 0.0f) != (box.lo.x > box.hi.x))
+              swap_axis(box.lo.x, box.hi.x);
+            if ((ivy < 0.0f) != (box.lo.y > box.hi.y))
+              swap_axis(box.lo.y, box.hi.y);
+            if ((ivz < 0.0f) != (box.lo.z > box.hi.z))
+              swap_axis(box.lo.z, box.hi.z);
+          }
+          s.cand[2 * t] = box.lo;
+          s.cand[2 * t + 1] = box.hi;
+        }
+      }
+      __syncthreads();
+      for (int r0 = 0; r0 < n_list; r0 += nt * kDirPixels) {
+        float ox[kDirPixels], oy[kDirPixels], oz[kDirPixels];
+        int self[kDirPixels];
+        unsigned bit[kDirPixels];  // the pixel's key bit; 0 once done
+#pragma unroll
+        for (int p = 0; p < kDirPixels; ++p) {
+          const int at = r0 + (warp * kDirPixels + p) * 32 + lane;
+          const int q = at < n_list ? s.perm[at] : 0;
+          ox[p] = oy[p] = oz[p] = 0.0f;
+          self[p] = 0;
+          bit[p] = 0u;
+          if (at < n_list && !s.occ[q]) {
+            const int row = static_cast<int>(udiv_bs(q, kf));
+            const int i = i0 + q - row * bs;
+            const size_t o = g.pixel(f, i, j0 + row);
+            ox[p] = static_cast<float>(i);
+            oy[p] = static_cast<float>(px.y[o]);
+            oz[p] = static_cast<float>(px.z[o]);
+            self[p] = px.self[o];
+            bit[p] = 1u << key_index(q);
+          }
+        }
+        unsigned hit = 0u;
+        for (int e = 0; e < nb; ++e) {
+          unsigned marching = 0u;
+          unsigned act = 0u;  // bit p: pixel p tests this entry
+          const unsigned em = s.ent_mask[e];
+#pragma unroll
+          for (int p = 0; p < kDirPixels; ++p) {
+            marching |= bit[p];
+            act |= (em & bit[p]) != 0u ? 1u << p : 0u;
+          }
+          if (__ballot_sync(par::kFullWarp, marching != 0u) == 0u) break;
+          if (__ballot_sync(par::kFullWarp, act != 0u) == 0u) continue;
+          const int live = s.ent_n[e];
+          for (int t = e * cap; t < e * cap + live; ++t) {
+            const float4 a = s.cand[2 * t];
+            const float4 z = s.cand[2 * t + 1];
+            const int id = __float_as_int(a.w);
+#pragma unroll
+            for (int p = 0; p < kDirPixels; ++p) {
+              if (((act >> p) & 1u) == 0u || id == self[p]) continue;
+              ++tests;
+              bool occluded;
+              if constexpr (kNearFar) {
+                occluded = near_far_hit(a, z, ox[p], oy[p], oz[p], ivx, ivy,
+                                        ivz);
+              } else {
+                const par::Ray r{0, 0, 0, ox[p], oy[p], oz[p],
+                                 ivx, ivy, ivz, self[p]};
+                occluded = par::slab_hit(a.x, a.y, a.z, z.x, z.y, z.z, r);
+              }
+              if (occluded) {
+                act &= ~(1u << p);
+                bit[p] = 0u;
+                hit |= 1u << p;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < kDirPixels; ++p)
+          if ((hit >> p) & 1u)
+            s.occ[s.perm[r0 + (warp * kDirPixels + p) * 32 + lane]] = 1;
+      }
+      __syncthreads();
+    }
   };
-  par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
-                  make_int3(0, 0, 0), max_steps, s, key_of, ray_of, lit,
-                  stats);
+  if (isfinite(ivx) && isfinite(ivy) && isfinite(ivz)) {
+    march_chunks(std::true_type{});
+  } else {
+    march_chunks(std::false_type{});
+  }
+
+  // 5. Pixels off the list path march on their own; every pixel's lit bit.
+  int direct = 0;
+  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int sl = s.slot[p.q];
+    if (sl == par::kNoPixel) continue;
+    const int i = i0 + p.col;
+    const int j = j0 + p.row;
+    bool occluded = s.occ[p.q] != 0;
+    if (key_index(p.q) == par::kDirect) {
+      const size_t o = g.pixel(f, i, j);
+      const int y = px.y[o];
+      const int z = px.z[o];
+      const int hy = g.view_h - y - z;
+      const par::Ray r{i / bs, hy / bs, z / bs, static_cast<float>(i),
+                       static_cast<float>(y), static_cast<float>(z),
+                       ivx, ivy, ivz, px.self[o]};
+      occluded = par::march_occluded(
+          pos, ext, players, bins_ent, counts, f, g, r,
+          make_int3((i + kx) / bs, (hy - (ky + kz)) / bs, (z + kz) / bs),
+          max_steps);
+      ++direct;
+    }
+    lit[g.pixel(f, i, j)] = occluded ? 0 : 1;
+  }
+  if (direct > 0) atomicAdd(stats + par::kStatDirect, direct);
+  tests = __reduce_add_sync(par::kFullWarp, tests);
+  if (lane == 0 && tests > 0u)
+    atomicAdd(reinterpret_cast<unsigned*>(s.ctl + 2), tests);
+  __syncthreads();
+  if (tid == 0) {
+    atomicMax(stats + par::kStatStarts, n + (inserted > kDirKeys ? 1 : 0));
+    atomicMax(stats + par::kStatList, s.ctl[1]);
+    atomicAdd(work + kWorkStaged, static_cast<unsigned long long>(total));
+    atomicAdd(work + kWorkTests, static_cast<unsigned long long>(
+                                     static_cast<unsigned>(s.ctl[2])));
+  }
 }
 
 size_t shadow_smem(const par::Grid& g, int max_steps) {
@@ -180,10 +680,8 @@ size_t shadow_smem(const par::Grid& g, int max_steps) {
                                             max_steps));
 }
 
-size_t dir_smem(const par::Grid& g, int max_steps) {
-  return sizeof(int) * static_cast<size_t>(
-      par::MarchSmem<par::DirectionalTable>::ints(
-          g, g.bin_size * g.bin_size, max_steps));
+size_t dir_smem(const par::Grid& g) {
+  return DirSmem::bytes(g, g.bin_size * g.bin_size);
 }
 
 // Let `kernel` take `smem` bytes of dynamic shared memory (an opt-in above
@@ -258,19 +756,31 @@ extern "C" int par_shadow_lit(
 // The directional mode.  lit (F, H, W) uint8 (0/1); y, z, start_ent
 // (F, H, W) int32 (the G-buffer's surface point and entity); inv (F, 3)
 // float32 the reciprocal direction and offsets (F, 3) int32 the far-light
-// offsets K of each frame (ops/shadow_dir.direction_constants); max_steps
-// >= 0 the step cap; the rest as for par_shadow_lit.  Returns
-// cudaGetLastError().
+// offsets K of each frame (ops/shadow_dir.direction_constants); stats as
+// for par_shadow_lit and work (2,) int64 (MarchWork), added to; max_steps
+// >= 0 the step cap; fields (10,) int32 on the host, each key field's lo
+// then its bits (ops/shadow_dir.key_fields); the rest as for
+// par_shadow_lit.  Returns cudaGetLastError().
 extern "C" int par_shadow_dir_lit(
     const void* pos, const void* ext, const void* players,
     const void* bins_ent, const void* counts, const void* y, const void* z,
     const void* start_ent, const void* inv, const void* offsets, void* lit,
-    void* stats, int n_frames, int view_w, int view_h, int bin_size,
-    int bin_cap, int hash_w, int hash_h, int hash_l, int max_steps,
-    int threads, void* stream) {
+    void* stats, void* work, int n_frames, int view_w, int view_h,
+    int bin_size, int bin_cap, int hash_w, int hash_h, int hash_l,
+    int max_steps, const void* fields, int threads, void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  const size_t smem = dir_smem(g, max_steps);
+  const int* fl = static_cast<const int*>(fields);
+  KeyFields kf;
+  int shift = 0;
+  for (int a = 0; a < kKeyFields; ++a) {
+    kf.lo[a] = fl[a];
+    kf.bits[a] = fl[kKeyFields + a];
+    kf.shift[a] = shift;
+    shift += kf.bits[a];
+  }
+  bin_divisor(static_cast<unsigned>(bin_size), kf);
+  const size_t smem = dir_smem(g);
   const int rc = allow_smem(shadow_dir_kernel, smem);
   if (rc != 0) return rc;
   const SurfacePixels px{static_cast<const int*>(y),
@@ -283,7 +793,8 @@ extern "C" int par_shadow_dir_lit(
       static_cast<const int*>(players), static_cast<const int*>(bins_ent),
       static_cast<const int*>(counts), px, static_cast<const float*>(inv),
       static_cast<const int*>(offsets), static_cast<unsigned char*>(lit),
-      static_cast<int*>(stats), g, max_steps);
+      static_cast<int*>(stats), static_cast<unsigned long long*>(work), g,
+      max_steps, kf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,12 +810,11 @@ extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
                    threads, out);
 }
 
-// The same for the directional mode under step cap max_steps.
+// The same for the directional mode.
 extern "C" int par_shadow_dir_occupancy(int view_w, int view_h, int bin_size,
                                         int bin_cap, int hash_w, int hash_h,
-                                        int hash_l, int threads,
-                                        int max_steps, int* out) {
+                                        int hash_l, int threads, int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_dir_kernel, dir_smem(g, max_steps), threads, out);
+  return occupancy(shadow_dir_kernel, dir_smem(g), threads, out);
 }

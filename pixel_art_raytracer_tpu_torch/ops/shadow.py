@@ -164,7 +164,8 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
         repeated probe tests the same boxes again), up to its first
         occluder in the reference's order (a 0-d int64 tensor).
         ``work["slab_tests_every_probe"]`` counts the tests at every probe,
-        repeats included.
+        repeats included, and ``work["slab_tests_finite"]`` the needed
+        tests of rays whose reciprocal direction is finite on every axis.
       max_steps: a ray probes ``7 * min(int(largest), max_steps)`` phases;
         ``None`` for no cap.  The JAX package's ``shadow.trace_light`` with
         its static ``max_steps`` (a scan of ``7 * max_steps`` phases, rays
@@ -206,6 +207,9 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
     occluded = torch.zeros(rbx.shape, dtype=torch.bool, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     every_probe = torch.zeros((), dtype=torch.int64, device=dev)
+    finite_tests = torch.zeros((), dtype=torch.int64, device=dev)
+    finite = (torch.isfinite(ivx) & torch.isfinite(ivy)
+              & torch.isfinite(ivz))
     for t, (flat, probe) in enumerate(dda_probes(start_bin, end_bin, cfg,
                                                  max_steps)):
         test = probe & ~occluded
@@ -224,9 +228,11 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
                 live = consider & ~occluded
                 every_probe += live.sum()
                 tests += (live & first_t).sum()
+                finite_tests += (live & first_t & finite).sum()
             occluded = occluded | (consider
                                    & slab_hit(torch.where(ent >= 0, ent, 0)))
     if work is not None:
         work["slab_tests"] = tests
         work["slab_tests_every_probe"] = every_probe
+        work["slab_tests_finite"] = finite_tests
     return ~occluded

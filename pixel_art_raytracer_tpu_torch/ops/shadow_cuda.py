@@ -7,10 +7,13 @@ and :func:`ops.shadow_dir.trace_light_directional`; CUDA tensors launch the
 kernel, and anything else raises.  ``launches`` and
 ``directional_launches`` count the two modes' launches; ``counters`` holds
 the kernel's device counters of both (pixels marched directly, the most
-keys in a tile, the longest visit list).
+keys in a tile, the longest visit list) and of the directional mode (union
+entries staged, slab tests performed).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,12 +27,10 @@ counters = kernels.MarchCounters()
 
 # Shared memory a block may use on Hopper (opt-in above 48 KB).
 MAX_SMEM = 227 * 1024
-# csrc/common.cuh: the keys a tile's table holds (PointTable: start bins of
-# 3 ints; DirectionalTable: (start bin, light bin) pairs of 6 ints);
-# kChunkBins, the list entries staged at once; kMarchThreads, the most
-# threads a march block may have.
+# csrc/common.cuh: the start bins a point-mode tile's table holds
+# (PointTable); kChunkBins, the list entries staged at once; kMarchThreads,
+# the most threads a march block may have.
 STARTS = 4
-DIRECTIONAL_KEYS = 16
 CHUNK_BINS = 64
 MARCH_THREADS = 320
 
@@ -51,29 +52,23 @@ def list_capacity(config: RenderConfig, max_steps: int | None) -> int:
     return V if max_steps is None else min(V, 7 * max_steps)
 
 
-def march_smem_bytes(config: RenderConfig, keys: int = STARTS,
-                     key_ints: int = 3, max_steps: int | None = None,
+def march_smem_bytes(config: RenderConfig, max_steps: int | None = None,
                      pixels: int | None = None) -> int:
-    """Shared memory of csrc/common.cuh ``MarchSmem`` for ``pixels`` pixels
-    (default: one tile of bin_size**2) and a table of ``keys`` keys of
-    ``key_ints`` ints (the defaults: the point mode's): CHUNK_BINS staged
-    list entries of ``cap`` candidates (two float4: the corners and the raw
-    id) and their live counts, the tile's keys, list lengths and table
-    counts, each warp's keys and their index in the table, a V-bit mask and
-    a visit list of :func:`list_capacity` entries per key, and two bytes a
-    pixel."""
+    """Shared memory of csrc/common.cuh ``MarchSmem`` of the point table
+    (STARTS keys of 3 ints) for ``pixels`` pixels (default: one tile of
+    bin_size**2): CHUNK_BINS staged list entries of ``cap`` candidates (two
+    float4: the corners and the raw id) and their live counts, the tile's
+    keys, list lengths and table counts, each warp's keys and their index
+    in the table, a V-bit mask and a visit list of :func:`list_capacity`
+    entries per key, and two bytes a pixel."""
     V, cap = config.hash_volume, config.bin_capacity
     n_pix = config.bin_size ** 2 if pixels is None else pixels
+    keys, key_ints = STARTS, 3
     warps = MARCH_THREADS // 32
     ints = (8 * CHUNK_BINS * cap + CHUNK_BINS + keys * key_ints + keys + 2
             + warps * (keys * key_ints + 1 + keys) + keys * -(-V // 32)
             + keys * list_capacity(config, max_steps) + (2 * n_pix + 3) // 4)
     return 4 * ints
-
-
-def directional_smem_bytes(config: RenderConfig, max_steps: int) -> int:
-    """Shared memory of a block of the directional mode."""
-    return march_smem_bytes(config, DIRECTIONAL_KEYS, 6, max_steps)
 
 
 def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
@@ -163,7 +158,11 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
     Arguments as :func:`ops.shadow_dir.trace_light_directional`: the
     G-buffer's y, z and entity (F, H, W) int32, each frame's reciprocal
     direction ``inv`` (F, 3) float32 and far-light offsets ``K`` (F, 3)
-    int32, and the step cap ``max_steps`` >= 0.
+    int32, and the step cap ``max_steps`` >= 0.  Raises ``ValueError``
+    where the config's packed key does not fit
+    (:func:`ops.shadow_dir.key_fields`), and ``RuntimeError`` where the
+    launch fails, as it does for a grid whose key masks and union list
+    (a word each per grid bin) overflow a block's shared memory.
     """
     global directional_launches
     dev = bins_ent.device
@@ -176,6 +175,7 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
                          f"{dev}")
 
     cfg = config
+    fields = shadow_dir.key_fields(cfg)
     F = bins_ent.shape[0]
     H, W = cfg.view_height, cfg.view_width
     V, cap = cfg.hash_volume, cfg.bin_capacity
@@ -196,12 +196,8 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
     if max_steps < 0:
         raise ValueError(f"trace_light_directional: max_steps {max_steps} "
                          f"< 0")
-    smem = directional_smem_bytes(cfg, max_steps)
-    if smem > MAX_SMEM:
-        raise ValueError(f"trace_light_directional: visit lists of a "
-                         f"{V}-bin grid and a tile of {cfg.bin_size}**2 "
-                         f"pixels need {smem} B of shared memory, over the "
-                         f"{MAX_SMEM} B a block may use")
+    packed = (ctypes.c_int * 10)(*(lo for lo, _ in fields),
+                                 *(bits for _, bits in fields))
 
     lit = torch.empty(pixel, dtype=torch.bool, device=dev)
     lib = kernels.library()
@@ -211,8 +207,9 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
             bins_ent.data_ptr(), counts.data_ptr(), gbuf_y.data_ptr(),
             gbuf_z.data_ptr(), start_ent.data_ptr(), inv.data_ptr(),
             K.data_ptr(), lit.data_ptr(), counters.tensor(dev).data_ptr(),
-            F, W, H, cfg.bin_size, cap, cfg.hash_width, cfg.hash_height,
-            cfg.hash_length, max_steps, march_threads(cfg),
+            counters.work(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
+            cfg.hash_width, cfg.hash_height, cfg.hash_length, max_steps,
+            ctypes.addressof(packed), march_threads(cfg),
             kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_dir_lit")
     directional_launches += 1
@@ -226,8 +223,7 @@ def occupancy(config: RenderConfig) -> tuple[int, ...]:
                              march_threads(config))
 
 
-def directional_occupancy(config: RenderConfig,
-                          max_steps: int) -> tuple[int, ...]:
-    """The same for the directional mode under step cap ``max_steps``."""
+def directional_occupancy(config: RenderConfig) -> tuple[int, ...]:
+    """The same for the directional mode."""
     return kernels.occupancy("par_shadow_dir_occupancy", config,
-                             march_threads(config), max_steps)
+                             march_threads(config))

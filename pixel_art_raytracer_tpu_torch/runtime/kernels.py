@@ -43,11 +43,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
-    "par_shadow_dir_lit": [_P] * 12 + [_I] * 10 + [_P],
+    "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
-    "par_shadow_dir_occupancy": [_I] * 9 + [_P],
+    "par_shadow_dir_occupancy": [_I] * 8 + [_P],
     "par_fused_occupancy": [_I] * 8 + [_P],
 }
 
@@ -166,32 +166,48 @@ def occupancy(name: str, config, threads: int,
 
 
 class MarchCounters:
-    """The march kernels' device counters (csrc/common.cuh MarchStat), one
-    (3,) int32 tensor per device that each launch adds to: pixels marched
-    directly, the most keys one tile held (``max_starts``: start bins, or
-    (start bin, light bin) pairs in the directional mode; the table's size
-    + 1 where some did not fit) and the longest visit list."""
+    """The march kernels' device counters, per device, that each launch
+    adds to: a (3,) int32 tensor (csrc/common.cuh MarchStat) of pixels
+    marched directly, the most keys one tile held (``max_starts``: start
+    bins, or (start bin, light bin) pairs in the directional mode; the
+    table's size + 1 where some did not fit) and the longest visit list;
+    and a (2,) int64 tensor (csrc/shadow.cu MarchWork, written by the
+    directional mode only) of the union entries staged (``staged_entries``,
+    summed over the tiles) and the slab tests its list path performed
+    (``slab_tests``)."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}
+        self._work: dict[torch.device, torch.Tensor] = {}
 
     def tensor(self, device: torch.device) -> torch.Tensor:
-        """The counters a launch on ``device`` writes to."""
+        """The (3,) int32 counters a launch on ``device`` writes to."""
         if device not in self._stats:
             self._stats[device] = torch.zeros(3, dtype=torch.int32,
                                               device=device)
         return self._stats[device]
 
+    def work(self, device: torch.device) -> torch.Tensor:
+        """The (2,) int64 counters a directional launch on ``device`` adds
+        to."""
+        if device not in self._work:
+            self._work[device] = torch.zeros(2, dtype=torch.int64,
+                                             device=device)
+        return self._work[device]
+
     def reset(self) -> None:
-        for t in self._stats.values():
+        for t in (*self._stats.values(), *self._work.values()):
             t.zero_()
 
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
         vals = [t.tolist() for t in self._stats.values()] or [[0, 0, 0]]
+        work = [t.tolist() for t in self._work.values()] or [[0, 0]]
         return {"direct_pixels": sum(v[0] for v in vals),
                 "max_starts": max(v[1] for v in vals),
-                "max_list": max(v[2] for v in vals)}
+                "max_list": max(v[2] for v in vals),
+                "staged_entries": sum(w[0] for w in work),
+                "slab_tests": sum(w[1] for w in work)}
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

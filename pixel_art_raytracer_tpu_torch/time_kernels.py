@@ -1,20 +1,29 @@
-"""Time the trace and fused kernels on graybox, for comparing two trees.
+"""Time the three kernels on graybox, for comparing two trees.
 
     PYTHONPATH=<tree> python3 <this file> <label>
 
-Builds the kernels of the package found first on the path, renders nothing
-but the bin tables of the graybox world's center light orbit (F = 64), and
-prints one JSON line: ``label``, five means of 50 calls of
-``trace_cuda.trace_winners`` and three means of 20 calls of
-``fused_cuda.trace_shadow``, in ms, CUDA events after a warm-up.  Two trees
-are compared in one call on one card, in turns (parent, change, change,
-parent), since cards and their hosts differ between calls.  Needs a CUDA
-card.
+Builds the kernels of the package found first on the path and prints one
+JSON line: ``label``, then in ms (CUDA events after a warm-up) five means
+of 50 calls of ``trace_cuda.trace_winners`` and three means of 20 calls of
+``fused_cuda.trace_shadow`` on the bin tables of the graybox world's
+center light orbit (F = 64), three means of 20 calls of
+``shadow_cuda.trace_light`` (point mode) on that orbit's G-buffer and
+lights, and three means of 20 calls of
+``shadow_cuda.trace_light_directional`` on chip_smoke.py's directional
+sweep (64 directions (cos t, 1, 0.5 sin t), the player at home, the step
+cap ``shadow_dir.grid_max_steps``), and three means of 5 batches of that
+sweep through ``AnimationRenderer.render_states(..., directional=True)``
+(the directional path, ms per batch of 64 frames).  It uses only calls whose signatures
+are the same in earlier trees, so one copy of it times both trees.  Two
+trees are compared in one call on one card, in turns (parent, change,
+change, parent), since cards and their hosts differ between calls.  Needs
+a CUDA card.
 """
 
 import json
 import sys
 
+import numpy as np
 import torch
 
 from pixel_art_raytracer_tpu_torch import (DEFAULT_CONFIG, default_light,
@@ -23,7 +32,8 @@ from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
-from pixel_art_raytracer_tpu_torch.ops import fused_cuda, trace_cuda
+from pixel_art_raytracer_tpu_torch.ops import (fused_cuda, shadow_cuda,
+                                               shadow_dir, trace, trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.runtime import kernels
 
@@ -57,11 +67,34 @@ def main(label: str) -> dict:
     be, cnt = batched.bin_stage(r, cache, ds, players)
     args = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt, players,
             cfg)
+    win = trace_cuda.trace_winners(*args)
+    gbuf = trace.materialize_gbuffer(
+        win, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color, ds.atlas_depth,
+        ds.atlas_normal, ds.palette, players, cfg)
+    _, inv, origin, rb, lb = batched.geometry_stage(r, gbuf, lights)
+    sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
+             inv, players, cfg)
+
+    # The directional sweep on the same G-buffer: a light sweep leaves the
+    # player at home in every frame.
+    t = 2.0 * np.pi * np.arange(64) / 64
+    dirs = np.stack([np.cos(t), np.ones(64), 0.5 * np.sin(t)], axis=1)
+    dirs = torch.as_tensor(dirs.astype(np.float32), device=players.device)
+    _, dinv, K = shadow_dir.direction_constants(dirs, cfg)
+    dargs = (ds.pos, ds.ext, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index,
+             dinv, K, players, cfg, shadow_dir.grid_max_steps(cfg))
     return {"tree": label,
             "trace_ms": [ms(lambda: trace_cuda.trace_winners(*args), 50)
                          for _ in range(5)],
             "fused_ms": [ms(lambda: fused_cuda.trace_shadow(
-                *args[:-1], lights, cfg), 20) for _ in range(3)]}
+                *args[:-1], lights, cfg), 20) for _ in range(3)],
+            "shadow_ms": [ms(lambda: shadow_cuda.trace_light(*sargs), 20)
+                          for _ in range(3)],
+            "directional_ms": [ms(lambda: shadow_cuda.trace_light_directional(
+                *dargs), 20) for _ in range(3)],
+            "directional_path_ms": [ms(lambda: anim.render_states(
+                ds, players, dirs, directional=True), 5)
+                for _ in range(3)]}
 
 
 if __name__ == "__main__":

@@ -428,9 +428,11 @@ def test_directional_multi_light_is_refused():
 # -- on the card -------------------------------------------------------------
 
 def wide_inputs(seed, config, F=2):
-    """Seeded directional-kernel inputs whose surface points spread over
-    many start and light bins (tiles with more keys than the table holds),
-    background pixels, own entities and -1 slots."""
+    """``(inputs, directions)``: seeded directional-kernel inputs whose
+    surface points spread over many start and light bins (tiles with more
+    keys than the table holds), background pixels, own entities and -1
+    slots, and the (F, 3) float32 directions their ``inv`` and ``K`` come
+    from."""
     rng = np.random.default_rng(seed)
     H, W, V, cap = (config.view_height, config.view_width,
                     config.hash_volume, config.bin_capacity)
@@ -451,10 +453,11 @@ def wide_inputs(seed, config, F=2):
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32))
 
-    return (i32(pos), i32(ext), i32(be), i32(cnt), i32(y), i32(z),
+    args = (i32(pos), i32(ext), i32(be), i32(cnt), i32(y), i32(z),
             i32(rng.integers(-1, N, (F, H, W))), inv, K,
             i32(rng.integers(0, 80, (F, 3))), config,
             shadow_dir.grid_max_steps(config))
+    return args, d
 
 
 FINE = dataclasses.replace(SMALL, view_length=160, bin_size=10)
@@ -463,10 +466,11 @@ FINE = dataclasses.replace(SMALL, view_length=160, bin_size=10)
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["small", "cap", "overflow"])
 def test_cuda_directional_kernel_matches_plain(cuda, case):
-    """Scene tiles take the list path only; spread surface points overflow
+    """Scene tiles take the list path only, and stage the union entries
+    that ``shadow_dir.tile_unions`` counts; spread surface points overflow
     the table into the direct march; the cap binds on CAP."""
     if case == "overflow":
-        args = wide_inputs(5, FINE)
+        args = wide_inputs(5, FINE)[0]
     else:
         args = march_inputs(case)[2]
     want = shadow_dir.trace_light_directional(*args)
@@ -480,9 +484,14 @@ def test_cuda_directional_kernel_matches_plain(cuda, case):
     assert torch.equal(got.cpu(), want)
     if case == "overflow":
         assert 0 < stats["direct_pixels"] < want.numel()
-        assert stats["max_starts"] == shadow_cuda.DIRECTIONAL_KEYS + 1
+        assert stats["max_starts"] == shadow_dir.TABLE_KEYS + 1
     else:
         assert stats["direct_pixels"] == 0
+        y, z, K, config, max_steps = args[4], args[5], args[8], *args[-2:]
+        unions = shadow_dir.tile_unions(y, z, K, config, max_steps)
+        assert stats["staged_entries"] == unions["staged"]
+        assert stats["max_starts"] == unions["keys"]
+        assert stats["max_list"] == unions["longest"]
     assert cap_binds(args) == (case == "cap")
 
 
@@ -503,14 +512,12 @@ def test_cuda_modes_match_cpu(cuda, mode):
 @pytest.mark.cuda
 def test_cuda_march_occupancy(cuda):
     """The point mode keeps its layout (33,264 B, 4 blocks per SM on
-    graybox); the directional mode's table of 16 keys sizes its lists by
-    the step cap."""
+    graybox); the directional mode's key masks and union list take a word
+    per grid bin each, whatever the step cap."""
     graybox = RenderConfig()
     assert shadow_cuda.occupancy(graybox)[:2] == (33264, 4)
     for cfg in (SMALL, FINE, CAP, graybox):
-        steps = shadow_dir.grid_max_steps(cfg)
-        smem, blocks, regs, _ = shadow_cuda.directional_occupancy(cfg, steps)
-        assert smem == shadow_cuda.directional_smem_bytes(cfg, steps)
+        smem, blocks, regs, _ = shadow_cuda.directional_occupancy(cfg)
+        assert smem <= shadow_cuda.MAX_SMEM
         assert blocks >= 1 and 0 < regs <= 255
-    steps = shadow_dir.grid_max_steps(graybox)
-    assert shadow_cuda.directional_occupancy(graybox, steps)[:2] == (39344, 3)
+    assert shadow_cuda.directional_occupancy(graybox)[:2] == (33848, 4)

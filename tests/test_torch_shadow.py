@@ -305,6 +305,7 @@ def test_slab_test_count_skips_repeated_probes(occluder, every_probe,
     assert bool(got) == lit
     assert int(work["slab_tests_every_probe"]) == every_probe
     assert int(work["slab_tests"]) == needed
+    assert int(work["slab_tests_finite"]) == needed  # inv is finite
     assert shadow.dda_visit_lists(tuple(r.reshape(1) for r in rb),
                                   (1, 1, 0), cfg) == [
         [flat(1, 0, 0), flat(0, 1, 0), flat(1, 1, 0)]]
@@ -401,13 +402,17 @@ def test_cuda_shared_memory_matches_layout(cuda):
 
 def test_march_counters_sum_direct_pixels_and_max_the_rest():
     counters = kernels.MarchCounters()
-    assert counters.read() == {"direct_pixels": 0, "max_starts": 0,
-                               "max_list": 0}
+    zero = {"direct_pixels": 0, "max_starts": 0, "max_list": 0,
+            "staged_entries": 0, "slab_tests": 0}
+    assert counters.read() == zero
     t = counters.tensor(torch.device("cpu"))
     assert counters.tensor(torch.device("cpu")) is t
     t += torch.tensor([5, 2, 29], dtype=torch.int32)
+    w = counters.work(torch.device("cpu"))
+    assert counters.work(torch.device("cpu")) is w and w.dtype == torch.int64
+    w += torch.tensor([41, 3 << 32])
     assert counters.read() == {"direct_pixels": 5, "max_starts": 2,
-                               "max_list": 29}
+                               "max_list": 29, "staged_entries": 41,
+                               "slab_tests": 3 << 32}
     counters.reset()
-    assert counters.read() == {"direct_pixels": 0, "max_starts": 0,
-                               "max_list": 0}
+    assert counters.read() == zero
