@@ -58,6 +58,23 @@ at s = 4), both paths' frames are equal, frame 0 equals
 ``SupersampledRenderer.render`` of frame 0 equals that oracle frame
 box-filtered to 1024x1024.
 
+Then the port's run entry points, each driven with the launch counts set
+to 0 just before it and read just after:
+
+  * ``bench.run`` (``python -m pixel_art_raytracer_tpu_torch.bench``) on
+    graybox at F = 64, 3 repeats, no settle-wait: center frame 0 of both
+    paths' timed output equal to ``cpp_render_frame``, and exactly trace 1
+    + shadow 1 a batch on the two-kernel path and fused 1 on the fused
+    path; its JSON line printed;
+  * ``bench_scale.run`` on config 5 with ``--nonramp``'s atlas (half the
+    boxes with a depth map that varies along a row) at s = 2 and 4: frame 0
+    of both paths equal to ``cpp_render_frame``, ``render`` to its box
+    filter, exact launches, and the three kernels equal to their plain
+    versions on frame 0; its JSON lines printed;
+  * ``make_demo``'s 32-frame sweep (trace 1 + shadow 1): the GIF and the
+    PNG byte-equal to ``docs/graybox_sweep.gif`` and
+    ``docs/graybox_frame.png``.
+
 Then the entry points a user of the renderer meets outside a batch, each
 path driven with the launch counts set to 0 just before it and read just
 after, its kernels held to their plain versions on one batch of its
@@ -147,7 +164,7 @@ import contextlib
 import dataclasses
 import json
 import os
-import subprocess
+import pathlib
 import sys
 import tempfile
 import time
@@ -158,8 +175,11 @@ import torch.distributed as dist
 
 from pixel_art_raytracer_tpu_torch import (DEFAULT_CONFIG, Light,
                                            RenderConfig, SceneBuilder,
+                                           bench, bench_scale,
                                            default_light, demo_world,
-                                           graybox_world, require_cuda)
+                                           graybox_world, make_demo)
+from pixel_art_raytracer_tpu_torch.bench_scale import config5_scene
+from pixel_art_raytracer_tpu_torch.device import card as card_line
 from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import (
     KEY_BINDINGS, AnimationRenderer, scene_with_player)
@@ -226,17 +246,23 @@ DIRECT_SHARE = 0.01
 DIRECTIONAL_KEY_LABEL = "(start bin, light bin) keys"
 
 # BASELINE config 5 (BASELINE.json:11), as tools/bench_scale.py:37-72
-# builds it: a 1024 x 1024 base view, 10,000 boxes, rendered at s = 2 and
-# 4 (2048**2 and 4096**2) in batches of F = 8 (bench_scale's default; a
-# batch of 8 peaks at ~16 GiB at 4096**2, so BASELINE.json's 64 frames
-# would not fit in the H100's 80 GB).  The kernels are held to their plain
-# versions on all frames at s = 2 and on frames 0 and 4 at s = 4: the
-# plain versions take ~7 s a call for 33.5 M pixels.
-CONFIG5 = RenderConfig(view_width=1024, view_height=1024, view_length=320)
-CONFIG5_BOXES = 10_000
-CONFIG5_FRAMES = 8
-CONFIG5_LIGHT = (512, 200, 80)
+# builds it (``bench_scale.config5_scene``): a 1024 x 1024 base view,
+# 10,000 boxes, rendered at s = 2 and 4 (2048**2 and 4096**2) in batches of
+# F = 8 (bench_scale's default; a batch of 8 peaks at ~16 GiB at 4096**2,
+# so BASELINE.json's 64 frames would not fit in the H100's 80 GB).  The
+# kernels are held to their plain versions on all frames at s = 2 and on
+# frames 0 and 4 at s = 4: the plain versions take ~7 s a call for 33.5 M
+# pixels.
+CONFIG5 = bench_scale.CONFIG
+CONFIG5_FRAMES = bench_scale.FRAMES
+CONFIG5_LIGHT = bench_scale.LIGHT
 CONFIG5_CHECKED = {2: list(range(CONFIG5_FRAMES)), 4: [0, 4]}
+# The port's run entry points: ``bench.run`` on graybox at F = 64 with 3
+# repeats and no settle-wait, ``bench_scale.run`` on config 5 with the
+# non-ramp atlas at s = 2 and 4 (3 iterations, F = 8; the kernels held to
+# their plain versions on frame 0), ``make_demo``'s 32-frame sweep.
+BENCH_REPEATS = 3
+BENCH_SCALE_ITERS = 3
 
 # BASELINE config 1 (BASELINE.json configs[0], tests/test_configs.py:
 # 94-121): two reference boxes on a 64 x 64 frame, for the brute renderer.
@@ -447,10 +473,7 @@ def reset_launches() -> None:
     shadow_cuda.directional_launches = 0
 
 
-def read_launches() -> dict[str, int]:
-    return {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches,
-            "shadow_directional": shadow_cuda.directional_launches,
-            "fused": fused_cuda.launches}
+read_launches = bench.launch_counts
 
 
 def drive(label: str, anim, ds, players, lights, want: dict[str, int],
@@ -490,18 +513,6 @@ def timed(fn):
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
-
-
-def config5_scene():
-    """tools/bench_scale.py:56-68: the player at (500, 36, 80), then
-    9,999 boxes of 20**3 at x = 37 i mod 1040, z = 53 i mod 300, y = 20
-    where i mod 7 = 0, else 0, all with the tile-floor sprite."""
-    b = SceneBuilder(config=CONFIG5)
-    b.insert((500, 36, 80), (20, 20, 20))
-    for i in range(CONFIG5_BOXES - 1):
-        b.insert(((i * 37) % 1040, 20 if i % 7 == 0 else 0, (i * 53) % 300),
-                 (20, 20, 20))
-    return b.build()
 
 
 def config5_phase(card: str) -> list[dict]:
@@ -637,6 +648,106 @@ def config5_phase(card: str) -> list[dict]:
         del ds, cache, anim, frames, be, cnt
         torch.cuda.empty_cache()
     return rows
+
+
+def path_launches_are(tag: str, tally: dict, got: dict[str, int]) -> None:
+    """Raise unless each path of a bench's launch ``tally`` (path ->
+    batches and launches, ``bench.on_path``) launched exactly trace 1 +
+    shadow 1 (two-kernel) or fused 1 (fused) a batch, and the launch
+    counts ``got`` of the whole run are the paths' sum."""
+    for path, kinds in (("two_kernel", ("trace", "shadow")),
+                        ("fused", ("fused",))):
+        counts = {k: n for k, n in tally[path].items() if k != "batches"}
+        want = {k: tally[path]["batches"] if k in kinds else 0
+                for k in counts}
+        print(f"{tag}, {path} path: {tally[path]['batches']} batches, "
+              f"launches {counts}")
+        if counts != want:
+            raise RuntimeError(f"{tag}, {path} path: launches {counts}, "
+                               f"expected {want}")
+    total = {k: sum(t[k] for t in tally.values()) for k in got}
+    if total != got:
+        raise RuntimeError(f"{tag}: launches {got} in the run, the paths "
+                           f"count {total}")
+
+
+def bench_phase(card: str, scene) -> None:
+    """``bench.run`` on graybox (F = 64, 3 repeats, no settle-wait), the
+    launch counts set to 0 just before and read just after.  Raises unless
+    center frame 0 of both paths' timed output equals ``cpp_render_frame``
+    and each path launched exactly its kernels once a batch.  Prints the
+    bench's JSON line."""
+    t0 = time.perf_counter()
+    reset_launches()
+    result = bench.run("cuda", scene, DEFAULT_CONFIG, FRAMES, BENCH_REPEATS,
+                       bench.BURSTS, settle_s=0)
+    torch.cuda.synchronize()
+    got = read_launches()
+    if any(result.differing.values()):
+        raise RuntimeError(f"bench: pixels of center frame 0 differing from "
+                           f"cpp_render_frame {result.differing}")
+    path_launches_are("bench", result.summary["launches"], got)
+    print(f"bench: parity on both paths, {time.perf_counter() - t0:.2f} s "
+          f"in all  [{card}]")
+    print(json.dumps(result.summary))
+
+
+def bench_scale_phase(card: str) -> list[dict]:
+    """``bench_scale.run`` on config 5 with the non-ramp atlas (a depth map
+    that varies along a row) at s = 2 and 4, the launch counts set to 0
+    just before and read just after each.  Raises unless frame 0 of both
+    paths equals ``cpp_render_frame`` of the scaled scene, ``render`` its
+    box filter, each path launched exactly its kernels, and each kernel
+    equals its plain version on frame 0.  Prints the bench's JSON lines;
+    returns the kernels' JSON rows."""
+    scene = config5_scene(nonramp=True)
+    rows = []
+    for s in (2, 4):
+        tag = f"config 5 non-ramp, s={s}"
+        t0 = time.perf_counter()
+        reset_launches()
+        result = bench_scale.run("cuda", scene, s, BENCH_SCALE_ITERS,
+                                 CONFIG5_FRAMES)
+        torch.cuda.synchronize()
+        got = read_launches()
+        if any(result.differing.values()):
+            raise RuntimeError(f"{tag}: pixels differing from "
+                               f"cpp_render_frame {result.differing}")
+        path_launches_are(tag, result.summary["launches"], got)
+        print(f"{tag}: frame 0 of both paths == cpp_render_frame, render == "
+              f"its box filter; {time.perf_counter() - t0:.2f} s  [{card}]")
+        print(json.dumps(result.summary))
+        r, ds = result.renderer, result.dscene
+        players, lights = result.players[:1], result.lights[:1]
+        be, cnt = batched.bin_stage(r, result.cache, ds, players)
+        rows += path_kernels(tag, ds, be, cnt, players, lights, r.config,
+                             card, got)
+        del result, r, ds, be, cnt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def make_demo_phase(card: str, scene) -> None:
+    """``make_demo``'s 32-frame graybox sweep (one batch: trace 1 +
+    shadow 1), written into a temporary directory; raises unless the GIF
+    and the PNG are ``docs/``'s byte for byte."""
+    t0 = time.perf_counter()
+    reset_launches()
+    frames = make_demo.render_sweep(scene, DEFAULT_CONFIG, make_demo.FRAMES,
+                                    "cuda")
+    launches_are("make_demo", {"trace": 1, "shadow": 1})
+    with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
+        encoder = make_demo.write_demo(tmp, frames)
+        for name in ("graybox_sweep.gif", "graybox_frame.png"):
+            got = pathlib.Path(tmp, name).read_bytes()
+            want = (make_demo.DOCS / name).read_bytes()
+            if got != want:
+                raise RuntimeError(f"make_demo: {name} ({len(got)} B) "
+                                   f"differs from docs/{name} ({len(want)} "
+                                   f"B)")
+            print(f"make_demo: {name} == docs/{name}, {len(got)} B")
+    print(f"make_demo: {make_demo.FRAMES} frames, {encoder} encoder, "
+          f"{time.perf_counter() - t0:.2f} s  [{card}]")
 
 
 def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
@@ -1557,14 +1668,10 @@ def run_phases(names=("inverse", "parallel")) -> None:
 
 
 def require_card() -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them,
-    printed with the device; raises without a CUDA device."""
-    require_cuda()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-    card = card.splitlines()[0]
+    """The card's name and power limit as ``nvidia-smi`` gives them
+    (``device.card``), printed with the device; raises without a CUDA
+    device."""
+    card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
@@ -2033,19 +2140,25 @@ def main() -> int:
     # -- 14. BASELINE config 5: supersampled at s = 2 and 4 ------------------
     rows += config5_phase(card)
 
-    # -- 15. the brute renderer, the session, the viewer, render_long -------
+    # -- 15. the run entry points: bench, bench_scale --nonramp, make_demo --
+    renderer.fuse_trace_shadow = False
+    rows += bench_scale_phase(card)
+    bench_phase(card, scene)
+    make_demo_phase(card, scene)
+
+    # -- 16. the brute renderer, the session, the viewer, render_long -------
     rows += brute_phase(card, scene, ds, renderer)
     rows += session_phase(card, scene, cfg)
     rows += viewer_phase(card, scene, cfg)
     rows += config2_phase(card)
 
-    # -- 16. the inverse fitter and the sharded paths ------------------------
+    # -- 17. the inverse fitter and the sharded paths ------------------------
     renderer.fuse_trace_shadow = False
     rows += inverse_phase(card, ds, renderer, anim, sweeps["center"])
     rows += parallel_phase(card, scene, ds, renderer, anim, sweeps["center"])
     print(json.dumps({"kernels": rows}))
 
-    # -- 17. result ----------------------------------------------------------
+    # -- 18. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

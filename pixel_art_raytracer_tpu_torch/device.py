@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -22,3 +24,17 @@ def resolve(device=None) -> torch.device:
     (:func:`require_cuda`).  Entry points take ``device=None`` so they run
     on the card unless the caller names another device."""
     return require_cuda() if device is None else torch.device(device)
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them for the
+    first card; raises without a CUDA device.  Every time that a
+    measurement prints stands beside this line: a card may be set below
+    its full power limit, and then runs slower under load."""
+    require_cuda()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return out.splitlines()[0]

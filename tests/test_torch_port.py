@@ -114,7 +114,8 @@ def test_package_sources_never_import_the_jax_package():
         roots = imported_roots(path)
         assert "pixel_art_raytracer_tpu" not in roots, path
         assert "optax" not in roots, path
-    assert {"inverse.py", "mesh.py", "entity_sharded.py"} <= {
+    assert {"inverse.py", "mesh.py", "entity_sharded.py", "bench.py",
+            "bench_scale.py", "make_demo.py"} <= {
         p.name for p in PORT_SOURCES}
     assert "pixel_art_raytracer_tpu_torch" in imported_roots(
         REPO / "chip_smoke.py")
