@@ -7,14 +7,22 @@ Builds the three CUDA kernels from ``pixel_art_raytracer_tpu_torch/csrc``
 (one nvcc per source, in parallel) and the C++ oracle, renders the graybox
 world (480x320, 162,308 boxes) through ``AnimationRenderer.render_states``
 for the three light orbits of ``bench.py`` (F = 64 frames each), once on the
-two-kernel path and once with ``fuse_trace_shadow`` (the fused kernel), and
-fails (exit code != 0) unless:
+two-kernel path (``trace.cu``'s winners, then the winner-input point mode
+of ``shadow.cu``, which derives each pixel's surface and shadow ray from
+its winner and writes the shaded frame) and once with
+``fuse_trace_shadow`` (the fused kernel), and fails (exit code != 0)
+unless:
 
-  * each kernel (trace, shadow, fused) equals its plain PyTorch version bit
-    for bit on the card, on all 64 frames of every orbit (the main paths'
-    shapes);
-  * the trace and shadow launch counters rose during the two-kernel run,
-    and the fused counter during the fused run;
+  * each kernel (trace, the G-buffer and the winner-input point modes of
+    shadow, fused) equals its plain PyTorch version bit for bit on the
+    card, on all 64 frames of every orbit (the main paths' shapes): the
+    winner-input mode's frames equal ``shade.point_frames`` (and the
+    G-buffer chain's frames), its lit mask the march's;
+  * the two-kernel run launched exactly trace 1 + the winner-input mode 1
+    a batch and called none of the G-buffer chain's functions
+    (``materialize_gbuffer``, ``light_geometry``, ``lambert_dot``,
+    ``factor_from_dot``, ``shade_u8``), and the fused counter rose during
+    the fused run;
   * the shadow and fused kernels' list path (one DDA per start bin of a
     tile, csrc/common.cuh march_tile) took pixels on every orbit and on
     both main paths, beside the pixels they marched directly;
@@ -51,12 +59,14 @@ Last, BASELINE config 5 (10,000 boxes on a 1024x1024 base view, as
 sweep of F = 8 frames through ``render_states`` on the renderer of
 ``SupersampledRenderer`` (2048**2 and 4096**2 pixels, bins of 80 and 160
 pixels, walked in row bands by the trace and fused kernels) on both paths.
-It fails unless the launch counts of each batch are exact, the three
-kernels equal their plain versions (all 8 frames at s = 2, frames 0 and 4
-at s = 4), both paths' frames are equal, frame 0 equals
-``cpp_render_frame`` on the scaled scene, and
-``SupersampledRenderer.render`` of frame 0 equals that oracle frame
-box-filtered to 1024x1024.
+It fails unless the launch counts of each batch are exact (trace 1 + the
+winner-input mode 1, or fused 1), the kernels equal their plain versions
+(all 8 frames at s = 2, frames 0 and 4 at s = 4), both paths' frames are
+equal, frame 0 equals ``cpp_render_frame`` on the scaled scene,
+``SupersampledRenderer.render`` of frame 0 (the main path at F = 1)
+equals that oracle frame box-filtered to 1024x1024, and
+``render_with_gbuffer`` of frame 0's state (trace 1 + the G-buffer mode 1)
+equals the oracle frame.
 
 Then the port's run entry points, each driven with the launch counts set
 to 0 just before it and read just after:
@@ -64,15 +74,15 @@ to 0 just before it and read just after:
   * ``bench.run`` (``python -m pixel_art_raytracer_tpu_torch.bench``) on
     graybox at F = 64, 3 repeats, no settle-wait: center frame 0 of both
     paths' timed output equal to ``cpp_render_frame``, and exactly trace 1
-    + shadow 1 a batch on the two-kernel path and fused 1 on the fused
-    path; its JSON line printed;
+    + the winner-input mode 1 a batch on the two-kernel path and fused 1 on
+    the fused path; its JSON line printed;
   * ``bench_scale.run`` on config 5 with ``--nonramp``'s atlas (half the
     boxes with a depth map that varies along a row) at s = 2 and 4: frame 0
     of both paths equal to ``cpp_render_frame``, ``render`` to its box
     filter, exact launches, and the three kernels equal to their plain
     versions on frame 0; its JSON lines printed;
-  * ``make_demo``'s 32-frame sweep (trace 1 + shadow 1): the GIF and the
-    PNG byte-equal to ``docs/graybox_sweep.gif`` and
+  * ``make_demo``'s 32-frame sweep (trace 1 + the winner-input mode 1):
+    the GIF and the PNG byte-equal to ``docs/graybox_sweep.gif`` and
     ``docs/graybox_frame.png``.
 
 Then the entry points a user of the renderer meets outside a batch, each
@@ -98,11 +108,12 @@ inputs:
     frames (trace 1 + shadow 1 a frame), frame 0 held as above; the loop's
     median ms/frame and the render + overlay share;
   * BASELINE config 2 (the 101-box overlap scene at 256x256): a 32-frame
-    light sweep through ``render_long`` in chunks of 8 (trace 4 + shadow
-    4), then again after the last chunk's file is deleted (trace 1 +
-    shadow 1, the same frames), frames 0 and 31 equal to
-    ``cpp_render_frame``, the GIF written by the native encoder; ms/frame
-    and Mrays/s.
+    light sweep through ``render_long`` in chunks of 8 (trace 4 + the
+    winner-input mode 4), then again after the last chunk's file is
+    deleted (trace 1 + the winner-input mode 1, the same frames), frames 0
+    and 31 equal to ``cpp_render_frame``, ``render_with_gbuffer`` of frame
+    0's state equal to frame 0, the GIF written by the native encoder;
+    ms/frame and Mrays/s.
 
 Last, the inverse fitter and the sharded paths (``inverse_phase``,
 ``parallel_phase``):
@@ -151,7 +162,9 @@ its integer operations too, so the bound stays a lower bound).  The
 operations are counted from this run's data by the plain versions: 9
 integer operations per candidate hit test of the trace walk, 23 float
 operations per slab test of the shadow march (each ray tests a bin's boxes
-at its first probe of the bin only, and stops at its first occluder).  It
+at its first probe of the bin only, and stops at its first occluder), and
+for the winner-input mode 29 float operations a pixel besides (its ray,
+dot, factor and colour: ``SHADE_OPS``).  It
 also prints the bounds of two other counts: the walk's depth keys alone,
 15 integer operations per candidate that passes the hit test (what a pixel
 needs at least), and the march's slab tests at every probe, repeats
@@ -228,12 +241,22 @@ DEPTH_KEY_OPS = 15
 # own direction, so their tests order the corners themselves: 23.
 SLAB_OPS = 23
 NEAR_FAR_OPS = 17
+# The float operations of a pixel of the winner-input point mode besides
+# its slab tests (its integer decode of the winner not counted): the ray's
+# 3 subtractions, 3 absolute values, 2 additions and 6 divisions, the
+# Lambert dot's 3 multiplies and 2 additions, the factor's 2 compares, 1
+# addition and 1 select, and the colour's 3 multiplies and 3 truncations.
+SHADE_OPS = 29
 
 SOURCES = {
     "trace": ("pixel_art_raytracer_tpu_torch/csrc/trace.cu",
               "pixel_art_raytracer_tpu/ops/trace_pallas.py:467"),
     "shadow": ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu",
                "pixel_art_raytracer_tpu/ops/shadow_pallas.py:626"),
+    # The winner-input point mode of shadow.cu: the JAX kernel's
+    # winner-direct inputs and shade epilogue.
+    "shadow_shade": ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu",
+                     "pixel_art_raytracer_tpu/ops/shadow_pallas.py:626"),
     "fused": ("pixel_art_raytracer_tpu_torch/csrc/fused.cu",
               "pixel_art_raytracer_tpu/ops/fused_pallas.py:105"),
 }
@@ -357,10 +380,31 @@ def stage_split(stages, reps: int,
     return total
 
 
-def two_kernel_stages(r, cache, ds, players, lights):
-    """The two-kernel path's stages of one batch, as ``(name, fn)`` pairs
-    for :func:`stage_split`: bins (``cache`` or a full rebuild when None),
-    trace + G-buffer, geometry, shadow, shade."""
+def main_path_stages(r, cache, ds, players, lights):
+    """The two-kernel main path's stages of one batch, as ``(name, fn)``
+    pairs for :func:`stage_split`: bins (``cache`` or a full rebuild when
+    None), trace (the winners), shadow + shade (the winner-input point mode
+    of shadow.cu, frames out)."""
+
+    def bins(st):
+        st["be"], st["cnt"] = batched.bin_stage(r, cache, ds, players)
+
+    def winners(st):
+        st["win"] = batched.winner_stage(r, ds, st["be"], st["cnt"], players)
+
+    def shade_frames(st):
+        st["frames"] = batched.shade_point_stage(r, ds, st["be"], st["cnt"],
+                                                 players, st["win"], lights)
+
+    return [("bins", bins), ("trace", winners),
+            ("shadow+shade", shade_frames)]
+
+
+def gbuffer_stages(r, cache, ds, players, lights):
+    """The G-buffer mode's stages of one batch (the main path before the
+    winner-input mode; the other lighting modes' shape), as ``(name, fn)``
+    pairs for :func:`stage_split`: bins, trace + G-buffer, geometry,
+    shadow, shade."""
 
     def bins(st):
         st["be"], st["cnt"] = batched.bin_stage(r, cache, ds, players)
@@ -470,10 +514,37 @@ def directional_unions(c: dict, unions: dict, work: dict) -> None:
 
 def reset_launches() -> None:
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
-    shadow_cuda.directional_launches = 0
+    shadow_cuda.directional_launches = shadow_cuda.shade_launches = 0
 
 
 read_launches = bench.launch_counts
+
+# The G-buffer chain's functions that the main path must not call.
+GLUE = ((trace, "materialize_gbuffer"), (shade, "light_geometry"),
+        (shade, "lambert_dot"), (shade, "factor_from_dot"),
+        (shade, "shade_u8"))
+
+
+@contextlib.contextmanager
+def glue_calls():
+    """Count the calls of the G-buffer chain's functions (``GLUE``) while
+    the block runs; yields the dict of counts, by name."""
+    calls = {name: 0 for _, name in GLUE}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in GLUE]
+
+    def counting(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def drive(label: str, anim, ds, players, lights, want: dict[str, int],
@@ -561,6 +632,8 @@ def config5_phase(card: str) -> list[dict]:
                  trace_cuda.block_threads(cfg)),
                 ("shadow", shadow_cuda.occupancy(cfg),
                  shadow_cuda.march_threads(cfg)),
+                ("shadow_shade", shadow_cuda.shade_occupancy(cfg),
+                 shadow_cuda.march_threads(cfg)),
                 ("fused", fused_cuda.occupancy(cfg),
                  fused_cuda.block_threads(cfg))):
             smem, blocks, regs, local = occ
@@ -572,7 +645,8 @@ def config5_phase(card: str) -> list[dict]:
         # The main path, both settings of fuse_trace_shadow.
         none = dict.fromkeys(read_launches(), 0)
         frames, launches = {}, {}
-        for fuse, want in ((False, {**none, "trace": 1, "shadow": 1}),
+        for fuse, want in ((False,
+                            {**none, "trace": 1, "shadow_shade": 1}),
                            (True, {**none, "fused": 1})):
             r.fuse_trace_shadow = fuse
             label = "fused" if fuse else "two-kernel"
@@ -584,7 +658,8 @@ def config5_phase(card: str) -> list[dict]:
             launches.update({k: n for k, n in got.items() if n})
             c = counters.read()
             list_path(f"{tag} {label} path",
-                      "fused kernel" if fuse else "shadow kernel", c, n_pix)
+                      "fused kernel" if fuse
+                      else "shadow kernel (winner inputs)", c, n_pix)
             print(f"{tag} {label} path: {c['direct_pixels'] / n_pix:.6f} "
                   f"of the pixels marched directly; peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -612,6 +687,7 @@ def config5_phase(card: str) -> list[dict]:
         require_equal(tag, "SupersampledRenderer.render of frame 0 vs the "
                       "box-filtered oracle", small.cpu(),
                       box_filter(torch.from_numpy(golden), s))
+        launches["shadow"] = gbuffer_frame_is(tag, r, ds, lights[0], golden)
         print(f"{tag} frame 0: both paths pixel-exact against "
               f"cpp_render_frame ({oracle_s:.2f} s on the host); "
               f"SupersampledRenderer.render == its box filter "
@@ -639,12 +715,14 @@ def config5_phase(card: str) -> list[dict]:
                   f"{rays / (m * 1e3):.2f} Mrays/s at {W}x{H}  [{card}]")
         r.fuse_trace_shadow = False
 
-        split = stage_split(two_kernel_stages(r, cache, ds, players, lights),
-                            TIMED_REPS, CONFIG5_FRAMES)
-        print(f"{tag} two-kernel stage split, ms/frame at "
-              f"F={CONFIG5_FRAMES}: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-              + f"  [{card}]")
+        for label, stages in (("two-kernel", main_path_stages),
+                              ("G-buffer mode", gbuffer_stages)):
+            split = stage_split(stages(r, cache, ds, players, lights),
+                                TIMED_REPS, CONFIG5_FRAMES)
+            print(f"{tag} {label} stage split, ms/frame at "
+                  f"F={CONFIG5_FRAMES}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f"  [{card}]")
         del ds, cache, anim, frames, be, cnt
         torch.cuda.empty_cache()
     return rows
@@ -655,7 +733,7 @@ def path_launches_are(tag: str, tally: dict, got: dict[str, int]) -> None:
     batches and launches, ``bench.on_path``) launched exactly trace 1 +
     shadow 1 (two-kernel) or fused 1 (fused) a batch, and the launch
     counts ``got`` of the whole run are the paths' sum."""
-    for path, kinds in (("two_kernel", ("trace", "shadow")),
+    for path, kinds in (("two_kernel", ("trace", "shadow_shade")),
                         ("fused", ("fused",))):
         counts = {k: n for k, n in tally[path].items() if k != "batches"}
         want = {k: tally[path]["batches"] if k in kinds else 0
@@ -675,8 +753,9 @@ def bench_phase(card: str, scene) -> None:
     """``bench.run`` on graybox (F = 64, 3 repeats, no settle-wait), the
     launch counts set to 0 just before and read just after.  Raises unless
     center frame 0 of both paths' timed output equals ``cpp_render_frame``
-    and each path launched exactly its kernels once a batch.  Prints the
-    bench's JSON line."""
+    and each path launched exactly its kernels once a batch (trace and
+    the winner-input mode of shadow.cu, or fused).  Prints the bench's JSON
+    line."""
     t0 = time.perf_counter()
     reset_launches()
     result = bench.run("cuda", scene, DEFAULT_CONFIG, FRAMES, BENCH_REPEATS,
@@ -698,7 +777,10 @@ def bench_scale_phase(card: str) -> list[dict]:
     just before and read just after each.  Raises unless frame 0 of both
     paths equals ``cpp_render_frame`` of the scaled scene, ``render`` its
     box filter, each path launched exactly its kernels, and each kernel
-    equals its plain version on frame 0.  Prints the bench's JSON lines;
+    equals its plain version on frame 0.  The G-buffer mode of shadow.cu,
+    which the bench's paths no longer launch, is driven by
+    ``render_with_gbuffer`` on frame 0's state (:func:`gbuffer_frame_is`)
+    and held to its plain version too.  Prints the bench's JSON lines;
     returns the kernels' JSON rows."""
     scene = config5_scene(nonramp=True)
     rows = []
@@ -719,6 +801,8 @@ def bench_scale_phase(card: str) -> list[dict]:
         print(json.dumps(result.summary))
         r, ds = result.renderer, result.dscene
         players, lights = result.players[:1], result.lights[:1]
+        got["shadow"] = gbuffer_frame_is(tag, r, ds, lights[0],
+                                         r.render(ds, lights[0]).cpu())
         be, cnt = batched.bin_stage(r, result.cache, ds, players)
         rows += path_kernels(tag, ds, be, cnt, players, lights, r.config,
                              card, got)
@@ -728,14 +812,14 @@ def bench_scale_phase(card: str) -> list[dict]:
 
 
 def make_demo_phase(card: str, scene) -> None:
-    """``make_demo``'s 32-frame graybox sweep (one batch: trace 1 +
-    shadow 1), written into a temporary directory; raises unless the GIF
-    and the PNG are ``docs/``'s byte for byte."""
+    """``make_demo``'s 32-frame graybox sweep (one batch: trace 1 + the
+    winner-input mode of shadow.cu 1), written into a temporary directory;
+    raises unless the GIF and the PNG are ``docs/``'s byte for byte."""
     t0 = time.perf_counter()
     reset_launches()
     frames = make_demo.render_sweep(scene, DEFAULT_CONFIG, make_demo.FRAMES,
                                     "cuda")
-    launches_are("make_demo", {"trace": 1, "shadow": 1})
+    launches_are("make_demo", {"trace": 1, "shadow_shade": 1})
     with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
         encoder = make_demo.write_demo(tmp, frames)
         for name in ("graybox_sweep.gif", "graybox_frame.png"):
@@ -748,6 +832,22 @@ def make_demo_phase(card: str, scene) -> None:
             print(f"make_demo: {name} == docs/{name}, {len(got)} B")
     print(f"make_demo: {make_demo.FRAMES} frames, {encoder} encoder, "
           f"{time.perf_counter() - t0:.2f} s  [{card}]")
+
+
+def gbuffer_frame_is(tag: str, r, ds, light, want) -> int:
+    """``r.render_with_gbuffer`` of the player where ``ds`` puts it under
+    ``light``, the launch counts set to 0 just before and read just after:
+    raises unless it launched trace 1 + the G-buffer mode of shadow.cu 1
+    and its frame equals ``want`` (H, W, 3) (an array or a tensor).
+    Returns the G-buffer mode's launches (1), for its kernel row on the
+    path ``tag``."""
+    reset_launches()
+    _, frame = r.render_with_gbuffer(ds, light)
+    got = launches_are(f"{tag}, render_with_gbuffer (G-buffer mode)",
+                       {"trace": 1, "shadow": 1})
+    require_equal(tag, "render_with_gbuffer frame", frame.cpu(),
+                  torch.as_tensor(want))
+    return got["shadow"]
 
 
 def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
@@ -771,7 +871,7 @@ def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
         gbuf = trace.materialize_gbuffer(
             win_p, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
             ds.atlas_depth, ds.atlas_normal, ds.palette, players, cfg)
-        if launches["trace"]:
+        if launches.get("trace"):
             best_k, win_k = trace_cuda.trace_winners(*args, with_best=True)
             require_equal(tag, "trace kernel winner", win_k, win_p)
             require_equal(tag, "trace kernel best", best_k, best_p)
@@ -787,7 +887,7 @@ def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
     lit_p, ms["shadow_plain"] = timed(
         lambda: shadow.trace_light_dynamic(*sargs, work=work))
     shadow_ops = SLAB_OPS * int(work["slab_tests"])
-    if launches["shadow"]:
+    if launches.get("shadow"):
         shadow_cuda.counters.reset()
         lit_k = shadow_cuda.trace_light(*sargs)
         stats["shadow"] = shadow_cuda.counters.read()
@@ -801,7 +901,28 @@ def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
             entity_bytes(be, cnt, ds.pos, ds.ext)
             + nbytes(players, be, cnt, *rb, *origin, *inv,
                      gbuf.entity_index, light_bin, lit_k), shadow_ops)
-    if launches["fused"]:
+    if launches.get("shadow_shade"):
+        wargs = (win_p, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+                 ds.atlas_depth, ds.atlas_normal, ds.palette, be, cnt,
+                 players, lights, cfg)
+        frames_p, ms["shadow_shade_plain"] = timed(
+            lambda: shade.point_frames(*wargs))
+        shadow_cuda.counters.reset()
+        frames_k = shadow_cuda.shade_point(*wargs)
+        stats["shadow_shade"] = shadow_cuda.counters.read()
+        lit_w = shadow_cuda.shade_point(*wargs, frames=False)
+        require_equal(tag, "winner-input kernel frames", frames_k, frames_p)
+        require_equal(tag, "winner-input kernel lit", lit_w, lit_p)
+        errs["shadow_shade"] = max(max_abs_err(frames_k, frames_p),
+                                   max_abs_err(lit_w, lit_p))
+        ms["shadow_shade"] = cuda_ms(lambda: shadow_cuda.shade_point(*wargs),
+                                     KERNEL_REPS)
+        bounds["shadow_shade"] = (
+            rows_b + nbytes(players, lights, be, cnt, win_p, ds.atlas_depth,
+                            ds.atlas_color, ds.atlas_normal, ds.palette,
+                            frames_k),
+            shadow_ops + SHADE_OPS * win_p.numel())
+    if launches.get("fused"):
         fargs = args[:-1] + (lights, cfg)
         (best_f, win_f, lit_f), ms["fused_plain"] = timed(
             lambda: fused.trace_shadow(*fargs))
@@ -836,7 +957,7 @@ def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
               f"visit list {c['max_list']} bins")
     rows = []
     for k, (src, rep) in SOURCES.items():
-        if not launches[k]:
+        if not launches.get(k):
             continue
         bound_ms, bound_by = bound(*bounds[k])
         print(f"{tag} {k} kernel == plain version, bit-exact; {ms[k]:.4f} "
@@ -1112,7 +1233,7 @@ def viewer_phase(card: str, scene, cfg) -> list[dict]:
     lights = v.state.light.to(players.device)[None]
     # The live frame's split: the batched stages at F = 1 with a full rebin
     # and the frame's fetch (CUDA events between them), then the blit.
-    stages = two_kernel_stages(v.renderer, None, ds_f, players, lights)
+    stages = gbuffer_stages(v.renderer, None, ds_f, players, lights)
     stages.append(("fetch", lambda st: st["frames"].cpu()))
     split = stage_split(stages, TIMED_REPS, frames=1)
     image = v.render_current()
@@ -1147,10 +1268,12 @@ def config2_phase(card: str) -> list[dict]:
     """BASELINE config 2: the 101-box overlap scene at 256 x 256, a
     32-frame light sweep through ``render_long`` in chunks of 8 into a
     checkpoint directory, then again after its last chunk is deleted.
-    Raises unless the first run launches trace 4 + shadow 4 and the
-    second trace 1 + shadow 1, the two runs' frames are equal, frames 0
-    and 31 equal ``cpp_render_frame`` and the GIF is written by the native
-    encoder.  Prints ms/frame and Mrays/s.  Returns the kernels' rows."""
+    Raises unless the first run launches trace 4 + shadow 4 (the
+    winner-input mode of shadow.cu) and the second trace 1 + shadow 1, the
+    two runs' frames are equal, frames 0 and 31 equal ``cpp_render_frame``,
+    ``render_with_gbuffer`` of frame 0's state (the G-buffer mode) equals
+    frame 0 and the GIF is written by the native encoder.  Prints ms/frame
+    and Mrays/s.  Returns the kernels' rows."""
     cfg = CONFIG2
     scene = overlap_scene(cfg, n_side=10)
     r = DeferredRenderer(cfg).configure_for(scene)
@@ -1164,12 +1287,12 @@ def config2_phase(card: str) -> list[dict]:
         frames = anim.render_long(ds, players, lights, tmp, CONFIG2_CHUNK)
         seconds = time.perf_counter() - t0
         launches = launches_are("config 2, render_long",
-                                {"trace": chunks, "shadow": chunks})
+                                {"trace": chunks, "shadow_shade": chunks})
         os.remove(os.path.join(tmp, f"chunk_{chunks - 1:05d}.npz"))
         reset_launches()
         again = anim.render_long(ds, players, lights, tmp, CONFIG2_CHUNK)
         launches_are("config 2, render_long after its last chunk was "
-                     "deleted", {"trace": 1, "shadow": 1})
+                     "deleted", {"trace": 1, "shadow_shade": 1})
         if not np.array_equal(again, frames):
             raise RuntimeError("config 2: the resumed render's frames differ")
         path = os.path.join(tmp, "config2.gif")
@@ -1184,6 +1307,8 @@ def config2_phase(card: str) -> list[dict]:
                                  lights[f].tolist(), cfg)
         require_equal("config 2", f"frame {f} vs cpp_render_frame",
                       torch.from_numpy(frames[f]), torch.from_numpy(golden))
+    launches = {**launches, "shadow": gbuffer_frame_is(
+        "config 2", r, ds, lights[0], torch.from_numpy(frames[0]))}
     stats = RenderStats(CONFIG2_FRAMES, H, W, seconds)
     batch_ms = cuda_ms(lambda: anim.render_states(
         ds, players[:CONFIG2_CHUNK], lights[:CONFIG2_CHUNK]), TIMED_REPS)
@@ -1718,6 +1843,8 @@ def main() -> int:
              trace_cuda.block_threads(cfg)),
             ("shadow", shadow_cuda.occupancy(cfg),
              shadow_cuda.march_threads(cfg)),
+            ("shadow_shade", shadow_cuda.shade_occupancy(cfg),
+             shadow_cuda.march_threads(cfg)),
             ("fused", fused_cuda.occupancy(cfg),
              fused_cuda.block_threads(cfg))):
         smem, blocks, regs, local = occ
@@ -1816,8 +1943,41 @@ def main() -> int:
             entity_bytes(be, cnt, ds.pos, ds.ext)
             + nbytes(players, be, cnt, *rb, *origin, *inv,
                      gbuf.entity_index, light_bin, lit_k), shadow_ops))
+
+        # Kernel 2's winner-input point mode, on kernel 1's winners: the
+        # frames against the plain chain, the lit mask against the march's.
+        wargs = (win_k, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+                 ds.atlas_depth, ds.atlas_normal, ds.palette, be, cnt,
+                 players, lights, cfg)
+        shadow_cuda.counters.reset()
+        frames_k = shadow_cuda.shade_point(*wargs)
+        list_path(name, "shadow kernel (winner inputs)",
+                  shadow_cuda.counters.read(), n_pix, longest)
+        frames_p = shade.point_frames(*wargs)
+        require_equal(name, "winner-input kernel frames", frames_k, frames_p)
+        require_equal(name, "point_frames vs the G-buffer chain's frames",
+                      frames_p, batched.shade_stage(
+                          renderer, ds, gbuf, shade.factor_from_dot(
+                              batched.geometry_stage(renderer, gbuf,
+                                                     lights)[0],
+                              lit_s, cfg)))
+        lit_w = shadow_cuda.shade_point(*wargs, frames=False)
+        require_equal(name, "winner-input kernel lit", lit_w, lit_s)
+        errs["shadow_shade"] = max(errs["shadow_shade"],
+                                   max_abs_err(frames_k, frames_p),
+                                   max_abs_err(lit_w, lit_s))
+        times["shadow_shade"].append(cuda_ms(
+            lambda: shadow_cuda.shade_point(*wargs), KERNEL_REPS))
+        times["shadow_shade_plain"].append(cuda_ms(
+            lambda: shade.point_frames(*wargs), PLAIN_REPS, warm_up=False))
+        bounds["shadow_shade"].append((
+            rows_b + nbytes(players, lights, be, cnt, win_k, ds.atlas_depth,
+                            ds.atlas_color, ds.atlas_normal, ds.palette,
+                            frames_k),
+            shadow_ops + SHADE_OPS * n_pix))
         print(f"{name}: F={FRAMES} kernels == plain versions (trace winners "
-              f"and best depth, shadow lit mask, fused winners, best depth "
+              f"and best depth, shadow lit mask, winner-input frames and lit "
+              f"mask, fused winners, best depth "
               f"and lit mask), bit-exact; {int(work['candidate_tests'])} "
               f"candidate tests, {int(work['candidate_hits'])} candidate "
               f"hits, {int(work['slab_tests'])} slab tests needed "
@@ -1827,17 +1987,18 @@ def main() -> int:
     # -- 5. the two-kernel main path -----------------------------------------
     reset_launches()
     shadow_cuda.counters.reset()
-    frames = {name: anim.render_states(ds, players, lights)
-              for name, (players, lights) in sweeps.items()}
-    torch.cuda.synchronize()
-    launches = {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches}
-    print(f"two-kernel path launches: {launches}")
-    for k, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"the two-kernel path never launched the {k} "
-                               f"kernel")
-    list_path("two-kernel path", "shadow kernel",
-              shadow_cuda.counters.read(), launches["shadow"] * n_pix)
+    with glue_calls() as glue:
+        frames = {name: anim.render_states(ds, players, lights)
+                  for name, (players, lights) in sweeps.items()}
+    launches = launches_are("two-kernel path, 3 batches",
+                            {"trace": len(sweeps),
+                             "shadow_shade": len(sweeps)})
+    print(f"two-kernel path: G-buffer and light-geometry calls {glue}")
+    if any(glue.values()):
+        raise RuntimeError(f"the two-kernel path called the G-buffer chain: "
+                           f"{glue}")
+    list_path("two-kernel path", "shadow kernel (winner inputs)",
+              shadow_cuda.counters.read(), launches["shadow_shade"] * n_pix)
 
     # -- 6. the fused main path ----------------------------------------------
     renderer.fuse_trace_shadow = True
@@ -1874,7 +2035,7 @@ def main() -> int:
 
     players, lights = sweeps["center"]
 
-    two_kernel = two_kernel_stages(renderer, cache, ds, players, lights)
+    two_kernel = gbuffer_stages(renderer, cache, ds, players, lights)
 
     def fused_kernel(s):
         _, s["win"], s["lit"] = fused_cuda.trace_shadow(
@@ -1888,7 +2049,9 @@ def main() -> int:
         s["dot"] = batched.geometry_stage(renderer, s["gbuf"], lights)[0]
 
     for label, stages in (
-            ("two-kernel", two_kernel),
+            ("two-kernel", main_path_stages(renderer, cache, ds, players,
+                                            lights)),
+            ("G-buffer mode", two_kernel),
             ("fused", [two_kernel[0], ("fused", fused_kernel),
                        ("gbuffer+geometry", gbuf_geometry), two_kernel[-1]])):
         split = ", ".join(f"{k} {v:.4f}"
@@ -2001,6 +2164,9 @@ def main() -> int:
                           shadow_cuda.counters.read(), n_pix,
                           keys=DIRECTIONAL_KEY_LABEL)
     mode_launches = counts["directional, two-kernel setting"]
+    # The G-buffer point mode's launches: the multi-light path's, one a
+    # light (the main path takes the winner-input mode).
+    launches["shadow"] = counts["multi-light, two-kernel setting"]["shadow"]
     for label in ("multi-light", "directional", "dithered point",
                   "dithered directional"):
         require_equal(label, "fused-setting frames vs two-kernel frames",
@@ -2134,7 +2300,9 @@ def main() -> int:
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None})
     print(f"fused kernel {mean['fused']:.4f} ms vs trace + shadow kernels "
-          f"{mean['trace'] + mean['shadow']:.4f} ms per F={FRAMES} call  "
+          f"{mean['trace'] + mean['shadow']:.4f} ms (G-buffer mode), "
+          f"{mean['trace'] + mean['shadow_shade']:.4f} ms (winner inputs) "
+          f"per F={FRAMES} call  "
           f"[{card}]")
 
     # -- 14. BASELINE config 5: supersampled at s = 2 and 4 ------------------

@@ -26,8 +26,8 @@ shadow ray.
   two CUDA events over 16, the single-batch time the same for one batch.
   Each is taken ``--repeats`` times (default 5) per orbit; an orbit's
   figure is its best run, the headline the median orbit.
-* **Both paths.**  The two-kernel path (``trace.cu`` + ``shadow.cu``)
-  gives the headline; the fused path (``fuse_trace_shadow``, ``fused.cu``)
+* **Both paths.**  The two-kernel path (``trace.cu`` + the winner-input
+  point mode of ``shadow.cu``, which shades the frames) gives the headline; the fused path (``fuse_trace_shadow``, ``fused.cu``)
   the same figures under ``fused``.
 * **Parity.**  Frame 0 of the center orbit, from each path's own timed
   output, must equal ``cpp_render_frame`` of the same state.  Otherwise the
@@ -140,9 +140,10 @@ def measure_cpp_baseline(scene: Scene, config: RenderConfig,
 
 
 def launch_counts() -> dict[str, int]:
-    """Every kernel wrapper's launch count (``launches`` of
+    """Every kernel wrapper's launch count (the ``*launches`` counters of
     ``ops/*_cuda``)."""
     return {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches,
+            "shadow_shade": shadow_cuda.shade_launches,
             "shadow_directional": shadow_cuda.directional_launches,
             "fused": fused_cuda.launches}
 

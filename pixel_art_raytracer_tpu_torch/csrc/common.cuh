@@ -717,11 +717,23 @@ __device__ __forceinline__ int pick(const int (&off)[kKeys + 1], int k) {
   return r;
 }
 
-// The lit mask of band b of frame f (a whole tile or some of its rows),
-// written to lit_out (F, g.rows, W) at g.pixel() for every pixel in the
-// view.  The band's pixels are q = 0..b.rows*bs-1 at column
-// i = b.i0(g) + q % bs and row j = b.j0(g) + q / bs; key_of(q, i, j)
-// gives pixel q's key (Table::Key) and ray_of(q, i, j) its Ray.
+// march_tile's store of a lit mask: lit (F, g.rows, W) uint8, 1 where the
+// light is reachable, at g.pixel().
+struct LitStore {
+  unsigned char* lit;
+  const Grid& g;
+  int f;
+  __device__ void operator()(int, int i, int j, bool is_lit) const {
+    lit[g.pixel(f, i, j)] = is_lit ? 1 : 0;
+  }
+};
+
+// The lit bit of every pixel in the view of band b of frame f (a whole
+// tile or some of its rows), handed to store(q, i, j, lit) once a pixel.
+// The band's pixels are q = 0..b.rows*bs-1 at column i = b.i0(g) + q % bs
+// and row j = b.j0(g) + q / bs; key_of(q, i, j) gives pixel q's key
+// (Table::Key) and ray_of(q, i, j) its Ray.  LitStore writes the lit mask;
+// shadow.cu's winner-input mode shades the pixel there instead.
 // frame_light is the frame's light bin and max_steps the step cap
 // (kNoStepCap for none).  All threads of the block call it; blockDim.x is
 // a multiple of 32 and at most kMarchThreads.
@@ -740,19 +752,19 @@ __device__ __forceinline__ int pick(const int (&off)[kKeys + 1], int k) {
 //    occluded tests the staged entries of its own list in order, skipping
 //    its own entity and stopping at its first hit.
 // 4. Leftover pixels march on their own (march_occluded, tables in global
-//    memory), and every pixel's lit bit is written.
+//    memory), and every pixel's lit bit is stored.
 //
 // Exact: a ray's probed bins depend only on (start bin, light bin, step
 // cap), which its key and the launch fix, and its occlusion is an OR over
 // them of a test of the ray and a box, which ignores order and repeats.
 // So any set of pixels marches exactly, a band as well as a tile; the
 // counters' "tile" is the band.
-template <class Table, class KeyFn, class RayFn>
+template <class Table, class KeyFn, class RayFn, class StoreFn>
 __device__ void march_tile(const int* pos, const int* ext, const int* players,
                            const int* bins_ent, const int* counts, int f,
                            const Grid& g, const Band& b, int3 frame_light,
                            int max_steps, const MarchSmem<Table>& s,
-                           KeyFn key_of, RayFn ray_of, unsigned char* lit_out,
+                           KeyFn key_of, RayFn ray_of, StoreFn store,
                            int* stats) {
   constexpr int kKeys = Table::kKeys;
   constexpr int kKeyInts = Table::kKeyInts;
@@ -916,7 +928,7 @@ __device__ void march_tile(const int* pos, const int* ext, const int* players,
                                 ray_of(p.q, i, j), frame_light, max_steps);
       ++direct;
     }
-    lit_out[g.pixel(f, i, j)] = occluded ? 0 : 1;
+    store(p.q, i, j, !occluded);
   }
   if (direct > 0) atomicAdd(stats + kStatDirect, direct);
   if (tid == 0) {

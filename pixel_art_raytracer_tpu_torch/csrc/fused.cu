@@ -172,7 +172,8 @@ fused_trace_shadow_kernel(
   };
   par::march_tile(pos, ext, players, bins_ent, counts, f, g, b,
                   make_int3(lx / bs, (g.view_h - ly - lz) / bs, lz / bs),
-                  par::kNoStepCap, s, key_of, ray_of, lit_out, stats);
+                  par::kNoStepCap, s, key_of, ray_of,
+                  par::LitStore{lit_out, g, f}, stats);
 }
 
 size_t fused_smem(const par::Grid& g) {

@@ -23,6 +23,19 @@
 // covers a window of whole bin rows of the view (all of them, or a row
 // shard's, parallel/mesh.py), with per-pixel arrays of the window's rows.
 //
+// Winner-input point mode (par_shadow_shade): the JAX kernel's winner-direct
+// inputs and its shade epilogue (shadow_pallas.py:766-790, 1140-1216).  It
+// reads trace.cu's winners instead of ten per-pixel ray buffers and derives
+// each pixel's surface point (ops/trace.py::decode_winner), start bin,
+// origin and reciprocal direction (ops/shade.py::light_geometry) in
+// registers, as fused.cu does; the march is the point mode's, uncapped,
+// over the whole view.  Where a frame is asked for, march_tile's store
+// shades the pixel (the Lambert dot, the ambient + Lambert factor and the
+// truncated u8 colour of ops/shade.py, in its op order) and writes RGB;
+// otherwise it writes the lit mask.  No G-buffer, light geometry, lit mask
+// or dot reaches device memory.  Its plain version is
+// ops/shade.py::point_frames.
+//
 // Directional mode (par_shadow_dir_lit): the march of the JAX package's
 // shade_directional, i.e. trace_light_dynamic with the per-pixel light bins
 // of ops/shadow_dir.py::pixel_light_bins and the step cap max_steps
@@ -35,8 +48,9 @@
 // from the frame's offsets K, C's truncating `/` throughout.
 //
 // What bounds it on the H100: in point mode the bytes, 41 B of ray inputs
-// and 1 B of output a pixel; in directional mode the slab tests the rays
-// need (13 B a pixel; ~190 M tests of 23 operations on chip_smoke.py's
+// and 1 B of output a pixel; in the winner-input mode 4 B of winner and
+// 3 B of frame a pixel, so the slab tests may bound it instead; in
+// directional mode the slab tests the rays need (13 B a pixel; ~190 M tests of 23 operations on chip_smoke.py's
 // sweep of 64 graybox frames).  It runs at several times its bound.
 // Marched per pixel, as the reference does,
 // each ray ran ~48 DDA phases, probed the same bins again and again (14-31
@@ -120,6 +134,58 @@ struct PixelRays {
   const float* ivz;
   const int* self;
 };
+
+// Inputs of the winner-input point mode: trace.cu's winners, the atlas and
+// palette the surface and the shade read, each frame's light, and the
+// shade's constants.
+struct WinnerPixels {
+  const int* winner;           // (F, H, W) winner entity, -1 background
+  const int* sprite_id;        // (N,)
+  const int* atlas_depth;      // (S, SH, SW)
+  const int* atlas_color;      // (S, SH, SW) palette index
+  const float* atlas_normal;   // (S, SH, SW, 3)
+  const unsigned char* palette;  // (P, 4) RGBA
+  const int* lights;           // (F, 3) the point light of each frame
+  int sprite_w, sprite_h;
+  int bg_r, bg_g, bg_b;        // the background colour
+  float ambient;
+};
+
+// A pixel's surface as ops/trace.py::decode_winner gives it: the world y
+// and z of the winner's hit, the entity and its clipped atlas texel;
+// background (winner -1) takes y = z = entity = 0 (quirk Q6).
+struct Surface {
+  int y, z, ent, texel;
+  bool hit;
+};
+
+__device__ __forceinline__ Surface decode_winner(
+    const int* pos, const int* ext, const int* players,
+    const WinnerPixels& px, const par::Grid& g, int f, int i, int j) {
+  const int w = px.winner[g.pixel(f, i, j)];
+  const bool hit = w >= 0;
+  const int ent = hit ? w : 0;
+  const int* p = par::entity_pos(pos, players, f, ent);
+  const int* x = ext + 3 * static_cast<size_t>(ent);
+  const int row = p[1] + x[1] + p[2] + x[2] - (g.view_h - j);
+  const int texel = par::texel_at(px.sprite_id[ent] * px.sprite_h, row,
+                                  i - p[0], px.sprite_w, px.sprite_h);
+  const int sdep = px.atlas_depth[texel];
+  return Surface{hit ? p[1] + x[1] + x[2] - row - sdep : 0,
+                 hit ? p[2] + sdep : 0, ent, texel, hit};
+}
+
+// The towards-light direction of ops/shade.py::light_geometry from origin
+// (i, y, z) to light l: d / length with length = (|dx| + |dy|) + |dz|,
+// IEEE divisions (NaN for a light on the surface point).
+__device__ __forceinline__ float3 towards_light(int i, int y, int z,
+                                                int3 l) {
+  const float dx = static_cast<float>(l.x) - static_cast<float>(i);
+  const float dy = static_cast<float>(l.y) - static_cast<float>(y);
+  const float dz = static_cast<float>(l.z) - static_cast<float>(z);
+  const float length = fabsf(dx) + fabsf(dy) + fabsf(dz);
+  return make_float3(dx / length, dy / length, dz / length);
+}
 
 // Per-pixel inputs of the directional mode, each (F, H, W) int32: the
 // G-buffer's surface point y, z and the pixel's own entity.
@@ -343,7 +409,90 @@ shadow_lit_kernel(
   par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
                   make_int3(light_bin[3 * f], light_bin[3 * f + 1],
                             light_bin[3 * f + 2]),
-                  max_steps, s, key_of, ray_of, lit, stats);
+                  max_steps, s, key_of, ray_of, par::LitStore{lit, g, f},
+                  stats);
+}
+
+// The winner-input point mode: the lit mask, or with rgb the shaded frame,
+// of bin-column tile blockIdx.x of frame blockIdx.y, from trace.cu's
+// winners.  Each pixel's surface, start bin and ray are derived in
+// registers where march_tile asks for them, and the store shades the pixel
+// in the op order of ops/shade.py.  One of lit and rgb is null.  All
+// threads of the block take part; blockDim.x is a multiple of 32 and at
+// most kMarchThreads.
+__global__ void __launch_bounds__(par::kMarchThreads,
+                                  par::kMarchBlocksPerSM)
+shadow_shade_kernel(
+    const int* __restrict__ pos, const int* __restrict__ ext,
+    const int* __restrict__ players, const int* __restrict__ bins_ent,
+    const int* __restrict__ counts, WinnerPixels px,
+    unsigned char* __restrict__ lit, unsigned char* __restrict__ rgb,
+    int* __restrict__ stats, par::Grid g) {
+  extern __shared__ __align__(16) int smem[];
+  const int bs = g.bin_size;
+  const par::MarchSmem<par::PointTable> s(smem, g, bs * bs,
+                                          par::kNoStepCap);
+
+  const int f = blockIdx.y;
+  const par::Band tile = par::Band::tile(g, blockIdx.x);
+  const int bin_x = tile.bin_x;  // i / bs of every pixel of the tile
+  const int3 light = make_int3(px.lights[3 * f], px.lights[3 * f + 1],
+                               px.lights[3 * f + 2]);
+  auto surface = [&](int i, int j) {
+    return decode_winner(pos, ext, players, px, g, f, i, j);
+  };
+  // The start bin (i / bs, (view_h - y - z) / bs, z / bs), C's `/`.
+  auto key_of = [&](int, int i, int j) {
+    const Surface sf = surface(i, j);
+    return par::PointTable::Key{
+        {bin_x, (g.view_h - sf.y - sf.z) / bs, sf.z / bs}};
+  };
+  // Origin (i, y, z) and inv = 1 / (d / length): two roundings.
+  auto ray_of = [&](int, int i, int j) {
+    const Surface sf = surface(i, j);
+    const float3 tl = towards_light(i, sf.y, sf.z, light);
+    return par::Ray{bin_x,
+                    (g.view_h - sf.y - sf.z) / bs,
+                    sf.z / bs,
+                    static_cast<float>(i),
+                    static_cast<float>(sf.y),
+                    static_cast<float>(sf.z),
+                    1.0f / tl.x,
+                    1.0f / tl.y,
+                    1.0f / tl.z,
+                    sf.ent};
+  };
+  // ops/shade.py: lambert_dot, factor_from_dot (std::min/std::max as
+  // ternaries, so a NaN dot gives a diffuse of 0), shade_u8.
+  auto shade = [&](int, int i, int j, bool is_lit) {
+    const size_t o = g.pixel(f, i, j);
+    if (rgb == nullptr) {
+      lit[o] = is_lit ? 1 : 0;
+      return;
+    }
+    const Surface sf = surface(i, j);
+    const float3 tl = towards_light(i, sf.y, sf.z, light);
+    const float* n = px.atlas_normal + 3 * static_cast<size_t>(sf.texel);
+    const float n0 = sf.hit ? n[0] : 0.0f;
+    const float n1 = sf.hit ? n[1] : 0.0f;
+    const float n2 = sf.hit ? n[2] : 0.0f;
+    const float dot = n0 * tl.x + n1 * tl.y + n2 * tl.z;
+    const float diffuse = 0.0f < dot ? dot : 0.0f;
+    const float bright = diffuse + px.ambient;
+    const float factor = is_lit ? (bright < 1.0f ? bright : 1.0f)
+                                : px.ambient;
+    const unsigned char* c = px.palette + 4 * px.atlas_color[sf.texel];
+    const int col[3] = {sf.hit ? c[0] : px.bg_r, sf.hit ? c[1] : px.bg_g,
+                        sf.hit ? c[2] : px.bg_b};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      rgb[3 * o + a] = static_cast<unsigned char>(
+          static_cast<int>(static_cast<float>(col[a]) * factor));
+  };
+  par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
+                  make_int3(light.x / bs, (g.view_h - light.y - light.z) / bs,
+                            light.z / bs),
+                  par::kNoStepCap, s, key_of, ray_of, shade, stats);
 }
 
 // The lit mask of bin-column tile blockIdx.x of frame blockIdx.y under a
@@ -753,6 +902,51 @@ extern "C" int par_shadow_lit(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The winner-input point mode over the whole view.  winner (F, H, W)
+// int32 (trace.cu's, -1 background); sprite_id (N,), atlas_depth and
+// atlas_color (S, SH, SW) int32, atlas_normal (S, SH, SW, 3) float32,
+// palette (P, 4) uint8, lights (F, 3) int32; the tables, players and stats
+// as for par_shadow_lit; background bg_* and ambient as in RenderConfig.
+// Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
+// else lit (F, H, W) uint8 (0/1).  One block of `threads` per (frame, bin
+// column).  Returns cudaGetLastError().
+extern "C" int par_shadow_shade(
+    const void* pos, const void* ext, const void* players,
+    const void* bins_ent, const void* counts, const void* winner,
+    const void* sprite_id, const void* atlas_depth, const void* atlas_color,
+    const void* atlas_normal, const void* palette, const void* lights,
+    void* lit, void* rgb, void* stats, int n_frames, int view_w, int view_h,
+    int bin_size, int bin_cap, int hash_w, int hash_h, int hash_l,
+    int sprite_w, int sprite_h, int bg_r, int bg_g, int bg_b, float ambient,
+    int threads, void* stream) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  const size_t smem = shadow_smem(g, par::kNoStepCap);
+  const int rc = allow_smem(shadow_shade_kernel, smem);
+  if (rc != 0) return rc;
+  const WinnerPixels px{static_cast<const int*>(winner),
+                        static_cast<const int*>(sprite_id),
+                        static_cast<const int*>(atlas_depth),
+                        static_cast<const int*>(atlas_color),
+                        static_cast<const float*>(atlas_normal),
+                        static_cast<const unsigned char*>(palette),
+                        static_cast<const int*>(lights),
+                        sprite_w,
+                        sprite_h,
+                        bg_r,
+                        bg_g,
+                        bg_b,
+                        ambient};
+  const dim3 grid(hash_w * hash_h, n_frames);
+  shadow_shade_kernel<<<grid, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(pos), static_cast<const int*>(ext),
+      static_cast<const int*>(players), static_cast<const int*>(bins_ent),
+      static_cast<const int*>(counts), px, static_cast<unsigned char*>(lit),
+      static_cast<unsigned char*>(rgb), static_cast<int*>(stats), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The directional mode.  lit (F, H, W) uint8 (0/1); y, z, start_ent
 // (F, H, W) int32 (the G-buffer's surface point and entity); inv (F, 3)
 // float32 the reciprocal direction and offsets (F, 3) int32 the far-light
@@ -807,6 +1001,17 @@ extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
   return occupancy(shadow_lit_kernel, shadow_smem(g, par::kNoStepCap),
+                   threads, out);
+}
+
+// The same for the winner-input point mode.
+extern "C" int par_shadow_shade_occupancy(int view_w, int view_h,
+                                          int bin_size, int bin_cap,
+                                          int hash_w, int hash_h, int hash_l,
+                                          int threads, int* out) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  return occupancy(shadow_shade_kernel, shadow_smem(g, par::kNoStepCap),
                    threads, out);
 }
 

@@ -1,12 +1,32 @@
 """Whole-batch renderer: the stages of a frame, each over all F frames.
 
 Counterpart of ``pixel_art_raytracer_tpu/models/batched.py::
-render_states_batched``.  A point light per frame runs
+render_states_batched``.  A point light per frame in ``style="reference"``
+(the main path) runs
 
   1. bins     — ``StaticBins.merge`` of the player into every frame's
                 tables (or a full rebuild per frame without a cache),
-  2. trace    — kernel 1 → per-pixel winners (F, H, W) →
-                ``materialize_gbuffer``,
+  2. trace    — kernel 1 → per-pixel winners (F, H, W),
+  3. shade    — kernel 2's winner-input point mode: each pixel's surface
+                point and shadow ray derived from its winner, the march,
+                and the ambient + Lambert shade of the palette colour, in
+                the kernel → (F, H, W, 3) uint8 (:func:`shade_point_stage`),
+
+as the JAX package's batched path does by default with its winner-direct
+shadow inputs (``models/batched.py:133-141`` there) and, here, its shade
+epilogue (``shadow_pallas.py:1140-1216``): no G-buffer, ray buffer, lit
+mask or dot reaches device memory.
+
+The other requests keep the G-buffer, each by the JAX package's own path
+choice: the callers that hand the G-buffer back (``gbuffer_and_frames``:
+``DeferredRenderer.render_with_gbuffer``, hence the session, the viewer and
+single frames) and the row windows of ``parallel/mesh.py``, the
+directional mode (the JAX winner mode excludes it), additive multi-light
+and the dithered style (the JAX shade epilogue excludes both: they need
+per-light lit masks or re-quantise), and the fused opt-in (the JAX fused
+kernel has no shade epilogue).  Their point lights run
+
+  2. trace    — kernel 1 → winners → ``materialize_gbuffer``,
   3. geometry — ``light_geometry`` and the Lambert dot,
   4. shadow   — kernel 2 → lit mask (F, H, W),
   5. shade    — the ambient + Lambert factor, then the u8 scale of the
@@ -93,17 +113,33 @@ def bin_stage(renderer, static_bins, dscene, players):
             torch.stack([c for _, c in tables]))
 
 
+def winner_stage(renderer, dscene, bins_ent, counts, players, rows=None):
+    """Primary visibility: the winners (F, H, W) int32 (-1 background) of
+    the view or of the window ``rows``."""
+    return trace_cuda.trace_winners(
+        dscene.pos, dscene.ext, dscene.sprite_id, dscene.atlas_depth,
+        bins_ent, counts, players, renderer.config, rows=rows)
+
+
 def trace_stage(renderer, dscene, bins_ent, counts, players, rows=None):
     """Primary visibility → G-buffer (``trace.GBufferArrays``) of the view
     or of the window ``rows``."""
-    cfg = renderer.config
-    winners = trace_cuda.trace_winners(
-        dscene.pos, dscene.ext, dscene.sprite_id, dscene.atlas_depth,
-        bins_ent, counts, players, cfg, rows=rows)
+    winners = winner_stage(renderer, dscene, bins_ent, counts, players, rows)
     return trace.materialize_gbuffer(
         winners, dscene.pos, dscene.ext, dscene.sprite_id,
         dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
-        dscene.palette, players, cfg, rows=rows)
+        dscene.palette, players, renderer.config, rows=rows)
+
+
+def shade_point_stage(renderer, dscene, bins_ent, counts, players, winners,
+                      lights):
+    """The frames of (F, 3) point lights from the winners, in kernel 2's
+    winner-input point mode (surface, shadow ray, march and shade in one
+    launch).  Returns (F, H, W, 3) uint8."""
+    return shadow_cuda.shade_point(
+        winners, dscene.pos, dscene.ext, dscene.sprite_id,
+        dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
+        dscene.palette, bins_ent, counts, players, lights, renderer.config)
 
 
 def geometry_stage(renderer, gbuf, lights):
@@ -205,8 +241,22 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
     lights raises ``ValueError``.
     """
     check_supported(lights, directional, upto)
-    return gbuffer_and_frames(renderer, static_bins, dscene, players, lights,
-                              directional)[1]
+    if not winner_inputs(renderer, lights, directional):
+        return gbuffer_and_frames(renderer, static_bins, dscene, players,
+                                  lights, directional)[1]
+    bins_ent, counts = bin_stage(renderer, static_bins, dscene, players)
+    winners = winner_stage(renderer, dscene, bins_ent, counts, players)
+    return shade_point_stage(renderer, dscene, bins_ent, counts, players,
+                             winners, lights)
+
+
+def winner_inputs(renderer, lights, directional: bool) -> bool:
+    """Whether a batch takes the main path, kernel 2's winner-input point
+    mode: (F, 3) point lights in ``style="reference"`` without the fused
+    opt-in (module docstring)."""
+    return (lights.dim() == 2 and not directional
+            and renderer.style == "reference"
+            and not renderer.fuse_trace_shadow)
 
 
 def gbuffer_and_frames(renderer, static_bins, dscene, players, lights,

@@ -4,7 +4,8 @@ Counterpart of ``pixel_art_raytracer_tpu/models/deferred.py``.  A single
 frame is the batched path (models/batched.py) at F = 1 with a full rebin;
 its stages are public as in the JAX package (``build_bins``, ``trace``,
 ``shade``), and ``render_with_gbuffer`` hands back the G-buffer beside the
-frame for the session, the viewer and their mouse inspector.
+frame for the session, the viewer and their mouse inspector, where
+``render`` takes the main path, which holds none.
 """
 
 from __future__ import annotations
@@ -173,8 +174,14 @@ class DeferredRenderer:
         return GBufferArrays(*(t[0] for t in gbuf)), frames[0]
 
     def render(self, dscene: DeviceScene, light) -> torch.Tensor:
-        """The frame of :meth:`render_with_gbuffer`: (H, W, 3) uint8."""
-        return self.render_with_gbuffer(dscene, light)[1]
+        """The frame of :meth:`render_with_gbuffer`, (H, W, 3) uint8,
+        without its G-buffer: ``render_states_batched`` at F = 1 with a
+        full rebin, so a point light in the reference style takes the main
+        path (``models/batched.py``), as the JAX package's ``render`` does
+        for frames of 2**20 pixels and more."""
+        return batched.render_states_batched(
+            self, None, dscene, dscene.pos[:1],
+            self._lights(dscene, light))[0]
 
     @staticmethod
     def _lights(dscene: DeviceScene, light) -> torch.Tensor:

@@ -4,7 +4,9 @@ Counterpart of ``pixel_art_raytracer_tpu/ops/shade.py`` (its non-integer
 ``light_geometry`` branch, ``factor_from_dot`` and the u8 scale) and of the
 factor rules of the JAX batched path (``models/batched.py:888-905``): the
 directional factor, which is ``factor_from_dot``'s op sequence with the
-frame's constant direction, and the additive multi-light sum.  Float math
+frame's constant direction, and the additive multi-light sum; and
+:func:`point_frames`, the chain from the trace kernel's winners to the
+frames that the winner-input mode of ``csrc/shadow.cu`` runs.  Float math
 stays float32 in the reference's op order (alternative.cpp:702-760):
 
 * the towards-light direction is ``d / len`` and the inverse direction is
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
+from . import shadow, trace
 from .cstyle import c_div, c_max, c_min
 from .trace import GBufferArrays
 
@@ -104,3 +107,36 @@ def shade_u8(color: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     (sprites.hpp:8-16).  color (..., 4) uint8, factor (...)."""
     return (color[..., :3].to(torch.float32) * factor[..., None]).to(
         torch.uint8)
+
+
+def point_frames(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
+                 atlas_normal, palette, bins_ent, counts, players, lights,
+                 config: RenderConfig, frames: bool = True,
+                 work: dict | None = None) -> torch.Tensor:
+    """The frames of a point light per frame, from the trace kernel's
+    winners: the plain version of ``csrc/shadow.cu``'s winner-input point
+    mode (``ops/shadow_cuda.shade_point``).
+
+    ``trace.decode_winner`` → :func:`light_geometry` →
+    ``shadow.trace_light_dynamic`` (uncapped) → :func:`lambert_dot` and
+    :func:`factor_from_dot` → :func:`shade_u8`, the G-buffer path's chain
+    from a winner map.  winner: (F, H, W) int32, -1 for background; the
+    scene's arrays as ``models/deferred.DeviceScene`` holds them; bins_ent
+    (F, V, cap) and counts (F, V) int32; players and lights (F, 3) int32.
+    Returns (F, H, W, 3) uint8 frames, or with ``frames=False`` the lit
+    mask (F, H, W) bool.  ``work`` receives the march's counts
+    (``shadow.trace_light_dynamic``).
+    """
+    y, z, ent, texel = trace.decode_winner(winner, pos, ext, sprite_id,
+                                           atlas_depth, players, config)
+    surface = GBufferArrays(normal=None, color=None, y=y, z=z,
+                            entity_index=ent)
+    tl, inv, origin, rb, lb = light_geometry(surface, lights, config)
+    lit = shadow.trace_light_dynamic(pos, ext, bins_ent, counts, rb, lb, ent,
+                                     origin, inv, players, config, work=work)
+    if not frames:
+        return lit
+    color, normal = trace.texel_attributes(winner >= 0, texel, atlas_color,
+                                           atlas_normal, palette, config)
+    return shade_u8(color, factor_from_dot(lambert_dot(normal, tl), lit,
+                                           config))

@@ -1,14 +1,17 @@
 """Wrappers of kernel 2 (``csrc/shadow.cu``): the per-pixel lit mask of a
-point light (:func:`trace_light`) or a directional light
-(:func:`trace_light_directional`) per frame.
+point light (:func:`trace_light`, from a G-buffer's ray inputs) or a
+directional light (:func:`trace_light_directional`) per frame, and the
+shaded frames (or the lit mask) of a point light per frame straight from
+the trace kernel's winners (:func:`shade_point`).
 
-CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`
-and :func:`ops.shadow_dir.trace_light_directional`; CUDA tensors launch the
-kernel, and anything else raises.  ``launches`` and
-``directional_launches`` count the two modes' launches; ``counters`` holds
-the kernel's device counters of both (pixels marched directly, the most
-keys in a tile, the longest visit list) and of the directional mode (union
-entries staged, slab tests performed).
+CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`,
+:func:`ops.shadow_dir.trace_light_directional` and
+:func:`ops.shade.point_frames`; CUDA tensors launch the kernel, and
+anything else raises.  ``launches``, ``directional_launches`` and
+``shade_launches`` count the three modes' launches; ``counters`` holds
+the kernel's device counters of all three (pixels marched directly, the
+most keys in a tile, the longest visit list) and of the directional mode
+(union entries staged, slab tests performed).
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ import torch
 
 from ..config import RenderConfig
 from ..runtime import kernels
-from . import shadow, shadow_dir, trace
+from . import shade, shadow, shadow_dir, trace
 
 launches = 0
 directional_launches = 0
+shade_launches = 0
 counters = kernels.MarchCounters()
 
 # Shared memory a block may use on Hopper (opt-in above 48 KB).
@@ -149,6 +153,80 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
     return lit
 
 
+def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
+                atlas_normal, palette, bins_ent, counts, players, lights,
+                config: RenderConfig, frames: bool = True) -> torch.Tensor:
+    """The (F, H, W, 3) uint8 frames of a point light per frame, or with
+    ``frames=False`` the lit mask (F, H, W) bool, from the trace kernel's
+    winners: the winner-input point mode of the kernel, which derives each
+    pixel's surface point and shadow ray itself and shades the pixel where
+    it stores its lit bit, so no G-buffer or ray buffer exists.
+
+    Arguments as :func:`ops.shade.point_frames`; the march is uncapped and
+    covers the whole view.  Raises ``ValueError`` for a tensor the kernel
+    does not take and where the tile's visit lists overflow a block's
+    shared memory.
+    """
+    global shade_launches
+    dev = bins_ent.device
+    if dev.type == "cpu":
+        return shade.point_frames(winner, pos, ext, sprite_id, atlas_color,
+                                  atlas_depth, atlas_normal, palette,
+                                  bins_ent, counts, players, lights, config,
+                                  frames=frames)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_point: no kernel for device {dev}")
+
+    cfg = config
+    F = bins_ent.shape[0]
+    H, W = cfg.view_height, cfg.view_width
+    V, cap = cfg.hash_volume, cfg.bin_capacity
+    N = pos.shape[0]
+    atlas = (atlas_depth.shape[0], cfg.sprite_height, cfg.sprite_width)
+    for t, name, dtype, shape in (
+            (winner, "winner", torch.int32, (F, H, W)),
+            (pos, "pos", torch.int32, (N, 3)),
+            (ext, "ext", torch.int32, (N, 3)),
+            (sprite_id, "sprite_id", torch.int32, (N,)),
+            (atlas_color, "atlas_color", torch.int32, atlas),
+            (atlas_depth, "atlas_depth", torch.int32, atlas),
+            (atlas_normal, "atlas_normal", torch.float32, atlas + (3,)),
+            (palette, "palette", torch.uint8, (None, 4)),
+            (bins_ent, "bins_ent", torch.int32, (F, V, cap)),
+            (counts, "counts", torch.int32, (F, V)),
+            (players, "players", torch.int32, (F, 3)),
+            (lights, "lights", torch.int32, (F, 3))):
+        kernels.require(t, name, dtype, shape, dev)
+    smem = march_smem_bytes(cfg)
+    if smem > MAX_SMEM:
+        raise ValueError(f"shade_point: visit lists of a {V}-bin grid and "
+                         f"a tile of {cfg.bin_size}**2 pixels need {smem} B "
+                         f"of shared memory, over the {MAX_SMEM} B a block "
+                         f"may use")
+
+    out = torch.empty((F, H, W, 3) if frames else (F, H, W),
+                      dtype=torch.uint8 if frames else torch.bool,
+                      device=dev)
+    r, g, b = cfg.background[:3]
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.par_shadow_shade(
+            pos.data_ptr(), ext.data_ptr(), players.data_ptr(),
+            bins_ent.data_ptr(), counts.data_ptr(), winner.data_ptr(),
+            sprite_id.data_ptr(), atlas_depth.data_ptr(),
+            atlas_color.data_ptr(), atlas_normal.data_ptr(),
+            palette.data_ptr(), lights.data_ptr(),
+            None if frames else out.data_ptr(),
+            out.data_ptr() if frames else None,
+            counters.tensor(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
+            cfg.hash_width, cfg.hash_height, cfg.hash_length,
+            cfg.sprite_width, cfg.sprite_height, r, g, b, cfg.ambient,
+            march_threads(cfg), kernels.stream_handle(dev))
+    kernels.check(rc, "par_shadow_shade")
+    shade_launches += 1
+    return out
+
+
 def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
                             start_ent, inv, K, players,
                             config: RenderConfig,
@@ -220,6 +298,12 @@ def occupancy(config: RenderConfig) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
     local bytes per thread)`` of the point mode (needs the card)."""
     return kernels.occupancy("par_shadow_occupancy", config,
+                             march_threads(config))
+
+
+def shade_occupancy(config: RenderConfig) -> tuple[int, ...]:
+    """The same for the winner-input point mode."""
+    return kernels.occupancy("par_shadow_shade_occupancy", config,
                              march_threads(config))
 
 

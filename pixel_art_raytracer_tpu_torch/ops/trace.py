@@ -190,14 +190,23 @@ def materialize_gbuffer(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     Background pixels (winner -1) take the background color, a zero normal
     and zero y/z/entity fields (quirk Q6).
     """
-    cfg = config
     y, z, ent, texel = decode_winner(winner, pos, ext, sprite_id,
-                                     atlas_depth, players, cfg, rows)
-    hit = winner >= 0
+                                     atlas_depth, players, config, rows)
+    color, normal = texel_attributes(winner >= 0, texel, atlas_color,
+                                     atlas_normal, palette, config)
+    return GBufferArrays(normal=normal, color=color, y=y, z=z,
+                         entity_index=ent)
+
+
+def texel_attributes(hit, texel, atlas_color, atlas_normal, palette,
+                     config: RenderConfig):
+    """``(color, normal)`` of each pixel's atlas ``texel``: the palette
+    colour (..., 4) uint8 and the normal (..., 3) float32, or the
+    background colour and a zero normal where ``hit`` is False."""
     cidx = atlas_color.reshape(-1)[texel]
-    bg = torch.tensor(cfg.background, dtype=torch.uint8, device=winner.device)
+    bg = torch.tensor(config.background, dtype=torch.uint8,
+                      device=hit.device)
     color = torch.where(hit[..., None], palette[cidx.long()], bg)
     normal = torch.where(hit[..., None], atlas_normal.reshape(-1, 3)[texel],
                          0.0)
-    return GBufferArrays(normal=normal, color=color, y=y, z=z,
-                         entity_index=ent)
+    return color, normal

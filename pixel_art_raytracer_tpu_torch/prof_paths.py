@@ -4,7 +4,8 @@
 
 Renders the graybox world through ``AnimationRenderer.render_states`` on
 the center light orbit of ``bench.py`` (radius 40 around the default
-light), once on the two-kernel path and once with ``fuse_trace_shadow``.
+light), once on the two-kernel path (``trace.cu``, then the winner-input
+mode of ``shadow.cu``) and once with ``fuse_trace_shadow``.
 For each path it runs one warm-up batch, then records ``--batches`` batches
 issued back to back under ``torch.profiler`` and reads the device
 activities (kernels, copies, fills) from the exported trace.  It prints per

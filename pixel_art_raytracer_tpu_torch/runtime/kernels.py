@@ -38,16 +38,19 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-fmad=false",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # Argument types of each C entry point: pointers and the stream as void*,
-# sizes as int.
+# sizes as int, the ambient factor as float.
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
+    "par_shadow_shade": [_P] * 15 + [_I] * 13 + [_F, _I, _P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
+    "par_shadow_shade_occupancy": [_I] * 8 + [_P],
     "par_fused_occupancy": [_I] * 8 + [_P],
 }
 

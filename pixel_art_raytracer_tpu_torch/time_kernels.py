@@ -8,16 +8,21 @@ of 50 calls of ``trace_cuda.trace_winners`` and three means of 20 calls of
 ``fused_cuda.trace_shadow`` on the bin tables of the graybox world's
 center light orbit (F = 64), three means of 20 calls of
 ``shadow_cuda.trace_light`` (point mode) on that orbit's G-buffer and
-lights, and three means of 20 calls of
+lights, three means of 20 calls of ``shadow_cuda.shade_point`` (the
+winner-input point mode, frames out) on that orbit's winners and lights
+where the tree has it, three means of 5 batches of that orbit through
+``AnimationRenderer.render_states`` (the main path, ms per batch of 64
+frames), three means of 20 calls of
 ``shadow_cuda.trace_light_directional`` on chip_smoke.py's directional
 sweep (64 directions (cos t, 1, 0.5 sin t), the player at home, the step
 cap ``shadow_dir.grid_max_steps``), and three means of 5 batches of that
 sweep through ``AnimationRenderer.render_states(..., directional=True)``
-(the directional path, ms per batch of 64 frames).  It uses only calls whose signatures
-are the same in earlier trees, so one copy of it times both trees.  Two
-trees are compared in one call on one card, in turns (parent, change,
-change, parent), since cards and their hosts differ between calls.  Needs
-a CUDA card.
+(the directional path, ms per batch of 64 frames).  Apart from
+``shade_point``, which it skips where it is missing, it uses only calls
+whose signatures are the same in earlier trees, so one copy of it times
+both trees.  Two trees are compared in one call on one card, in turns
+(parent, change, change, parent), since cards and their hosts differ
+between calls.  Needs a CUDA card.
 """
 
 import json
@@ -83,13 +88,22 @@ def main(label: str) -> dict:
     _, dinv, K = shadow_dir.direction_constants(dirs, cfg)
     dargs = (ds.pos, ds.ext, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index,
              dinv, K, players, cfg, shadow_dir.grid_max_steps(cfg))
-    return {"tree": label,
-            "trace_ms": [ms(lambda: trace_cuda.trace_winners(*args), 50)
-                         for _ in range(5)],
-            "fused_ms": [ms(lambda: fused_cuda.trace_shadow(
-                *args[:-1], lights, cfg), 20) for _ in range(3)],
-            "shadow_ms": [ms(lambda: shadow_cuda.trace_light(*sargs), 20)
-                          for _ in range(3)],
+    out = {"tree": label,
+           "trace_ms": [ms(lambda: trace_cuda.trace_winners(*args), 50)
+                        for _ in range(5)],
+           "fused_ms": [ms(lambda: fused_cuda.trace_shadow(
+               *args[:-1], lights, cfg), 20) for _ in range(3)],
+           "shadow_ms": [ms(lambda: shadow_cuda.trace_light(*sargs), 20)
+                         for _ in range(3)]}
+    if hasattr(shadow_cuda, "shade_point"):
+        wargs = (win, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+                 ds.atlas_depth, ds.atlas_normal, ds.palette, be, cnt,
+                 players, lights, cfg)
+        out["shade_ms"] = [ms(lambda: shadow_cuda.shade_point(*wargs), 20)
+                           for _ in range(3)]
+    return {**out,
+            "point_path_ms": [ms(lambda: anim.render_states(
+                ds, players, lights), 5) for _ in range(3)],
             "directional_ms": [ms(lambda: shadow_cuda.trace_light_directional(
                 *dargs), 20) for _ in range(3)],
             "directional_path_ms": [ms(lambda: anim.render_states(
