@@ -66,7 +66,11 @@ equal, frame 0 equals ``cpp_render_frame`` on the scaled scene,
 ``SupersampledRenderer.render`` of frame 0 (the main path at F = 1)
 equals that oracle frame box-filtered to 1024x1024, and
 ``render_with_gbuffer`` of frame 0's state (trace 1 + the G-buffer mode 1)
-equals the oracle frame.
+equals the oracle frame.  Then one frame of the same scene generator on a
+2048x2048 view at bin 40 (52 x 52 x 8 = 21,632 bins, a grid whose visit
+lists the winner-input mode once refused) through ``render_states``
+(trace 1 + the winner-input mode 1): both kernels equal their plain
+versions and frame 0 equals ``cpp_render_frame``.
 
 Then the port's run entry points, each driven with the launch counts set
 to 0 just before it and read just after:
@@ -147,6 +151,8 @@ for the new paths (Mrays/s counting 1 + L rays a pixel) and the
 directional mode (with its counters, the union entries staged and the slab
 tests performed beside the plain version's count, its shared memory,
 blocks per SM and registers),
+for the winner-input mode on graybox, config 5, the 21,632-bin grid and
+config 2 its bands, chunk, launch grid, shared memory and blocks per SM,
 for config 5 the bands, the kernels' shared memory, blocks per SM, times,
 plain times, bounds and counters, peak memory and ms/frame, the new
 paths' times, a JSON line on the kernels (a row for each kernel on each
@@ -286,6 +292,10 @@ CONFIG5_CHECKED = {2: list(range(CONFIG5_FRAMES)), 4: [0, 4]}
 # their plain versions on frame 0), ``make_demo``'s 32-frame sweep.
 BENCH_REPEATS = 3
 BENCH_SCALE_ITERS = 3
+# A grid the winner-input mode used to refuse (its visit lists needed
+# 377,520 B of shared memory): config 5's scene generator on a 2048**2 view
+# at bin 40, 52 x 52 x 8 = 21,632 bins, one frame under config 5's light.
+WIDE_GRID = RenderConfig(view_width=2048, view_height=2048, view_length=320)
 
 # BASELINE config 1 (BASELINE.json configs[0], tests/test_configs.py:
 # 94-121): two reference boxes on a 64 x 64 frame, for the brute renderer.
@@ -512,6 +522,70 @@ def directional_unions(c: dict, unions: dict, work: dict) -> None:
                            "than the per-key lists")
 
 
+def shade_grid(tag: str, cfg, frames: int, card: str) -> None:
+    """Print the winner-input mode's launch geometry on ``cfg`` at F =
+    ``frames``: its bands, chunk and grid, and its shared memory, blocks
+    per SM, registers and local memory (``shadow_cuda.shade_occupancy``);
+    raise unless the shared memory is the Python mirror's."""
+    smem, blocks, regs, local = shadow_cuda.shade_occupancy(cfg)
+    bands, rows = trace_cuda.bands(cfg), trace_cuda.band_rows(cfg)
+    print(f"{tag} shadow_shade kernel: {bands} bands of {rows} rows a tile, "
+          f"chunks of {shadow_cuda.shade_chunk(cfg)} list entries: grid "
+          f"{cfg.hash_width * cfg.hash_height} columns x {frames} frames x "
+          f"{bands} bands of {shadow_cuda.MARCH_THREADS} threads; {smem} B "
+          f"of shared memory per block ({cfg.hash_volume}-bin grid), "
+          f"{blocks} blocks per SM, {regs} registers and {local} B of local "
+          f"memory a thread  [{card}]")
+    if smem != shadow_cuda.shade_smem_bytes(cfg):
+        raise RuntimeError(f"{tag}: the winner-input kernel takes {smem} B "
+                           f"of shared memory, shade_smem_bytes "
+                           f"{shadow_cuda.shade_smem_bytes(cfg)}")
+
+
+def wide_grid_phase(card: str) -> list[dict]:
+    """One frame of config 5's scene generator on WIDE_GRID through
+    ``AnimationRenderer.render_states``, the launch counts set to 0 just
+    before and read just after (trace 1, winner-input mode 1): raises
+    unless the kernels equal their plain versions on it, frame 0 equals
+    ``cpp_render_frame`` and the winner-input kernel's counters show its
+    list path.  Returns the kernels' JSON rows."""
+    tag = "wide grid"
+    cfg = WIDE_GRID
+    t0 = time.perf_counter()
+    scene = config5_scene(config=cfg)
+    r = DeferredRenderer(cfg).configure_for(scene)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, r.spans)
+    anim = AnimationRenderer(r, cfg, static_bins=cache)
+    ds = DeviceScene.from_scene(scene, cfg)
+    players = torch.as_tensor(scene.pos[:1], device=ds.pos.device)
+    lights = torch.tensor([CONFIG5_LIGHT], dtype=torch.int32,
+                          device=ds.pos.device)
+    torch.cuda.synchronize()
+    print(f"{tag}: {scene.n_entities} boxes on {cfg.view_width}x"
+          f"{cfg.view_height}, bins of {cfg.bin_size} pixels "
+          f"({cfg.hash_width}x{cfg.hash_height}x{cfg.hash_length} = "
+          f"{cfg.hash_volume}), set-up {time.perf_counter() - t0:.2f} s")
+    shade_grid(tag, cfg, 1, card)
+    shadow_cuda.counters.reset()
+    frames, launches = drive(f"{tag} two-kernel path", anim, ds, players,
+                             lights, {"trace": 1, "shadow_shade": 1})
+    list_path(f"{tag} two-kernel path", "shadow kernel (winner inputs)",
+              shadow_cuda.counters.read(), cfg.view_width * cfg.view_height)
+    t0 = time.perf_counter()
+    golden, _ = oracle_frame(scene, players[0].tolist(), lights[0].tolist(),
+                             cfg)
+    require_equal(tag, "frame 0 vs cpp_render_frame", frames[0].cpu(),
+                  torch.from_numpy(golden))
+    print(f"{tag} frame 0: pixel-exact against cpp_render_frame "
+          f"({time.perf_counter() - t0:.2f} s on the host)")
+    be, cnt = batched.bin_stage(r, cache, ds, players)
+    rows = path_kernels(tag, ds, be, cnt, players, lights, cfg, card,
+                        {k: n for k, n in launches.items() if n})
+    del ds, cache, anim, frames, be, cnt
+    torch.cuda.empty_cache()
+    return rows
+
+
 def reset_launches() -> None:
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
     shadow_cuda.directional_launches = shadow_cuda.shade_launches = 0
@@ -632,8 +706,6 @@ def config5_phase(card: str) -> list[dict]:
                  trace_cuda.block_threads(cfg)),
                 ("shadow", shadow_cuda.occupancy(cfg),
                  shadow_cuda.march_threads(cfg)),
-                ("shadow_shade", shadow_cuda.shade_occupancy(cfg),
-                 shadow_cuda.march_threads(cfg)),
                 ("fused", fused_cuda.occupancy(cfg),
                  fused_cuda.block_threads(cfg))):
             smem, blocks, regs, local = occ
@@ -641,6 +713,7 @@ def config5_phase(card: str) -> list[dict]:
                   f"{blocks} blocks per SM at {threads} threads, {regs} "
                   f"registers and {local} B of local memory a thread  "
                   f"[{card}]")
+        shade_grid(tag, cfg, CONFIG5_FRAMES, card)
 
         # The main path, both settings of fuse_trace_shadow.
         none = dict.fromkeys(read_launches(), 0)
@@ -1281,6 +1354,7 @@ def config2_phase(card: str) -> list[dict]:
     ds = DeviceScene.from_scene(scene, cfg)
     players, lights = anim.light_sweep_states(CONFIG2_FRAMES, scene.pos[0])
     chunks = CONFIG2_FRAMES // CONFIG2_CHUNK
+    shade_grid("config 2", cfg, CONFIG2_CHUNK, card)
     with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
         reset_launches()
         t0 = time.perf_counter()
@@ -1843,14 +1917,13 @@ def main() -> int:
              trace_cuda.block_threads(cfg)),
             ("shadow", shadow_cuda.occupancy(cfg),
              shadow_cuda.march_threads(cfg)),
-            ("shadow_shade", shadow_cuda.shade_occupancy(cfg),
-             shadow_cuda.march_threads(cfg)),
             ("fused", fused_cuda.occupancy(cfg),
              fused_cuda.block_threads(cfg))):
         smem, blocks, regs, local = occ
         print(f"{k} kernel: {smem} B of shared memory per block, {blocks} "
               f"blocks per SM at {threads} threads, {regs} registers and "
               f"{local} B of local memory a thread  [{card}]")
+    shade_grid("graybox", cfg, FRAMES, card)
     H, W = cfg.view_height, cfg.view_width
     n_pix = FRAMES * H * W
 
@@ -2305,8 +2378,10 @@ def main() -> int:
           f"per F={FRAMES} call  "
           f"[{card}]")
 
-    # -- 14. BASELINE config 5: supersampled at s = 2 and 4 ------------------
+    # -- 14. BASELINE config 5: supersampled at s = 2 and 4; a 21,632-bin
+    #        grid ---------------------------------------------------------
     rows += config5_phase(card)
+    rows += wide_grid_phase(card)
 
     # -- 15. the run entry points: bench, bench_scale --nonramp, make_demo --
     renderer.fuse_trace_shadow = False

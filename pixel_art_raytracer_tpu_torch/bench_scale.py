@@ -90,12 +90,14 @@ def nonramp_atlas() -> SpriteAtlas:
                        normal=np.stack([tile.normal[0], tile.normal[0]]))
 
 
-def config5_scene(nonramp: bool = False) -> Scene:
+def config5_scene(nonramp: bool = False,
+                  config: RenderConfig = CONFIG) -> Scene:
     """The player at (500, 36, 80), then 9,999 boxes of 20**3 at x = 37 i
     mod 1040, z = 53 i mod 300, y = 20 where i mod 7 = 0, else 0; with
     ``nonramp`` box i takes sprite i mod 2 of :func:`nonramp_atlas`, else
-    all take the tile floor."""
-    b = SceneBuilder(config=CONFIG,
+    all take the tile floor.  ``config`` is the view the boxes are binned
+    for (config 5's 1024**2 by default)."""
+    b = SceneBuilder(config=config,
                      atlas=nonramp_atlas() if nonramp else None)
     b.insert((500, 36, 80), (20, 20, 20))
     for i in range(BOXES - 1):

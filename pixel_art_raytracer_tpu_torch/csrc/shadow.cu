@@ -25,16 +25,16 @@
 //
 // Winner-input point mode (par_shadow_shade): the JAX kernel's winner-direct
 // inputs and its shade epilogue (shadow_pallas.py:766-790, 1140-1216).  It
-// reads trace.cu's winners instead of ten per-pixel ray buffers and derives
-// each pixel's surface point (ops/trace.py::decode_winner), start bin,
-// origin and reciprocal direction (ops/shade.py::light_geometry) in
-// registers, as fused.cu does; the march is the point mode's, uncapped,
-// over the whole view.  Where a frame is asked for, march_tile's store
-// shades the pixel (the Lambert dot, the ambient + Lambert factor and the
-// truncated u8 colour of ops/shade.py, in its op order) and writes RGB;
-// otherwise it writes the lit mask.  No G-buffer, light geometry, lit mask
-// or dot reaches device memory.  Its plain version is
-// ops/shade.py::point_frames.
+// reads trace.cu's winners instead of ten per-pixel ray buffers, decodes
+// each pixel's surface point once (ops/trace.py::decode_winner) and derives
+// its start bin, origin and reciprocal direction (ops/shade.py::
+// light_geometry); the march is the point mode's, uncapped, over the whole
+// view, on a march of its own (shadow_shade_kernel).  Where a frame is
+// asked for, the store shades the pixel (the Lambert dot, the ambient +
+// Lambert factor and the truncated u8 colour of ops/shade.py, in its op
+// order) and writes RGB; otherwise it writes the lit mask.  No G-buffer,
+// light geometry, lit mask or dot reaches device memory.  Its plain
+// version is ops/shade.py::point_frames.
 //
 // Directional mode (par_shadow_dir_lit): the march of the JAX package's
 // shade_directional, i.e. trace_light_dynamic with the per-pixel light bins
@@ -69,6 +69,36 @@
 // DDA per start bin into a list of its distinct bins in first-visit order,
 // the candidate boxes of those bins staged once in shared memory as float
 // corners, and every pixel tests its key's boxes.
+//
+// Winner-input point mode (shadow_shade_kernel): march_tile sized its
+// shared memory by the tile (2 B a pixel of bs x bs) and the grid (a visit
+// list of V entries a key), which held config 5's 2048**2 and 4096**2
+// views (80- and 160-pixel bins) to 1 block per SM and refused grids past
+// ~12,800 bins; and it decoded a pixel's surface (five dependent gathers)
+// at every key, ray and store call.  Its own march:
+// 1. one block per (frame, bin-column tile, band of rows), trace.cu's
+//    bands (par::Grid's band_rows: the most rows whose pixels fit
+//    kBandPixels), so the per-pixel state is the band's whatever the bin
+//    size;
+// 2. each pixel's winner is decoded once, kShadePixels pixels a thread at
+//    a time so their gathers overlap, into the band's shared memory: the
+//    surface point (y, z), the entity, the texel, and the reciprocal
+//    direction 1 / (d / length);
+// 3. the band's distinct start bins (up to kShadeKeys): each warp lists its
+//    own, and warp 0 merges the warps' lists with __match_any_sync;
+// 4. the visit lists are streamed: each key keeps its DDA where it stopped
+//    (the anchor of dda_rounds, the step it reached, the lanes of that
+//    round already listed, and a V-bit mask of the bins listed), and each
+//    chunk its warp lists the key's next distinct bins, in first-visit
+//    order, into its share of `chunk` entries, so no list of V entries
+//    exists; the staged entries' boxes are tested by every pixel of the key
+//    not yet occluded, in that order (the order matters for speed: a ray
+//    meets its occluder sooner among the bins near its start);
+// 5. the pixels whose key did not fit march on their own, and every
+//    pixel's lit bit or colour is stored from its decoded state.
+// Shared memory is then fixed but for the V / 8 B of each key's mask
+// (ShadeSmem::bytes), and the wrapper takes the longest chunk, up to 32
+// entries, at which 4 blocks fit an SM (shadow_cuda.shade_chunk).
 //
 // Directional mode (shadow_dir_kernel): each pixel has its own virtual far
 // light, so a key is a (start bin, light bin) pair, ~4.8 of them a graybox
@@ -413,13 +443,234 @@ shadow_lit_kernel(
                   stats);
 }
 
+// ---------------------------------------------------------------------------
+// The winner-input point mode's march: row bands, each pixel decoded once,
+// streamed visit lists.
+// ---------------------------------------------------------------------------
+
+// Start bins a band's table holds, as march_tile's PointTable: a graybox
+// tile has at most 2.
+constexpr int kShadeKeys = 4;
+// Pixels a thread decodes at once, so that their gathers overlap: a band of
+// 1,600 pixels is one round of 320 threads.
+constexpr int kShadePixels = 5;
+// A pixel's state byte: its key's index in the band's table, kShadeDirect
+// (its key did not fit: it marches on its own) or kShadeNone (outside the
+// view), with kShadeOccluded set once a staged box hits it.
+constexpr unsigned char kShadeDirect = 0x7E;
+constexpr unsigned char kShadeNone = 0x7F;
+constexpr unsigned char kShadeOccluded = 0x80;
+
+// The phases of shadow_shade_kernel that shade_phases.py times: decode,
+// merge, key set-up, listing, staging, march, direct march and store.
+constexpr int kShadePhases = 7;
+#ifdef PAR_SHADE_PHASES
+// Built with -DPAR_SHADE_PHASES (shade_phases.py only): thread 0 of every
+// block reads clock64() at each mark, and at the end adds each phase's
+// cycles, and 1 for the block, to g_shade_phase, which par_shade_phases
+// copies out and clears.
+__device__ unsigned long long g_shade_phase[kShadePhases + 1];
+struct ShadePhaseClock {
+  long long cycles[kShadePhases] = {};
+  long long last;
+  // (Set in the body: nvcc's host pass keeps an initializer list.)
+  __device__ ShadePhaseClock() { last = clock64(); }
+  // Phase a ends here.
+  __device__ void mark(int a) {
+    if (threadIdx.x != 0) return;
+    const long long now = clock64();
+    cycles[a] += now - last;
+    last = now;
+  }
+  // The last phase ends here, once every thread has stored.
+  __device__ void end() {
+    __syncthreads();
+    mark(kShadePhases - 1);
+    if (threadIdx.x != 0) return;
+    for (int a = 0; a < kShadePhases; ++a)
+      atomicAdd(g_shade_phase + a,
+                static_cast<unsigned long long>(cycles[a]));
+    atomicAdd(g_shade_phase + kShadePhases, 1ull);
+  }
+};
+#else
+// Otherwise the marks compile to nothing.
+struct ShadePhaseClock {
+  __device__ void mark(int) {}
+  __device__ void end() {}
+};
+#endif
+
+// A key's DDA toward the frame's light bin (the rounds of par::dda_rounds),
+// kept in shared memory from one chunk to the next.
+struct ShadeKey {
+  float ax, ay, az;     // the anchor: the start bin plus k0 steps, by the
+                        // same float adds as dda_rounds
+  float stx, sty, stz;  // the step
+  int sby, sbz;         // the start bin's y and z (its x is the tile's)
+  int n_steps;          // int(largest): 7 * n_steps phases
+  int start_flat;
+  int k0;               // the next round's first step, a multiple of 4
+  int skip;             // lanes of round k0 already listed
+  int len;              // entries listed in this chunk
+  int total;            // entries listed so far: the visit list's length
+  int pad0, pad1;
+};
+
+// The shared memory shadow_shade_kernel works in for a band of n_pix
+// pixels and chunks of `chunk` list entries; the base must be 16-byte
+// aligned.
+struct ShadeSmem {
+  float4* cand;                  // (chunk * cap, 2) staged boxes
+                                 // (common.cuh Box)
+  unsigned long long* warp_key;  // (kMarchWarps, kShadeKeys) each warp's
+                                 // start bins (pack_start)
+  unsigned long long* key_id;    // (kShadeKeys,) the band's start bins
+  ShadeKey* key;                 // (kShadeKeys,) their DDAs
+  int* cand_n;                   // (chunk,) live slots of a staged entry
+  int* flat;                     // (chunk,) each active key's share of
+                                 // the chunk's listed bins
+  int* warp_n;                   // (kMarchWarps,) keys in warp_key
+  int* warp_slot;                // (kMarchWarps, kShadeKeys) their index
+                                 // in key_id, or kShadeDirect
+  int* ctl;                      // [0] keys in the table, [1] 1 if one did
+                                 // not fit
+  unsigned* seen;                // (kShadeKeys, words) bins each key has
+                                 // listed
+  int* y;                        // (n_pix,) the surface point's y
+  int* z;                        // (n_pix,) and z
+  int* self;                     // (n_pix,) the pixel's entity
+  int* texel;                    // (n_pix,) its atlas texel, -1 for
+                                 // background
+  float* ivx;                    // (n_pix,) the reciprocal direction
+  float* ivy;
+  float* ivz;
+  unsigned char* state;          // (n_pix,) key index and occluded bit
+
+  __host__ __device__ static int words(const par::Grid& g) {
+    return (g.volume() + 31) / 32;
+  }
+  __host__ __device__ static size_t bytes(const par::Grid& g, int n_pix,
+                                          int chunk) {
+    return static_cast<size_t>(32 * chunk * g.bin_cap
+                               + 8 * (par::kMarchWarps + 1) * kShadeKeys)
+           + sizeof(ShadeKey) * kShadeKeys
+           + static_cast<size_t>(4 * (2 * chunk + par::kMarchWarps
+                                      + par::kMarchWarps * kShadeKeys + 2)
+                                 + 4 * kShadeKeys * words(g) + 29 * n_pix);
+  }
+  __device__ ShadeSmem(int* base, const par::Grid& g, int n_pix, int chunk) {
+    char* p = reinterpret_cast<char*>(base);
+    cand = reinterpret_cast<float4*>(p);
+    p += 32 * chunk * g.bin_cap;
+    warp_key = reinterpret_cast<unsigned long long*>(p);
+    key_id = warp_key + par::kMarchWarps * kShadeKeys;
+    key = reinterpret_cast<ShadeKey*>(key_id + kShadeKeys);
+    cand_n = reinterpret_cast<int*>(key + kShadeKeys);
+    flat = cand_n + chunk;
+    warp_n = flat + chunk;
+    warp_slot = warp_n + par::kMarchWarps;
+    ctl = warp_slot + par::kMarchWarps * kShadeKeys;
+    seen = reinterpret_cast<unsigned*>(ctl + 2);
+    y = reinterpret_cast<int*>(seen + kShadeKeys * words(g));
+    z = y + n_pix;
+    self = z + n_pix;
+    texel = self + n_pix;
+    ivx = reinterpret_cast<float*>(texel + n_pix);
+    ivy = ivx + n_pix;
+    ivz = ivy + n_pix;
+    state = reinterpret_cast<unsigned char*>(ivz + n_pix);
+  }
+};
+
+// A start bin's y and z in one word: equal words, equal bins.
+__device__ __forceinline__ unsigned long long pack_start(int sby, int sbz) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(sby)) << 32)
+         | static_cast<unsigned>(sbz);
+}
+
+// List key K's next distinct bins, at most `room`, into out[0..) in
+// first-visit order, as par::dda_visit_list lists them: the rounds of
+// par::dda_rounds from the anchor where the last call stopped, the lowest
+// lane of equal bins not yet in `seen` listing it, in lane order.  Where a
+// round holds more fresh bins than the room left, its lanes up to the
+// first fresh one that does not fit are listed and the next call resumes
+// the round from that lane (K.skip): the bins the lanes before it probed
+// are all in `seen` by then.  All 32 lanes of a warp call it; it sets
+// K.len to the entries listed.
+__device__ inline void list_next(ShadeKey& K, const par::Grid& g,
+                                 unsigned* seen, int* out, int room) {
+  const int V = g.volume();
+  const int lane = threadIdx.x & 31;
+  const int d = lane / 7;
+  const int phase = lane % 7;
+  const bool ax = phase == 0 || phase == 3 || phase == 4 || phase == 6;
+  const bool ay = phase == 1 || phase == 3 || phase == 5 || phase == 6;
+  const bool az = phase == 2 || phase == 4 || phase == 5 || phase == 6;
+  const float stx = K.stx, sty = K.sty, stz = K.stz;
+  const int n_steps = K.n_steps;
+  const int start_flat = K.start_flat;
+  float bx = K.ax, by = K.ay, bz = K.az;
+  int k0 = K.k0;
+  int skip = K.skip;
+  int m = 0;
+  while (k0 < n_steps && m < room) {
+    float tx = bx, ty = by, tz = bz;
+    for (int a = 0; a < d && a < 4; ++a) {
+      tx = tx + stx;
+      ty = ty + sty;
+      tz = tz + stz;
+    }
+    int flat = -1 - lane;  // never a bin, and unique to the lane
+    if (d < 4 && k0 + d < n_steps && lane >= skip) {
+      const int v = g.flat(static_cast<int>(tx + (ax ? stx : 0.0f)),
+                           static_cast<int>(ty + (ay ? sty : 0.0f)),
+                           static_cast<int>(tz + (az ? stz : 0.0f)));
+      if (v >= 0 && v < V && v != start_flat) flat = v;
+    }
+    const unsigned same = __match_any_sync(par::kFullWarp, flat);
+    const bool fresh = flat >= 0 && __ffs(same) - 1 == lane
+                       && (seen[flat >> 5] & (1u << (flat & 31))) == 0u;
+    const unsigned fresh_lanes = __ballot_sync(par::kFullWarp, fresh);
+    const int rank = __popc(fresh_lanes & ((1u << lane) - 1u));
+    const int left = room - m;
+    if (fresh && rank < left) {
+      atomicOr(seen + (flat >> 5), 1u << (flat & 31));
+      out[m + rank] = flat;
+    }
+    if (__popc(fresh_lanes) > left) {
+      skip = __ffs(__ballot_sync(par::kFullWarp, fresh && rank == left)) - 1;
+      m = room;
+      break;
+    }
+    m += __popc(fresh_lanes);
+    for (int a = 0; a < 4; ++a) {
+      bx = bx + stx;
+      by = by + sty;
+      bz = bz + stz;
+    }
+    k0 += 4;
+    skip = 0;
+    __syncwarp();
+  }
+  __syncwarp();
+  if (lane == 0) {
+    K.ax = bx;
+    K.ay = by;
+    K.az = bz;
+    K.k0 = k0;
+    K.skip = skip;
+    K.len = m;
+    K.total += m;
+  }
+}
+
 // The winner-input point mode: the lit mask, or with rgb the shaded frame,
-// of bin-column tile blockIdx.x of frame blockIdx.y, from trace.cu's
-// winners.  Each pixel's surface, start bin and ray are derived in
-// registers where march_tile asks for them, and the store shades the pixel
-// in the op order of ops/shade.py.  One of lit and rgb is null.  All
-// threads of the block take part; blockDim.x is a multiple of 32 and at
-// most kMarchThreads.
+// of band blockIdx.z of bin-column tile blockIdx.x of frame blockIdx.y
+// (par::Band::of_block), from trace.cu's winners, in the five phases of the
+// header.  One of lit and rgb is null.  All threads of the block take part;
+// blockDim.x is a multiple of 32, at least 32 * kShadeKeys and at most
+// kMarchThreads, and chunk >= kShadeKeys.
 __global__ void __launch_bounds__(par::kMarchThreads,
                                   par::kMarchBlocksPerSM)
 shadow_shade_kernel(
@@ -427,72 +678,309 @@ shadow_shade_kernel(
     const int* __restrict__ players, const int* __restrict__ bins_ent,
     const int* __restrict__ counts, WinnerPixels px,
     unsigned char* __restrict__ lit, unsigned char* __restrict__ rgb,
-    int* __restrict__ stats, par::Grid g) {
+    int* __restrict__ stats, par::Grid g, int chunk) {
   extern __shared__ __align__(16) int smem[];
+  const ShadeSmem s(smem, g, g.band_pixels(), chunk);
+  ShadePhaseClock phases;
   const int bs = g.bin_size;
-  const par::MarchSmem<par::PointTable> s(smem, g, bs * bs,
-                                          par::kNoStepCap);
-
+  const int cap = g.bin_cap;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid / 32;
   const int f = blockIdx.y;
-  const par::Band tile = par::Band::tile(g, blockIdx.x);
-  const int bin_x = tile.bin_x;  // i / bs of every pixel of the tile
+  const par::Band b = par::Band::of_block(g);
+  const int n_pix = b.pixels(g);
+  const int i0 = b.i0(g);
+  const int j0 = b.j0(g);
+  const int words = ShadeSmem::words(g);
   const int3 light = make_int3(px.lights[3 * f], px.lights[3 * f + 1],
                                px.lights[3 * f + 2]);
-  auto surface = [&](int i, int j) {
-    return decode_winner(pos, ext, players, px, g, f, i, j);
-  };
-  // The start bin (i / bs, (view_h - y - z) / bs, z / bs), C's `/`.
-  auto key_of = [&](int, int i, int j) {
-    const Surface sf = surface(i, j);
-    return par::PointTable::Key{
-        {bin_x, (g.view_h - sf.y - sf.z) / bs, sf.z / bs}};
-  };
-  // Origin (i, y, z) and inv = 1 / (d / length): two roundings.
-  auto ray_of = [&](int, int i, int j) {
-    const Surface sf = surface(i, j);
-    const float3 tl = towards_light(i, sf.y, sf.z, light);
-    return par::Ray{bin_x,
-                    (g.view_h - sf.y - sf.z) / bs,
-                    sf.z / bs,
-                    static_cast<float>(i),
-                    static_cast<float>(sf.y),
-                    static_cast<float>(sf.z),
-                    1.0f / tl.x,
-                    1.0f / tl.y,
-                    1.0f / tl.z,
-                    sf.ent};
-  };
-  // ops/shade.py: lambert_dot, factor_from_dot (std::min/std::max as
-  // ternaries, so a NaN dot gives a diffuse of 0), shade_u8.
-  auto shade = [&](int, int i, int j, bool is_lit) {
+  // The frame's light bin, C's `/`.
+  const int3 lb = make_int3(light.x / bs,
+                            (g.view_h - light.y - light.z) / bs,
+                            light.z / bs);
+
+  for (int w = tid; w < kShadeKeys * words; w += nt) s.seen[w] = 0u;
+
+  // 1. Decode each pixel once, kShadePixels a thread at a time so that
+  //    their gathers overlap: its surface, entity, texel and
+  //    1 / (d / length) into shared memory.  Then its start bin
+  //    (i / bs, (view_h - y - z) / bs, z / bs) into its warp's list of
+  //    distinct start bins (a bin missing from the list is added by the
+  //    lowest lane that has it), or kShadeDirect past kShadeKeys.
+  unsigned long long* wkey = s.warp_key + warp * kShadeKeys;
+  int wn = 0;  // entries of wkey, the same in every lane
+  par::TilePixel tp(bs);
+  for (int r0 = 0; r0 < n_pix; r0 += nt * kShadePixels) {
+    unsigned live = 0u;  // bit p: the round's pixel p is in the view
+    par::TilePixel dp = tp;
+#pragma unroll
+    for (int p = 0; p < kShadePixels; ++p) {
+      const int i = i0 + dp.col;
+      const int j = j0 + dp.row;
+      if (dp.q < n_pix && i < g.view_w && j < g.view_h) {
+        const Surface u = decode_winner(pos, ext, players, px, g, f, i, j);
+        const float3 tl = towards_light(i, u.y, u.z, light);
+        s.y[dp.q] = u.y;
+        s.z[dp.q] = u.z;
+        s.self[dp.q] = u.ent;
+        s.texel[dp.q] = u.hit ? u.texel : -1;
+        s.ivx[dp.q] = 1.0f / tl.x;
+        s.ivy[dp.q] = 1.0f / tl.y;
+        s.ivz[dp.q] = 1.0f / tl.z;
+        live |= 1u << p;
+      }
+      dp.next();
+    }
+#pragma unroll
+    for (int p = 0; p < kShadePixels; ++p) {
+      const int q = tp.q;
+      unsigned long long key = 0ull;
+      int slot = kShadeNone;
+      if ((live >> p) & 1u) {
+        const int y = s.y[q];
+        const int z = s.z[q];
+        key = pack_start((g.view_h - y - z) / bs, z / bs);
+        slot = -1;
+        for (int a = 0; a < wn; ++a)
+          if (wkey[a] == key) slot = a;
+      }
+      unsigned missing = __ballot_sync(par::kFullWarp, slot < 0);
+      while (missing != 0u) {
+        const int leader = __ffs(missing) - 1;
+        const unsigned long long lk = __shfl_sync(par::kFullWarp, key, leader);
+        const int added = wn < kShadeKeys ? wn : kShadeDirect;
+        if (lane == leader && wn < kShadeKeys) wkey[wn] = lk;
+        wn += wn < kShadeKeys ? 1 : 0;
+        if (slot < 0 && key == lk) slot = added;
+        missing = __ballot_sync(par::kFullWarp, slot < 0);
+        __syncwarp();
+      }
+      if (q < n_pix) s.state[q] = static_cast<unsigned char>(slot);
+      tp.next();
+    }
+  }
+  if (lane == 0) s.warp_n[warp] = wn;
+  __syncthreads();
+  phases.mark(0);
+
+  // 2. Warp 0 merges the warps' lists into the band's table, 32 entries at
+  //    a time: an entry already in the table takes its index; the lowest
+  //    lane of each new start bin (__match_any_sync) adds it, in lane
+  //    order, up to kShadeKeys.
+  if (warp == 0) {
+    const int nc = nt / 32 * kShadeKeys;
+    int n = 0;
+    bool over = false;
+    for (int c0 = 0; c0 < nc; c0 += 32) {
+      const int c = c0 + lane;
+      const bool valid = c < nc && c % kShadeKeys < s.warp_n[c / kShadeKeys];
+      const unsigned long long k = valid ? s.warp_key[c] : 0ull;
+      int idx = -1;
+      for (int a = 0; a < n; ++a)
+        if (valid && s.key_id[a] == k) idx = a;
+      const bool fresh = valid && idx < 0;
+      const unsigned fresh_lanes = __ballot_sync(par::kFullWarp, fresh);
+      const unsigned same = __match_any_sync(par::kFullWarp, k) & fresh_lanes;
+      const int leader = fresh ? __ffs(same) - 1 : lane;
+      const unsigned leaders =
+          __ballot_sync(par::kFullWarp, fresh && leader == lane);
+      const int at = n + __popc(leaders & ((1u << lane) - 1u));
+      if (fresh && leader == lane && at < kShadeKeys) s.key_id[at] = k;
+      const int got = __shfl_sync(par::kFullWarp, at, leader);
+      if (fresh) idx = got < kShadeKeys ? got : kShadeDirect;
+      if (c < nc) s.warp_slot[c] = idx;
+      over = over || n + __popc(leaders) > kShadeKeys;
+      n = min(n + __popc(leaders), kShadeKeys);
+      __syncwarp();
+    }
+    if (lane == 0) {
+      s.ctl[0] = n;
+      s.ctl[1] = over ? 1 : 0;
+    }
+  }
+  __syncthreads();
+  phases.mark(1);
+  const int n = s.ctl[0];
+
+  // 3. Each pixel's index in the table (the thread that decoded it reads
+  //    it), and each key's DDA from its start bin, as dda_rounds sets it up.
+  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int st = s.state[p.q];
+    if (st < kShadeKeys)
+      s.state[p.q] = static_cast<unsigned char>(
+          s.warp_slot[warp * kShadeKeys + st]);
+  }
+  if (tid < n) {
+    ShadeKey& K = s.key[tid];
+    const unsigned long long k = s.key_id[tid];
+    K.sby = static_cast<int>(static_cast<unsigned>(k >> 32));
+    K.sbz = static_cast<int>(static_cast<unsigned>(k));
+    const float sx = static_cast<float>(b.bin_x);
+    const float sy = static_cast<float>(K.sby);
+    const float sz = static_cast<float>(K.sbz);
+    const float dx = static_cast<float>(lb.x) - sx;
+    const float dy = static_cast<float>(lb.y) - sy;
+    const float dz = static_cast<float>(lb.z) - sz;
+    const float largest =
+        par::c_max(par::c_max(fabsf(dx), fabsf(dy)), fabsf(dz));
+    K.stx = dx / largest;
+    K.sty = dy / largest;
+    K.stz = dz / largest;
+    K.n_steps = static_cast<int>(largest);  // min(., kNoStepCap)
+    K.start_flat = g.flat(b.bin_x, K.sby, K.sbz);
+    K.ax = sx;
+    K.ay = sy;
+    K.az = sz;
+    K.k0 = 0;
+    K.skip = 0;
+    K.len = 0;
+    K.total = 0;
+  }
+  __syncthreads();
+  phases.mark(2);
+
+  // 4. The lists in chunks: each active key's warp lists its next bins
+  //    into its share of the chunk; the entries, compacted in key order
+  //    (key k's from off[k]), have their first min(count, cap) slots staged
+  //    as boxes (entity 0 at players[f]); every pixel of a key, not yet
+  //    occluded, tests its key's entries in order, skipping its own entity
+  //    and stopping at its first hit.
+  const size_t fbase = static_cast<size_t>(f) * g.volume();
+  // Keys whose DDA has steps left: at first those with any (n_steps, which
+  // no warp writes again, unlike k0).
+  unsigned active = 0u;
+  for (int k = 0; k < n; ++k) active |= s.key[k].n_steps > 0 ? 1u << k : 0u;
+  while (active != 0u) {
+    const int share = chunk / __popc(active);
+    if (warp < n && ((active >> warp) & 1u))
+      list_next(s.key[warp], g, s.seen + warp * words,
+                s.flat + __popc(active & ((1u << warp) - 1u)) * share,
+                share);
+    __syncthreads();
+    phases.mark(3);
+    int off[kShadeKeys + 1];
+    unsigned next = 0u;
+    off[0] = 0;
+#pragma unroll
+    for (int k = 0; k < kShadeKeys; ++k) {
+      const bool on = ((active >> k) & 1u) != 0u;
+      off[k + 1] = off[k] + (on ? s.key[k].len : 0);
+      next |= on && s.key[k].k0 < s.key[k].n_steps ? 1u << k : 0u;
+    }
+    const int total = off[kShadeKeys];
+    for (int t = tid; t < total * cap; t += nt) {
+      const int e = t / cap;
+      const int slot = t - e * cap;
+      int k = 0;
+#pragma unroll
+      for (int a = 1; a < kShadeKeys; ++a) k += e >= off[a] ? 1 : 0;
+      const size_t bb = fbase + s.flat[__popc(active & ((1u << k) - 1u))
+                                       * share
+                                       + e - par::pick<kShadeKeys>(off, k)];
+      const int live = min(counts[bb], cap);
+      if (slot == 0) s.cand_n[e] = live;
+      if (slot < live) {
+        const par::Box box = par::candidate_box(pos, ext, players,
+                                                bins_ent[bb * cap + slot], f);
+        s.cand[2 * t] = box.lo;
+        s.cand[2 * t + 1] = box.hi;
+      }
+    }
+    __syncthreads();
+    phases.mark(4);
+    for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+      const int st = s.state[p.q];
+      if (st >= kShadeKeys) continue;  // occluded, direct or no pixel
+      const int e0 = par::pick<kShadeKeys>(off, st);
+      const int e1 = par::pick<kShadeKeys>(off, st + 1);
+      if (e0 >= e1) continue;
+      const par::Ray r{0, 0, 0,
+                       static_cast<float>(i0 + p.col),
+                       static_cast<float>(s.y[p.q]),
+                       static_cast<float>(s.z[p.q]),
+                       s.ivx[p.q], s.ivy[p.q], s.ivz[p.q], s.self[p.q]};
+      bool hit = false;
+      for (int e = e0; e < e1 && !hit; ++e) {
+        const int live = s.cand_n[e];
+        for (int t = e * cap; t < e * cap + live; ++t) {
+          const float4 lo = s.cand[2 * t];
+          if (__float_as_int(lo.w) == r.self) continue;
+          const float4 hi = s.cand[2 * t + 1];
+          if (par::slab_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r)) {
+            hit = true;
+            break;
+          }
+        }
+      }
+      if (hit)
+        s.state[p.q] = static_cast<unsigned char>(st | kShadeOccluded);
+    }
+    active = next;
+    __syncthreads();
+    phases.mark(5);
+  }
+
+  // 5. Pixels whose key did not fit march on their own (march_occluded);
+  //    every pixel's lit bit, or its colour: ops/shade.py's lambert_dot,
+  //    factor_from_dot (std::min/std::max as ternaries, so a NaN dot gives
+  //    a diffuse of 0) and shade_u8.
+  int direct = 0;
+  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int st = s.state[p.q];
+    if (st == kShadeNone) continue;
+    const int i = i0 + p.col;
+    const int j = j0 + p.row;
+    const int y = s.y[p.q];
+    const int z = s.z[p.q];
+    bool occluded = (st & kShadeOccluded) != 0;
+    if (st == kShadeDirect) {
+      const par::Ray r{b.bin_x, (g.view_h - y - z) / bs, z / bs,
+                       static_cast<float>(i), static_cast<float>(y),
+                       static_cast<float>(z), s.ivx[p.q], s.ivy[p.q],
+                       s.ivz[p.q], s.self[p.q]};
+      occluded = par::march_occluded(pos, ext, players, bins_ent, counts, f,
+                                     g, r, lb, par::kNoStepCap);
+      ++direct;
+    }
     const size_t o = g.pixel(f, i, j);
     if (rgb == nullptr) {
-      lit[o] = is_lit ? 1 : 0;
-      return;
+      lit[o] = occluded ? 0 : 1;
+      continue;
     }
-    const Surface sf = surface(i, j);
-    const float3 tl = towards_light(i, sf.y, sf.z, light);
-    const float* n = px.atlas_normal + 3 * static_cast<size_t>(sf.texel);
-    const float n0 = sf.hit ? n[0] : 0.0f;
-    const float n1 = sf.hit ? n[1] : 0.0f;
-    const float n2 = sf.hit ? n[2] : 0.0f;
+    const float3 tl = towards_light(i, y, z, light);
+    const int texel = s.texel[p.q];
+    float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
+    int col[3] = {px.bg_r, px.bg_g, px.bg_b};
+    if (texel >= 0) {
+      const float* nv = px.atlas_normal + 3 * static_cast<size_t>(texel);
+      n0 = nv[0];
+      n1 = nv[1];
+      n2 = nv[2];
+      const unsigned char* c = px.palette + 4 * px.atlas_color[texel];
+      col[0] = c[0];
+      col[1] = c[1];
+      col[2] = c[2];
+    }
     const float dot = n0 * tl.x + n1 * tl.y + n2 * tl.z;
     const float diffuse = 0.0f < dot ? dot : 0.0f;
     const float bright = diffuse + px.ambient;
-    const float factor = is_lit ? (bright < 1.0f ? bright : 1.0f)
-                                : px.ambient;
-    const unsigned char* c = px.palette + 4 * px.atlas_color[sf.texel];
-    const int col[3] = {sf.hit ? c[0] : px.bg_r, sf.hit ? c[1] : px.bg_g,
-                        sf.hit ? c[2] : px.bg_b};
+    const float factor = occluded ? px.ambient
+                                  : (bright < 1.0f ? bright : 1.0f);
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       rgb[3 * o + a] = static_cast<unsigned char>(
           static_cast<int>(static_cast<float>(col[a]) * factor));
-  };
-  par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
-                  make_int3(light.x / bs, (g.view_h - light.y - light.z) / bs,
-                            light.z / bs),
-                  par::kNoStepCap, s, key_of, ray_of, shade, stats);
+  }
+  phases.end();
+  if (direct > 0) atomicAdd(stats + par::kStatDirect, direct);
+  if (tid == 0) {
+    int longest = 0;
+    for (int k = 0; k < n; ++k) longest = max(longest, s.key[k].total);
+    atomicMax(stats + par::kStatStarts, n + s.ctl[1]);
+    atomicMax(stats + par::kStatList, longest);
+  }
 }
 
 // The lit mask of bin-column tile blockIdx.x of frame blockIdx.y under a
@@ -833,6 +1321,10 @@ size_t dir_smem(const par::Grid& g) {
   return DirSmem::bytes(g, g.bin_size * g.bin_size);
 }
 
+size_t shade_smem(const par::Grid& g, int chunk) {
+  return ShadeSmem::bytes(g, g.band_pixels(), chunk);
+}
+
 // Let `kernel` take `smem` bytes of dynamic shared memory (an opt-in above
 // 48 KB).  Returns the CUDA error code.
 template <class Kernel>
@@ -909,7 +1401,8 @@ extern "C" int par_shadow_lit(
 // as for par_shadow_lit; background bg_* and ambient as in RenderConfig.
 // Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
 // else lit (F, H, W) uint8 (0/1).  One block of `threads` per (frame, bin
-// column).  Returns cudaGetLastError().
+// column, band of the Grid's band_rows rows); chunk >= kShadeKeys list
+// entries staged at once.  Returns cudaGetLastError().
 extern "C" int par_shadow_shade(
     const void* pos, const void* ext, const void* players,
     const void* bins_ent, const void* counts, const void* winner,
@@ -918,10 +1411,10 @@ extern "C" int par_shadow_shade(
     void* lit, void* rgb, void* stats, int n_frames, int view_w, int view_h,
     int bin_size, int bin_cap, int hash_w, int hash_h, int hash_l,
     int sprite_w, int sprite_h, int bg_r, int bg_g, int bg_b, float ambient,
-    int threads, void* stream) {
+    int chunk, int threads, void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  const size_t smem = shadow_smem(g, par::kNoStepCap);
+  const size_t smem = shade_smem(g, chunk);
   const int rc = allow_smem(shadow_shade_kernel, smem);
   if (rc != 0) return rc;
   const WinnerPixels px{static_cast<const int*>(winner),
@@ -937,13 +1430,13 @@ extern "C" int par_shadow_shade(
                         bg_g,
                         bg_b,
                         ambient};
-  const dim3 grid(hash_w * hash_h, n_frames);
+  const dim3 grid(hash_w * hash_h, n_frames, g.bands);
   shadow_shade_kernel<<<grid, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),
       static_cast<const int*>(players), static_cast<const int*>(bins_ent),
       static_cast<const int*>(counts), px, static_cast<unsigned char*>(lit),
-      static_cast<unsigned char*>(rgb), static_cast<int*>(stats), g);
+      static_cast<unsigned char*>(rgb), static_cast<int*>(stats), g, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1004,15 +1497,15 @@ extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
                    threads, out);
 }
 
-// The same for the winner-input point mode.
+// The same for the winner-input point mode with chunks of `chunk` list
+// entries.
 extern "C" int par_shadow_shade_occupancy(int view_w, int view_h,
                                           int bin_size, int bin_cap,
                                           int hash_w, int hash_h, int hash_l,
-                                          int threads, int* out) {
+                                          int threads, int chunk, int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_shade_kernel, shadow_smem(g, par::kNoStepCap),
-                   threads, out);
+  return occupancy(shadow_shade_kernel, shade_smem(g, chunk), threads, out);
 }
 
 // The same for the directional mode.
@@ -1023,3 +1516,14 @@ extern "C" int par_shadow_dir_occupancy(int view_w, int view_h, int bin_size,
                     hash_l};
   return occupancy(shadow_dir_kernel, dir_smem(g), threads, out);
 }
+
+#ifdef PAR_SHADE_PHASES
+// Copies g_shade_phase (kShadePhases cycle sums, then the blocks) to `out`
+// and clears it.  Returns cudaGetLastError().
+extern "C" int par_shade_phases(void* out) {
+  unsigned long long zero[kShadePhases + 1] = {};
+  cudaMemcpyFromSymbol(out, g_shade_phase, sizeof zero);
+  cudaMemcpyToSymbol(g_shade_phase, zero, sizeof zero);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -22,7 +22,7 @@ import torch
 
 from ..config import RenderConfig
 from ..runtime import kernels
-from . import shade, shadow, shadow_dir, trace
+from . import shade, shadow, shadow_dir, trace, trace_cuda
 
 launches = 0
 directional_launches = 0
@@ -33,10 +33,20 @@ counters = kernels.MarchCounters()
 MAX_SMEM = 227 * 1024
 # csrc/common.cuh: the start bins a point-mode tile's table holds
 # (PointTable); kChunkBins, the list entries staged at once; kMarchThreads,
-# the most threads a march block may have.
+# the most threads a march block may have; kMarchBlocksPerSM, the blocks an
+# SM should hold (the march kernels' launch bound).
 STARTS = 4
 CHUNK_BINS = 64
 MARCH_THREADS = 320
+MARCH_BLOCKS_PER_SM = 4
+# The most list entries csrc/shadow.cu's winner-input point mode stages at
+# once.
+SHADE_CHUNK = 32
+# csrc/shadow.cu ShadeKey: one key's DDA state, 16 ints.
+SHADE_KEY_BYTES = 64
+# Shared memory of a Hopper SM, and what the runtime reserves a block.
+SM_SMEM = 228 * 1024
+BLOCK_RESERVED_SMEM = 1024
 
 
 def march_threads(config: RenderConfig, pixels: int | None = None) -> int:
@@ -73,6 +83,43 @@ def march_smem_bytes(config: RenderConfig, max_steps: int | None = None,
             + warps * (keys * key_ints + 1 + keys) + keys * -(-V // 32)
             + keys * list_capacity(config, max_steps) + (2 * n_pix + 3) // 4)
     return 4 * ints
+
+
+def shade_smem_bytes(config: RenderConfig, chunk: int | None = None) -> int:
+    """Shared memory of csrc/shadow.cu ``ShadeSmem``, the winner-input
+    point mode's block, at ``chunk`` list entries staged at once (default
+    :func:`shade_chunk`): the staged entries' ``cap`` candidates (two
+    float4 each), live counts and bins, each warp's and the band's start
+    bins (8 B each), STARTS key states, the warps' counts and table
+    indices, 2 control ints, a V-bit mask of listed bins per key, and 29 B
+    a pixel of the band (y, z, entity, texel, the reciprocal direction, a
+    state byte).  A band is ``trace.cu``'s (:func:`trace_cuda.band_rows`
+    rows, at most 1,600 pixels), so only the masks grow with the grid's
+    volume V: at capacity 8 and 32 entries the block fits MAX_SMEM up to
+    V = 353,568 bins."""
+    cfg = config
+    V, cap = cfg.hash_volume, cfg.bin_capacity
+    warps = MARCH_THREADS // 32
+    n_pix = trace_cuda.band_pixels(cfg)
+    if chunk is None:
+        chunk = shade_chunk(cfg)
+    return (32 * chunk * cap + 8 * (warps + 1) * STARTS
+            + SHADE_KEY_BYTES * STARTS
+            + 4 * (2 * chunk + warps + warps * STARTS + 2)
+            + 4 * STARTS * -(-V // 32) + 29 * n_pix)
+
+
+def shade_chunk(config: RenderConfig) -> int:
+    """List entries the winner-input point mode stages at once: the most,
+    up to SHADE_CHUNK, at which MARCH_BLOCKS_PER_SM blocks fit an SM's
+    shared memory, else SHADE_CHUNK (graybox 32; config 5 28, where 32
+    would hold an SM to 3 blocks; the 52 x 52 x 8 grid 32, 3 blocks at
+    any chunk)."""
+    for chunk in range(SHADE_CHUNK, STARTS - 1, -1):
+        if MARCH_BLOCKS_PER_SM * (shade_smem_bytes(config, chunk)
+                                  + BLOCK_RESERVED_SMEM) <= SM_SMEM:
+            return chunk
+    return SHADE_CHUNK
 
 
 def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
@@ -163,9 +210,12 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     it stores its lit bit, so no G-buffer or ray buffer exists.
 
     Arguments as :func:`ops.shade.point_frames`; the march is uncapped and
-    covers the whole view.  Raises ``ValueError`` for a tensor the kernel
-    does not take and where the tile's visit lists overflow a block's
-    shared memory.
+    covers the whole view, one block per (frame, bin-column tile, band of
+    :func:`trace_cuda.band_rows` rows).  Raises ``ValueError`` for a tensor the
+    kernel does not take and where a block's shared memory
+    (:func:`shade_smem_bytes`: fixed but for V / 8 B of visit-list masks)
+    would exceed MAX_SMEM, which at capacity 8 is a grid of more than
+    353,568 bins.
     """
     global shade_launches
     dev = bins_ent.device
@@ -197,12 +247,12 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
             (players, "players", torch.int32, (F, 3)),
             (lights, "lights", torch.int32, (F, 3))):
         kernels.require(t, name, dtype, shape, dev)
-    smem = march_smem_bytes(cfg)
+    smem = shade_smem_bytes(cfg)
     if smem > MAX_SMEM:
-        raise ValueError(f"shade_point: visit lists of a {V}-bin grid and "
-                         f"a tile of {cfg.bin_size}**2 pixels need {smem} B "
-                         f"of shared memory, over the {MAX_SMEM} B a block "
-                         f"may use")
+        raise ValueError(f"shade_point: the visit-list masks of a {V}-bin "
+                         f"grid and a band of {trace_cuda.band_rows(cfg)} rows "
+                         f"of {cfg.bin_size} pixels need {smem} B of shared "
+                         f"memory, over the {MAX_SMEM} B a block may use")
 
     out = torch.empty((F, H, W, 3) if frames else (F, H, W),
                       dtype=torch.uint8 if frames else torch.bool,
@@ -221,7 +271,7 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
             counters.tensor(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
             cfg.hash_width, cfg.hash_height, cfg.hash_length,
             cfg.sprite_width, cfg.sprite_height, r, g, b, cfg.ambient,
-            march_threads(cfg), kernels.stream_handle(dev))
+            shade_chunk(cfg), MARCH_THREADS, kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_shade")
     shade_launches += 1
     return out
@@ -302,9 +352,10 @@ def occupancy(config: RenderConfig) -> tuple[int, ...]:
 
 
 def shade_occupancy(config: RenderConfig) -> tuple[int, ...]:
-    """The same for the winner-input point mode."""
+    """The same for the winner-input point mode, at its chunk and
+    threads."""
     return kernels.occupancy("par_shadow_shade_occupancy", config,
-                             march_threads(config))
+                             MARCH_THREADS, shade_chunk(config))
 
 
 def directional_occupancy(config: RenderConfig) -> tuple[int, ...]:

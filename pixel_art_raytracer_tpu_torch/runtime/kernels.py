@@ -44,13 +44,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
-    "par_shadow_shade": [_P] * 15 + [_I] * 13 + [_F, _I, _P],
+    "par_shadow_shade": [_P] * 15 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
-    "par_shadow_shade_occupancy": [_I] * 8 + [_P],
+    "par_shadow_shade_occupancy": [_I] * 9 + [_P],
     "par_fused_occupancy": [_I] * 8 + [_P],
 }
 

@@ -370,5 +370,5 @@ def test_cuda_main_path_launches_trace_and_shade_once(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_shade_occupancy(cuda):
     smem, blocks, regs, _ = shadow_cuda.shade_occupancy(DEFAULT_CONFIG)
-    assert smem == shadow_cuda.march_smem_bytes(DEFAULT_CONFIG)
-    assert blocks >= 1 and regs > 0
+    assert smem == shadow_cuda.shade_smem_bytes(DEFAULT_CONFIG)
+    assert blocks == 4 and regs > 0
