@@ -463,12 +463,15 @@ __device__ inline bool dda_walk(int sbx, int sby, int sbz, int lbx, int lby,
 // bin tests its first `count` slots of frame f's table (bins_ent, counts in
 // global memory), skipping the ray's own entity.  Returns true at the first
 // occluder.  The per-pixel march of the reference, kept for the pixels
-// whose key does not fit their tile's table (march_tile).
+// whose key does not fit their tile's table (march_tile).  With kCount,
+// each slab test adds 1 to *tests; without, tests is not read.
+template <bool kCount = false>
 __device__ inline bool march_occluded(const int* pos, const int* ext,
                                       const int* players,
                                       const int* bins_ent, const int* counts,
                                       int f, const Grid& g, const Ray& r,
-                                      int3 l, int max_steps) {
+                                      int3 l, int max_steps,
+                                      unsigned* tests = nullptr) {
   const int cap = g.bin_cap;
   const size_t base = static_cast<size_t>(f) * g.volume();
   return dda_walk(r.rbx, r.rby, r.rbz, l.x, l.y, l.z, g, max_steps,
@@ -477,6 +480,7 @@ __device__ inline bool march_occluded(const int* pos, const int* ext,
     for (int k = 0; k < n; ++k) {
       const int e = bins_ent[(base + flat) * cap + k];
       if (e == r.self) continue;
+      if constexpr (kCount) ++*tests;
       const int es = e >= 0 ? e : 0;
       const int* p = entity_pos(pos, players, f, es);
       const int* x = ext + 3 * static_cast<size_t>(es);

@@ -99,6 +99,14 @@
 // Shared memory is then fixed but for the V / 8 B of each key's mask
 // (ShadeSmem::bytes), and the wrapper takes the longest chunk, up to 32
 // entries, at which 4 blocks fit an SM (shadow_cuda.shade_chunk).
+// The kernel is a template on kCount: shadow_shade_kernel<false> is the
+// render path's kernel, and shadow_shade_kernel<true>, which the wrapper
+// launches only while the program is traced (runtime/tracing.py), also
+// counts its slab tests into work[kWorkShadeTests]: each thread in a
+// register, one warp reduce, one atomicAdd a block.  The count is each
+// pixel's tests up to its first hit, over its key's distinct bins in
+// first-visit order (ops/shadow.py's work["slab_tests"]), plus those of
+// the pixels that march on their own, repeats included.
 //
 // Directional mode (shadow_dir_kernel): each pixel has its own virtual far
 // light, so a key is a (start bin, light bin) pair, ~4.8 of them a graybox
@@ -246,10 +254,12 @@ constexpr unsigned long long kNoKey = ~0ull;
 // bytes spilled), which measured faster than 3 blocks without spills.
 constexpr int kDirBlocksPerSM = 4;
 
-// 64-bit counters of the directional mode, one (2,) int64 array per
-// launch's caller (added to): the union entries staged, summed over the
-// tiles, and the slab tests that the list path performed.
-enum MarchWork { kWorkStaged = 0, kWorkTests = 1 };
+// 64-bit counters, one (3,) int64 array per launch's caller (added to):
+// the directional mode's union entries staged, summed over the tiles, and
+// the slab tests its list path performed; and the winner-input mode's slab
+// tests, on its lists and in its direct march, in the launches that count
+// (shadow_shade_kernel<true>).
+enum MarchWork { kWorkStaged = 0, kWorkTests = 1, kWorkShadeTests = 2 };
 
 // The fields of a packed key, in order: the start bin's y and z, and the
 // light bin minus the start bin in x, y and z (the start bin's x is the
@@ -670,7 +680,9 @@ __device__ inline void list_next(ShadeKey& K, const par::Grid& g,
 // (par::Band::of_block), from trace.cu's winners, in the five phases of the
 // header.  One of lit and rgb is null.  All threads of the block take part;
 // blockDim.x is a multiple of 32, at least 32 * kShadeKeys and at most
-// kMarchThreads, and chunk >= kShadeKeys.
+// kMarchThreads, and chunk >= kShadeKeys.  With kCount the block adds its
+// slab tests to work[kWorkShadeTests]; without, work is not read.
+template <bool kCount>
 __global__ void __launch_bounds__(par::kMarchThreads,
                                   par::kMarchBlocksPerSM)
 shadow_shade_kernel(
@@ -678,7 +690,8 @@ shadow_shade_kernel(
     const int* __restrict__ players, const int* __restrict__ bins_ent,
     const int* __restrict__ counts, WinnerPixels px,
     unsigned char* __restrict__ lit, unsigned char* __restrict__ rgb,
-    int* __restrict__ stats, par::Grid g, int chunk) {
+    int* __restrict__ stats, unsigned long long* __restrict__ work,
+    par::Grid g, int chunk) {
   extern __shared__ __align__(16) int smem[];
   const ShadeSmem s(smem, g, g.band_pixels(), chunk);
   ShadePhaseClock phases;
@@ -694,6 +707,7 @@ shadow_shade_kernel(
   const int i0 = b.i0(g);
   const int j0 = b.j0(g);
   const int words = ShadeSmem::words(g);
+  unsigned tests = 0u;  // this thread's slab tests (kCount)
   const int3 light = make_int3(px.lights[3 * f], px.lights[3 * f + 1],
                                px.lights[3 * f + 2]);
   // The frame's light bin, C's `/`.
@@ -907,6 +921,7 @@ shadow_shade_kernel(
         for (int t = e * cap; t < e * cap + live; ++t) {
           const float4 lo = s.cand[2 * t];
           if (__float_as_int(lo.w) == r.self) continue;
+          if constexpr (kCount) ++tests;
           const float4 hi = s.cand[2 * t + 1];
           if (par::slab_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r)) {
             hit = true;
@@ -940,8 +955,9 @@ shadow_shade_kernel(
                        static_cast<float>(i), static_cast<float>(y),
                        static_cast<float>(z), s.ivx[p.q], s.ivy[p.q],
                        s.ivz[p.q], s.self[p.q]};
-      occluded = par::march_occluded(pos, ext, players, bins_ent, counts, f,
-                                     g, r, lb, par::kNoStepCap);
+      occluded = par::march_occluded<kCount>(pos, ext, players, bins_ent,
+                                             counts, f, g, r, lb,
+                                             par::kNoStepCap, &tests);
       ++direct;
     }
     const size_t o = g.pixel(f, i, j);
@@ -980,6 +996,18 @@ shadow_shade_kernel(
     for (int k = 0; k < n; ++k) longest = max(longest, s.key[k].total);
     atomicMax(stats + par::kStatStarts, n + s.ctl[1]);
     atomicMax(stats + par::kStatList, longest);
+  }
+  if constexpr (kCount) {
+    // warp_n is not read after step 2: it holds each warp's sum.
+    tests = __reduce_add_sync(par::kFullWarp, tests);
+    if (lane == 0) s.warp_n[warp] = static_cast<int>(tests);
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long block = 0ull;
+      for (int w = 0; w < nt / 32; ++w)
+        block += static_cast<unsigned>(s.warp_n[w]);
+      atomicAdd(work + kWorkShadeTests, block);
+    }
   }
 }
 
@@ -1400,22 +1428,27 @@ extern "C" int par_shadow_lit(
 // palette (P, 4) uint8, lights (F, 3) int32; the tables, players and stats
 // as for par_shadow_lit; background bg_* and ambient as in RenderConfig.
 // Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
-// else lit (F, H, W) uint8 (0/1).  One block of `threads` per (frame, bin
-// column, band of the Grid's band_rows rows); chunk >= kShadeKeys list
-// entries staged at once.  Returns cudaGetLastError().
+// else lit (F, H, W) uint8 (0/1).  work (3,) int64 (MarchWork), added to,
+// or null: with it the launch counts its slab tests (shadow_shade_kernel
+// <true>), without it it runs the kernel that does not count.  One block of
+// `threads` per (frame, bin column, band of the Grid's band_rows rows);
+// chunk >= kShadeKeys list entries staged at once.  Returns
+// cudaGetLastError().
 extern "C" int par_shadow_shade(
     const void* pos, const void* ext, const void* players,
     const void* bins_ent, const void* counts, const void* winner,
     const void* sprite_id, const void* atlas_depth, const void* atlas_color,
     const void* atlas_normal, const void* palette, const void* lights,
-    void* lit, void* rgb, void* stats, int n_frames, int view_w, int view_h,
-    int bin_size, int bin_cap, int hash_w, int hash_h, int hash_l,
-    int sprite_w, int sprite_h, int bg_r, int bg_g, int bg_b, float ambient,
-    int chunk, int threads, void* stream) {
+    void* lit, void* rgb, void* stats, void* work, int n_frames, int view_w,
+    int view_h, int bin_size, int bin_cap, int hash_w, int hash_h,
+    int hash_l, int sprite_w, int sprite_h, int bg_r, int bg_g, int bg_b,
+    float ambient, int chunk, int threads, void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
   const size_t smem = shade_smem(g, chunk);
-  const int rc = allow_smem(shadow_shade_kernel, smem);
+  const auto kernel = work == nullptr ? shadow_shade_kernel<false>
+                                      : shadow_shade_kernel<true>;
+  const int rc = allow_smem(kernel, smem);
   if (rc != 0) return rc;
   const WinnerPixels px{static_cast<const int*>(winner),
                         static_cast<const int*>(sprite_id),
@@ -1431,12 +1464,12 @@ extern "C" int par_shadow_shade(
                         bg_b,
                         ambient};
   const dim3 grid(hash_w * hash_h, n_frames, g.bands);
-  shadow_shade_kernel<<<grid, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),
       static_cast<const int*>(players), static_cast<const int*>(bins_ent),
       static_cast<const int*>(counts), px, static_cast<unsigned char*>(lit),
-      static_cast<unsigned char*>(rgb), static_cast<int*>(stats), g, chunk);
+      static_cast<unsigned char*>(rgb), static_cast<int*>(stats),
+      static_cast<unsigned long long*>(work), g, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1444,7 +1477,7 @@ extern "C" int par_shadow_shade(
 // (F, H, W) int32 (the G-buffer's surface point and entity); inv (F, 3)
 // float32 the reciprocal direction and offsets (F, 3) int32 the far-light
 // offsets K of each frame (ops/shadow_dir.direction_constants); stats as
-// for par_shadow_lit and work (2,) int64 (MarchWork), added to; max_steps
+// for par_shadow_lit and work (3,) int64 (MarchWork), added to; max_steps
 // >= 0 the step cap; fields (10,) int32 on the host, each key field's lo
 // then its bits (ops/shadow_dir.key_fields); the rest as for
 // par_shadow_lit.  Returns cudaGetLastError().
@@ -1498,14 +1531,15 @@ extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
 }
 
 // The same for the winner-input point mode with chunks of `chunk` list
-// entries.
+// entries (the kernel that does not count).
 extern "C" int par_shadow_shade_occupancy(int view_w, int view_h,
                                           int bin_size, int bin_cap,
                                           int hash_w, int hash_h, int hash_l,
                                           int threads, int chunk, int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_shade_kernel, shade_smem(g, chunk), threads, out);
+  return occupancy(shadow_shade_kernel<false>, shade_smem(g, chunk), threads,
+                   out);
 }
 
 // The same for the directional mode.

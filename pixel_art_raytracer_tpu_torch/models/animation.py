@@ -17,6 +17,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..device import resolve
+from ..runtime import tracing
 from .batched import render_states_batched
 from .deferred import DeferredRenderer, DeviceScene
 
@@ -53,7 +54,8 @@ def scene_with_player(dscene: DeviceScene, player_pos) -> DeviceScene:
     ``player_pos`` (3,): ``pos`` is cloned with row 0 set, so the caller's
     tensor is never written."""
     pos = dscene.pos.clone()
-    pos[0] = torch.as_tensor(player_pos, dtype=torch.int32).to(pos.device)
+    with tracing.span("sync.upload"):
+        pos[0] = torch.as_tensor(player_pos, dtype=torch.int32).to(pos.device)
     return dataclasses.replace(dscene, pos=pos)
 
 

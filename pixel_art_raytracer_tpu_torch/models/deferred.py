@@ -21,6 +21,7 @@ from ..device import resolve
 from ..ops import binning
 from ..ops import shade as shade_ops
 from ..ops.trace import GBufferArrays
+from ..runtime import tracing
 from ..scene import Light, Scene
 from . import batched
 
@@ -187,8 +188,9 @@ class DeferredRenderer:
     def _lights(dscene: DeviceScene, light) -> torch.Tensor:
         """``light`` as the (1, 3) int32 batch of one frame on the scene's
         device."""
-        return torch.as_tensor(light, dtype=torch.int32,
-                               device=dscene.device)[None]
+        with tracing.span("sync.upload"):
+            return torch.as_tensor(light, dtype=torch.int32,
+                                   device=dscene.device)[None]
 
     def render_numpy(self, scene: Scene, light: Light, *,
                      device=None) -> np.ndarray:

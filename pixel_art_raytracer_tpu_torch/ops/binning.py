@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..runtime import tracing
 from .cstyle import c_div
 
 
@@ -65,8 +66,11 @@ def covered_bins(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
     max_zi = c_div(z1 + bs - 1, bs).clamp(max=cfg.hash_length)
 
     oa, ob, oc = np.meshgrid(*(np.arange(s) for s in spans), indexing="ij")
-    oa, ob, oc = (torch.as_tensor(o.reshape(-1), dtype=torch.int32,
-                                  device=pos.device) for o in (oa, ob, oc))
+    # Copies from pageable memory: on the card each waits for the stream.
+    with tracing.span("sync.upload"):
+        oa, ob, oc = (torch.as_tensor(o.reshape(-1), dtype=torch.int32,
+                                      device=pos.device)
+                      for o in (oa, ob, oc))
     bx = min_xi[..., None] + oa
     by = min_yi[..., None] + ob
     bz = min_zi[..., None] + oc
@@ -117,7 +121,10 @@ def ranked_pairs(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
     seg_start = torch.ones_like(sorted_bin, dtype=torch.bool)
     seg_start[1:] = sorted_bin[1:] != sorted_bin[:-1]
     rank = idx - torch.cummax(torch.where(seg_start, idx, 0), dim=0).values
-    totals = torch.bincount(flat, minlength=V + 1)
+    # bincount reads its input's range to size its output: on the card the
+    # host waits for the sort and the scan above.
+    with tracing.span("sync.bincount"):
+        totals = torch.bincount(flat, minlength=V + 1)
     return sorted_bin, pair_ent, rank, totals
 
 

@@ -10,8 +10,10 @@ CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`,
 anything else raises.  ``launches``, ``directional_launches`` and
 ``shade_launches`` count the three modes' launches; ``counters`` holds
 the kernel's device counters of all three (pixels marched directly, the
-most keys in a tile, the longest visit list) and of the directional mode
-(union entries staged, slab tests performed).
+most keys in a tile, the longest visit list), of the directional mode
+(union entries staged, slab tests performed) and, while the program is
+traced (``runtime/tracing.py``), of the winner-input mode (slab tests
+performed, and the pixels of those launches on the host).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import ctypes
 import torch
 
 from ..config import RenderConfig
-from ..runtime import kernels
+from ..runtime import kernels, tracing
 from . import shade, shadow, shadow_dir, trace, trace_cuda
 
 launches = 0
@@ -216,6 +218,11 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     (:func:`shade_smem_bytes`: fixed but for V / 8 B of visit-list masks)
     would exceed MAX_SMEM, which at capacity 8 is a grid of more than
     353,568 bins.
+
+    While a profiler records (``runtime/tracing.active``) the launch runs
+    the kernel that counts its slab tests into ``counters``
+    (``shade_slab_tests``) and adds its F * H * W pixels to
+    ``counters.shade_pixels``; otherwise the kernel that does not count.
     """
     global shade_launches
     dev = bins_ent.device
@@ -258,6 +265,9 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
                       dtype=torch.uint8 if frames else torch.bool,
                       device=dev)
     r, g, b = cfg.background[:3]
+    # Made at the first launch, so a traced launch adds no device operation.
+    work = counters.work(dev)
+    counting = tracing.active()
     lib = kernels.library()
     with torch.cuda.device(dev):
         rc = lib.par_shadow_shade(
@@ -268,12 +278,15 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
             palette.data_ptr(), lights.data_ptr(),
             None if frames else out.data_ptr(),
             out.data_ptr() if frames else None,
-            counters.tensor(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
-            cfg.hash_width, cfg.hash_height, cfg.hash_length,
+            counters.tensor(dev).data_ptr(),
+            work.data_ptr() if counting else None, F, W, H, cfg.bin_size,
+            cap, cfg.hash_width, cfg.hash_height, cfg.hash_length,
             cfg.sprite_width, cfg.sprite_height, r, g, b, cfg.ambient,
             shade_chunk(cfg), MARCH_THREADS, kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_shade")
     shade_launches += 1
+    if counting:
+        counters.shade_pixels += F * H * W
     return out
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RenderConfig
+from ..runtime import tracing
 
 INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -204,8 +205,9 @@ def texel_attributes(hit, texel, atlas_color, atlas_normal, palette,
     colour (..., 4) uint8 and the normal (..., 3) float32, or the
     background colour and a zero normal where ``hit`` is False."""
     cidx = atlas_color.reshape(-1)[texel]
-    bg = torch.tensor(config.background, dtype=torch.uint8,
-                      device=hit.device)
+    with tracing.span("sync.upload"):
+        bg = torch.tensor(config.background, dtype=torch.uint8,
+                          device=hit.device)
     color = torch.where(hit[..., None], palette[cidx.long()], bg)
     normal = torch.where(hit[..., None], atlas_normal.reshape(-1, 3)[texel],
                          0.0)

@@ -44,7 +44,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
-    "par_shadow_shade": [_P] * 15 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
+    "par_shadow_shade": [_P] * 16 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
@@ -174,14 +174,19 @@ class MarchCounters:
     marched directly, the most keys one tile held (``max_starts``: start
     bins, or (start bin, light bin) pairs in the directional mode; the
     table's size + 1 where some did not fit) and the longest visit list;
-    and a (2,) int64 tensor (csrc/shadow.cu MarchWork, written by the
-    directional mode only) of the union entries staged (``staged_entries``,
-    summed over the tiles) and the slab tests its list path performed
-    (``slab_tests``)."""
+    and a (3,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
+    mode's union entries staged (``staged_entries``, summed over the tiles)
+    and the slab tests its list path performed (``slab_tests``), and the
+    slab tests of the winner-input mode's launches that count
+    (``shade_slab_tests``: its lists and its direct march).  Those launches
+    run only while the program is traced (``runtime/tracing.active``);
+    their pixels, F * H * W a launch, add to the host count
+    ``shade_pixels`` beside the tensor."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}
         self._work: dict[torch.device, torch.Tensor] = {}
+        self.shade_pixels = 0
 
     def tensor(self, device: torch.device) -> torch.Tensor:
         """The (3,) int32 counters a launch on ``device`` writes to."""
@@ -191,26 +196,29 @@ class MarchCounters:
         return self._stats[device]
 
     def work(self, device: torch.device) -> torch.Tensor:
-        """The (2,) int64 counters a directional launch on ``device`` adds
-        to."""
+        """The (3,) int64 counters a directional or counting winner-input
+        launch on ``device`` adds to."""
         if device not in self._work:
-            self._work[device] = torch.zeros(2, dtype=torch.int64,
+            self._work[device] = torch.zeros(3, dtype=torch.int64,
                                              device=device)
         return self._work[device]
 
     def reset(self) -> None:
         for t in (*self._stats.values(), *self._work.values()):
             t.zero_()
+        self.shade_pixels = 0
 
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
         vals = [t.tolist() for t in self._stats.values()] or [[0, 0, 0]]
-        work = [t.tolist() for t in self._work.values()] or [[0, 0]]
+        work = [t.tolist() for t in self._work.values()] or [[0, 0, 0]]
         return {"direct_pixels": sum(v[0] for v in vals),
                 "max_starts": max(v[1] for v in vals),
                 "max_list": max(v[2] for v in vals),
                 "staged_entries": sum(w[0] for w in work),
-                "slab_tests": sum(w[1] for w in work)}
+                "slab_tests": sum(w[1] for w in work),
+                "shade_slab_tests": sum(w[2] for w in work),
+                "shade_pixels": self.shade_pixels}
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -24,6 +24,7 @@ from ..ops.cstyle import normal_to_debug_color
 from ..ops.overlay import draw_line_host
 from ..scene import Light, Scene
 from ..utils.gif import write_gif
+from . import tracing
 
 
 @dataclasses.dataclass
@@ -73,14 +74,16 @@ class Session:
 
     def feed(self, keys: list[str], mouse: tuple[int, int] | None = None
              ) -> FrameRecord:
-        """Apply one frame's events, render, record, return the frame."""
-        if "escape" in keys:
-            self.running = False
-            keys = [k for k in keys if k != "escape"]
-        self.state = apply_keys(self.state, keys)
-        if mouse is not None:
-            self.mouse = mouse
-        return self._render_frame()
+        """Apply one frame's events, render, record, return the frame
+        (one ``frame`` span of ``runtime/tracing.py``)."""
+        with tracing.span("frame"):
+            if "escape" in keys:
+                self.running = False
+                keys = [k for k in keys if k != "escape"]
+            self.state = apply_keys(self.state, keys)
+            if mouse is not None:
+                self.mouse = mouse
+            return self._render_frame()
 
     def run_script(self, script: list[list[str]]) -> list[FrameRecord]:
         for keys in script:
@@ -95,26 +98,32 @@ class Session:
         scene_f = scene_with_player(self.dscene, self.state.player_pos)
         gbuf, frame = self.renderer.render_with_gbuffer(scene_f,
                                                         self.state.light)
-        image = frame.cpu().numpy().copy()
+        with tracing.span("sync.fetch"):
+            host = frame.cpu()
         cfg = self.config
 
         # Mouse-pixel inspector (alternative.cpp:380-382, 698-700): the
         # readout clamps the cursor into the frame...
         mx = min(max(self.mouse[0], 0), cfg.view_width - 1)
         my = min(max(self.mouse[1], 0), cfg.view_height - 1)
-        mp_y = int(gbuf.y[my, mx])
-        mp_z = int(gbuf.z[my, mx])
+        with tracing.span("sync.readback"):
+            mp_y = int(gbuf.y[my, mx])
+            mp_z = int(gbuf.z[my, mx])
 
         # ...while the debug overlay's red line from the hovered pixel to
         # the light starts at the unclamped cursor x (alternative.cpp:
         # 762-772; the JAX session does the same).
-        lx, ly, lz = self.state.light.tolist()
-        draw_line_host(image, self.mouse[0],
-                       cfg.view_height - (mp_y + mp_z),
-                       lx, cfg.view_height - (ly + lz), (255, 0, 0))
+        with tracing.span("frame.overlay"):
+            image = host.numpy().copy()
+            lx, ly, lz = self.state.light.tolist()
+            draw_line_host(image, self.mouse[0],
+                           cfg.view_height - (mp_y + mp_z),
+                           lx, cfg.view_height - (ly + lz), (255, 0, 0))
 
-        rec = FrameRecord(image=image, mouse_pixel_y=mp_y, mouse_pixel_z=mp_z)
-        self.frames.append(rec)
+        with tracing.span("frame.keep"):
+            rec = FrameRecord(image=image, mouse_pixel_y=mp_y,
+                              mouse_pixel_z=mp_z)
+            self.frames.append(rec)
         return rec
 
     # -- debug / observability --------------------------------------------

@@ -30,6 +30,8 @@ from ..models.animation import apply_keys, scene_with_player
 from ..models.deferred import DeferredRenderer, DeviceScene
 from ..ops.overlay import draw_line_host
 from ..scene import Light, Scene, default_light
+from ..utils.metrics import profiler_trace
+from . import tracing
 from .session import host_state
 
 # Escape-sequence suffix -> binding key (CSI arrows and page keys).
@@ -193,19 +195,25 @@ class LiveViewer:
         light (alternative.cpp:762-772), and the hovered pixel's world y/z
         readout (alternative.cpp:698-700) into ``self.mouse_pixel``."""
         cfg = self.config
-        d = scene_with_player(self.dscene, self.state.player_pos)
-        gbuf, frame = self.renderer.render_with_gbuffer(d, self.state.light)
-        image = frame.cpu().numpy().copy()
-        mx = min(max(self.mouse[0], 0), cfg.view_width - 1)
-        my = min(max(self.mouse[1], 0), cfg.view_height - 1)
-        # Fetch only the hovered texel of the G-buffer: two scalars.
-        mp_y = int(gbuf.y[my, mx])
-        mp_z = int(gbuf.z[my, mx])
-        self.mouse_pixel = (mp_y, mp_z)
-        lx, ly, lz = self.state.light.tolist()
-        draw_line_host(image, mx, cfg.view_height - (mp_y + mp_z),
-                       lx, cfg.view_height - (ly + lz), (255, 0, 0))
-        return image
+        with tracing.span("frame"):
+            d = scene_with_player(self.dscene, self.state.player_pos)
+            gbuf, frame = self.renderer.render_with_gbuffer(d,
+                                                            self.state.light)
+            with tracing.span("sync.fetch"):
+                host = frame.cpu()
+            mx = min(max(self.mouse[0], 0), cfg.view_width - 1)
+            my = min(max(self.mouse[1], 0), cfg.view_height - 1)
+            # Fetch only the hovered texel of the G-buffer: two scalars.
+            with tracing.span("sync.readback"):
+                mp_y = int(gbuf.y[my, mx])
+                mp_z = int(gbuf.z[my, mx])
+            self.mouse_pixel = (mp_y, mp_z)
+            with tracing.span("frame.overlay"):
+                image = host.numpy().copy()
+                lx, ly, lz = self.state.light.tolist()
+                draw_line_host(image, mx, cfg.view_height - (mp_y + mp_z),
+                               lx, cfg.view_height - (ly + lz), (255, 0, 0))
+            return image
 
     def step(self, raw_input_chunk: str) -> tuple[str, bool]:
         """One loop iteration: apply events, render, return (blit, quit)."""
@@ -345,6 +353,11 @@ def main(argv=None) -> None:
                          "a cycling key script and reports per-frame ms "
                          "(the reference's own frame-time print, "
                          "alternative.cpp:815-817)")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="record the loop with torch.profiler and write "
+                         "a Chrome trace to DIR/trace.json: the program's "
+                         "spans (frame, batch, batch.<stage>, sync.*) on "
+                         "the kernels' clock")
     args = ap.parse_args(argv)
 
     scene = graybox_world() if args.scene == "graybox" else demo_world(10)
@@ -353,7 +366,8 @@ def main(argv=None) -> None:
         # The reference is an *interactive* renderer: this measures the
         # per-presented-frame latency of the live loop, including the
         # per-frame launches and the frame fetch to the host.
-        n, steps, t_wall = bench_loop(viewer, args.frames or 100)
+        with profiler_trace(args.profile):
+            n, steps, t_wall = bench_loop(viewer, args.frames or 100)
         steps = sorted(steps)
         if steps:
             med = steps[len(steps) // 2] * 1e3
@@ -363,7 +377,8 @@ def main(argv=None) -> None:
                   f"{1e3 / med:.1f} fps), wall {t_wall:.1f}s "
                   f"(incl. the kernels' first build)")
         return
-    n = viewer.run(max_frames=args.frames)
+    with profiler_trace(args.profile):
+        n = viewer.run(max_frames=args.frames)
     print(f"\npresented {n} frames")
 
 

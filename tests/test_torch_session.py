@@ -193,8 +193,10 @@ def test_live_viewer_run_matches_jax(jax_renderer):
         n = make().run(input_fn=lambda: next(chunks),
                        output_fn=text.append, max_frames=4)
         assert n == 4
-        out[name] = [t.split("ms/frame")[0][:-6] if "ms/frame" in t else t
-                     for t in text]
+        # Each frame's status line starts with its ms/frame figure, at
+        # least 6 characters wide: cut the line from there.
+        out[name] = [t.split("ms/frame")[0].rsplit("\n", 1)[0]
+                     if "ms/frame" in t else t for t in text]
     assert out["port"] == out["jax"]
 
 
