@@ -72,20 +72,31 @@ lists the winner-input mode once refused) through ``render_states``
 (trace 1 + the winner-input mode 1): both kernels equal their plain
 versions and frame 0 equals ``cpp_render_frame``.
 
+Then the binning kernel (``csrc/binning.cu``, the full rebin) on graybox
+(F = 1), config 5 at s = 2, that 21,632-bin grid (three count tiles) and a
+64,000-bin grid (eight): its tables equal the plain version's
+(``binning.plain_tables`` on the card) and ``cpp_build_bins``', its
+static-cache layout the plain version's, and on graybox with ``players``
+as the live frame passes them (F = 1, and F = 4 distinct), with its time,
+the plain version's and its bound.
+
 Then the port's run entry points, each driven with the launch counts set
-to 0 just before it and read just after:
+to 0 just before it and read just after (every ``StaticBins`` cache built
+there and every full rebin is the binning kernel's 2 launches):
 
   * ``bench.run`` (``python -m pixel_art_raytracer_tpu_torch.bench``) on
     graybox at F = 64, 3 repeats, no settle-wait: center frame 0 of both
     paths' timed output equal to ``cpp_render_frame``, and exactly trace 1
     + the winner-input mode 1 a batch on the two-kernel path and fused 1 on
-    the fused path; its JSON line printed;
+    the fused path, binning 2 for the cache; its JSON line printed;
   * ``bench_scale.run`` on config 5 with ``--nonramp``'s atlas (half the
     boxes with a depth map that varies along a row) at s = 2 and 4: frame 0
     of both paths equal to ``cpp_render_frame``, ``render`` to its box
-    filter, exact launches, and the three kernels equal to their plain
+    filter, exact launches (binning 2 for the cache and each single
+    frame), and the three kernels equal to their plain
     versions on frame 0; its JSON lines printed;
-  * ``make_demo``'s 32-frame sweep (trace 1 + the winner-input mode 1):
+  * ``make_demo``'s 32-frame sweep (trace 1 + the winner-input mode 1,
+    binning 2 for its cache):
     the GIF and the PNG byte-equal to ``docs/graybox_sweep.gif`` and
     ``docs/graybox_frame.png``.
 
@@ -96,25 +107,30 @@ inputs:
 
   * ``BruteForceRenderer`` on BASELINE config 1 (two boxes, 64x64): its
     entity index equals ``cpp_trace_pixels``', its unshadowed frame the
-    CPU's, its ``shadow=True`` frame (one shadow launch) ``cpp_render_frame``;
+    CPU's, its ``shadow=True`` frame (shadow 1, binning 2)
+    ``cpp_render_frame``;
     then its trace of graybox at full width, timed, with the pixels whose
     winner differs from the deferred path's printed (graybox's bins
     overflow, so they may);
   * ``Session`` on graybox: a 24-frame script of every binding and cursor
-    moves (trace 1 + shadow 1 a frame), frames 0, 12 and 23 equal to
+    moves (trace 1 + shadow 1 + binning 2 a frame), frames 0, 12 and 23
+    equal to
     ``cpp_render_frame`` with the red line drawn at endpoints from
     ``cpp_trace_pixels``' y and z, the mouse readouts, ``debug_report()``
     (from ``cpp_build_bins``' counts) and ``normal_view()`` (from the
     oracle's normals) equal, ``save_gif`` on the native encoder; then 8
-    frames with ``fuse_trace_shadow`` (fused 1 a frame) equal to the
+    frames with ``fuse_trace_shadow`` (fused 1 + binning 2 a frame) equal
+    to the
     two-kernel session's;
   * ``LiveViewer`` on graybox through the viewer's --bench loop, 100
-    frames (trace 1 + shadow 1 a frame), frame 0 held as above; the loop's
+    frames (trace 1 + shadow 1 + binning 2 a frame), frame 0 held as
+    above; the loop's
     median ms/frame and the render + overlay share;
   * BASELINE config 2 (the 101-box overlap scene at 256x256): a 32-frame
     light sweep through ``render_long`` in chunks of 8 (trace 4 + the
-    winner-input mode 4), then again after the last chunk's file is
-    deleted (trace 1 + the winner-input mode 1, the same frames), frames 0
+    winner-input mode 4 + binning 8: no cache there), then again after the
+    last chunk's file is deleted (trace 1 + the winner-input mode 1 +
+    binning 2, the same frames), frames 0
     and 31 equal to ``cpp_render_frame``, ``render_with_gbuffer`` of frame
     0's state equal to frame 0, the GIF written by the native encoder;
     ms/frame and Mrays/s.
@@ -127,7 +143,8 @@ Last, the inverse fitter and the sharded paths (``inverse_phase``,
     (20, 20, 40) (every lit pixel there has no Lambert gain: the gradient
     is exactly 0 and the light stays, which the phase checks), with
     shadows from (400, 120, 60), and without shadows from (20, 20, 40);
-    exact launches (trace 1, and shadow 1 with shadows, a step); the loss
+    exact launches (trace 1, binning 2, and shadow 1 with shadows, a
+    step); the loss
     decreasing; ``soft_frame`` and the gradient with the kernels equal to
     the same with the plain versions on the card at the start and the
     fitted light; ``trace.cu`` and the point mode of ``shadow.cu`` under
@@ -137,7 +154,8 @@ Last, the inverse fitter and the sharded paths (``inverse_phase``,
     row render of 8 frames on (frames 2, rows 1) and (frames 1, rows 2),
     one ``sharded_train_step`` on both, the entity-sharded render of
     ``demo_world(24)`` (early_exit off); every rank's result equal to the
-    single process's, trace 1 + shadow 1 launches a rank in each run; the
+    single process's, trace 1 + shadow 1 launches a rank in each run
+    (and binning 2 in the train step and the entity-sharded render); the
     windowed and shard kernels equal to their plain versions on the
     ranks' inputs; ms per call (a functional check on one card, not a
     scaling measurement).
@@ -208,10 +226,11 @@ from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
 from pixel_art_raytracer_tpu_torch.models.inverse import InverseLightFitter
 from pixel_art_raytracer_tpu_torch.models.supersample import (
-    SupersampledRenderer, box_filter, scale_scene)
-from pixel_art_raytracer_tpu_torch.ops import (binning, fused, fused_cuda,
-                                               shade, shadow, shadow_cuda,
-                                               shadow_dir, trace, trace_cuda)
+    SupersampledRenderer, box_filter, scale_scene, scaled_config)
+from pixel_art_raytracer_tpu_torch.ops import (binning, binning_cuda, fused,
+                                               fused_cuda, shade, shadow,
+                                               shadow_cuda, shadow_dir, trace,
+                                               trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops.cstyle import normal_to_debug_color
 from pixel_art_raytracer_tpu_torch.ops.overlay import draw_line_host
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
@@ -586,9 +605,131 @@ def wide_grid_phase(card: str) -> list[dict]:
     return rows
 
 
+BINNING_SOURCE = ("pixel_art_raytracer_tpu_torch/csrc/binning.cu",
+                  "none: the full rebin, XLA's sort in "
+                  "pixel_art_raytracer_tpu/ops/binning.py")
+BINNING_REPS = 100
+# Offsets of the player in the binning phase's four frames.
+BINNING_PLAYERS = [[0, 0, 0], [40, 0, 0], [-30, 5, 20], [200, 10, -10]]
+# A 40 x 40 x 40 grid (bins of 4 pixels): 64,000 bins, eight tiles of the
+# binning kernel's count pass.
+TILED_GRID = RenderConfig(view_width=160, view_height=160, view_length=160,
+                          bin_size=4)
+BINNING_KERNELS = ("bin_count_kernel", "bin_place_kernel")
+
+
+def kernel_device_ms(fn, reps: int, names) -> float:
+    """Mean device milliseconds a call of ``fn()`` spends in the kernels
+    whose names contain one of ``names``, from a torch profiler over
+    ``reps`` calls after one warm-up call: the kernels' own time where a
+    call's launches cost the host more than the card (CUDA events
+    around back-to-back calls would time the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.device_time_total for ev in prof.key_averages()
+             if any(n in ev.key for n in names))
+    return us / 1e3 / reps
+
+
+def binning_call(tag: str, *args, **kwargs):
+    """``binning.bin_tables(*args, **kwargs)`` on the card; raises unless
+    it launched the binning kernel twice."""
+    before = binning_cuda.launches
+    got = binning.bin_tables(*args, **kwargs)
+    if binning_cuda.launches != before + 2:
+        raise RuntimeError(f"{tag}: the binning kernel launched "
+                           f"{binning_cuda.launches - before} times, not 2")
+    return got
+
+
+def binning_phase(card: str) -> list[dict]:
+    """The binning kernel on graybox (F = 1), config 5 at s = 2, WIDE_GRID
+    and TILED_GRID: raises unless its tables equal ``binning.plain_tables``
+    on the card and ``cpp_build_bins``, and its static-cache layout (window
+    capacity + 1) the plain version's, with two launches a call; on
+    graybox also with ``players`` as the live frame's full rebin passes
+    them (``pos[:1]``), and for BINNING_PLAYERS' four frames against the
+    plain version.  Prints its time, the plain version's and its bound
+    (each box's ``pos`` and ``ext`` read once, the tables written once);
+    returns its JSON rows."""
+    cases = {
+        "graybox": (graybox_world(DEFAULT_CONFIG), DEFAULT_CONFIG),
+        "config 5, s = 2": (scale_scene(config5_scene(), 2),
+                            scaled_config(bench_scale.CONFIG, 2)),
+        "52x52x8 grid": (config5_scene(config=WIDE_GRID), WIDE_GRID),
+        "40x40x40 grid": (overlap_scene(TILED_GRID, n_side=40), TILED_GRID),
+    }
+    rows = []
+    for tag, (scene, cfg) in cases.items():
+        spans = binning.entity_span_bound(scene.ext.max(axis=0), cfg)
+        ds = DeviceScene.from_scene(scene, cfg)
+        cap = cfg.bin_capacity
+        for window, ring in ((cap, True), (cap + 1, False)):
+            args = (ds.pos, ds.ext, None, cfg, spans, window, ring)
+            got = binning_call(tag, *args)
+            want = binning.plain_tables(*args)
+            for what, g, w in zip(("ids", "counts"), got, want):
+                require_equal(tag, f"binning kernel {what} at window "
+                              f"{window}", g, w)
+            if ring:
+                be, cnt = got
+        obe, ocnt = native.cpp_build_bins(scene, cfg)
+        require_equal(tag, "binning kernel vs cpp_build_bins",
+                      be[0].cpu(), torch.from_numpy(obe))
+        require_equal(tag, "binning kernel counts vs cpp_build_bins",
+                      cnt[0].cpu(), torch.from_numpy(ocnt))
+        if tag == "graybox":
+            live = binning_call(tag, ds.pos, ds.ext, ds.pos[:1], cfg, spans,
+                                cap, ring=True)
+            for what, g, w in zip(("ids", "counts"), live, (be, cnt)):
+                require_equal(tag, f"binning kernel {what} with players "
+                              f"pos[:1]", g, w)
+            players = ds.pos[:1] + torch.tensor(BINNING_PLAYERS,
+                                                dtype=torch.int32,
+                                                device=ds.pos.device)
+            args = (ds.pos, ds.ext, players, cfg, spans, cap, True)
+            for what, g, w in zip(("ids", "counts"), binning_call(tag, *args),
+                                  binning.plain_tables(*args)):
+                require_equal(tag, f"binning kernel {what} for "
+                              f"{len(BINNING_PLAYERS)} players", g, w)
+            print(f"{tag} binning kernel: == with players pos[:1], and == "
+                  f"plain version for {len(BINNING_PLAYERS)} players")
+        args = (ds.pos, ds.ext, None, cfg, spans, cap, True)
+        ms = kernel_device_ms(lambda: binning.bin_tables(*args),
+                              BINNING_REPS, BINNING_KERNELS)
+        call_ms = cuda_ms(lambda: binning.bin_tables(*args), BINNING_REPS)
+        plain_ms = cuda_ms(lambda: binning.plain_tables(*args), TIMED_REPS)
+        n_bytes = nbytes(ds.pos, ds.ext, be, cnt)
+        bound_ms, bound_by = bound(n_bytes, 0)
+        print(f"{tag} binning kernel: == plain version and cpp_build_bins, "
+              f"static layout == plain; {scene.n_entities} boxes, "
+              f"{cfg.hash_volume} bins, {binning_cuda.chunks(len(scene.pos))}"
+              f" chunks, {binning_cuda.tiles(cfg)} tiles, "
+              f"{binning_cuda.smem_bytes(cfg)} B of shared memory a count "
+              f"block; {ms:.4f} ms on the card (a call back to back "
+              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}, {ms / bound_ms:.1f}x) per "
+              f"call, 2 launches  [{card}]")
+        rows.append({"name": f"binning {tag}", "route": "cuda",
+                     "source": BINNING_SOURCE[0],
+                     "replaces": BINNING_SOURCE[1], "launches": 2,
+                     "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+        del ds, be, cnt, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
 def reset_launches() -> None:
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
     shadow_cuda.directional_launches = shadow_cuda.shade_launches = 0
+    binning_cuda.launches = 0
 
 
 read_launches = bench.launch_counts
@@ -801,25 +942,31 @@ def config5_phase(card: str) -> list[dict]:
     return rows
 
 
-def path_launches_are(tag: str, tally: dict, got: dict[str, int]) -> None:
+def path_launches_are(tag: str, tally: dict, got: dict[str, int],
+                      rebins: int = 0) -> None:
     """Raise unless each path of a bench's launch ``tally`` (path ->
     batches and launches, ``bench.on_path``) launched exactly trace 1 +
-    shadow 1 (two-kernel) or fused 1 (fused) a batch, and the launch
-    counts ``got`` of the whole run are the paths' sum."""
+    shadow 1 (two-kernel) or fused 1 (fused) a batch, the two-kernel path
+    the binning kernel's 2 for each of its ``rebins`` full rebins (single
+    frames), and the launch counts ``got`` of the whole run are the paths'
+    sum and the 2 binning launches of the run's ``StaticBins`` cache."""
     for path, kinds in (("two_kernel", ("trace", "shadow_shade")),
                         ("fused", ("fused",))):
         counts = {k: n for k, n in tally[path].items() if k != "batches"}
         want = {k: tally[path]["batches"] if k in kinds else 0
                 for k in counts}
+        if path == "two_kernel":
+            want["binning"] = 2 * rebins
         print(f"{tag}, {path} path: {tally[path]['batches']} batches, "
               f"launches {counts}")
         if counts != want:
             raise RuntimeError(f"{tag}, {path} path: launches {counts}, "
                                f"expected {want}")
     total = {k: sum(t[k] for t in tally.values()) for k in got}
+    total["binning"] += 2
     if total != got:
         raise RuntimeError(f"{tag}: launches {got} in the run, the paths "
-                           f"count {total}")
+                           f"and the cache count {total}")
 
 
 def bench_phase(card: str, scene) -> None:
@@ -868,7 +1015,9 @@ def bench_scale_phase(card: str) -> list[dict]:
         if any(result.differing.values()):
             raise RuntimeError(f"{tag}: pixels differing from "
                                f"cpp_render_frame {result.differing}")
-        path_launches_are(tag, result.summary["launches"], got)
+        # Single frames: BENCH_SCALE_ITERS + 1 timed and one base-size frame.
+        path_launches_are(tag, result.summary["launches"], got,
+                          rebins=BENCH_SCALE_ITERS + 2)
         print(f"{tag}: frame 0 of both paths == cpp_render_frame, render == "
               f"its box filter; {time.perf_counter() - t0:.2f} s  [{card}]")
         print(json.dumps(result.summary))
@@ -892,7 +1041,8 @@ def make_demo_phase(card: str, scene) -> None:
     reset_launches()
     frames = make_demo.render_sweep(scene, DEFAULT_CONFIG, make_demo.FRAMES,
                                     "cuda")
-    launches_are("make_demo", {"trace": 1, "shadow_shade": 1})
+    launches_are("make_demo", {"trace": 1, "shadow_shade": 1,
+                               "binning": 2})
     with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
         encoder = make_demo.write_demo(tmp, frames)
         for name in ("graybox_sweep.gif", "graybox_frame.png"):
@@ -911,13 +1061,13 @@ def gbuffer_frame_is(tag: str, r, ds, light, want) -> int:
     """``r.render_with_gbuffer`` of the player where ``ds`` puts it under
     ``light``, the launch counts set to 0 just before and read just after:
     raises unless it launched trace 1 + the G-buffer mode of shadow.cu 1
-    and its frame equals ``want`` (H, W, 3) (an array or a tensor).
+    + binning 2 (its full rebin) and its frame equals ``want`` (H, W, 3) (an array or a tensor).
     Returns the G-buffer mode's launches (1), for its kernel row on the
     path ``tag``."""
     reset_launches()
     _, frame = r.render_with_gbuffer(ds, light)
     got = launches_are(f"{tag}, render_with_gbuffer (G-buffer mode)",
-                       {"trace": 1, "shadow": 1})
+                       {"trace": 1, "shadow": 1, "binning": 2})
     require_equal(tag, "render_with_gbuffer frame", frame.cpu(),
                   torch.as_tensor(want))
     return got["shadow"]
@@ -1109,7 +1259,8 @@ def brute_phase(card: str, scene, ds, renderer) -> list[dict]:
     shadowed = BruteForceRenderer(CONFIG1, shadow=True)
     reset_launches()
     frame = shadowed.render(ds1, light)
-    launches = launches_are(f"{tag}, shadow=True", {"shadow": 1})
+    launches = launches_are(f"{tag}, shadow=True",
+                            {"shadow": 1, "binning": 2})
     golden, _ = native.cpp_render_frame(scene1, CONFIG1_LIGHT, CONFIG1)
     require_equal(tag, "shadow=True frame vs cpp_render_frame", frame.cpu(),
                   torch.from_numpy(golden))
@@ -1174,7 +1325,8 @@ def session_phase(card: str, scene, cfg) -> list[dict]:
     """``Session`` on graybox on the card, ``SESSION_FRAMES`` frames of
     ``session_script`` on the two-kernel path, then the first
     ``SESSION_FUSED_FRAMES`` again with ``fuse_trace_shadow``.  Raises
-    unless each frame launches trace 1 + shadow 1 (fused 1); the images of
+    unless each frame launches trace 1 + shadow 1 (fused 1) and the
+    binning kernel's 2 (its full rebin); the images of
     frames ``SESSION_CHECKED`` and their mouse readouts equal
     ``cpp_render_frame`` with the red line drawn at endpoints from
     ``cpp_trace_pixels``' y and z; ``debug_report()`` equals the report
@@ -1194,7 +1346,8 @@ def session_phase(card: str, scene, cfg) -> list[dict]:
                        s.mouse))
     launches = launches_are(f"session, {SESSION_FRAMES} frames",
                             {"trace": SESSION_FRAMES,
-                             "shadow": SESSION_FRAMES})
+                             "shadow": SESSION_FRAMES,
+                             "binning": 2 * SESSION_FRAMES})
     print(f"session: feed {float(np.median(ms[1:])):.2f} ms/frame (median "
           f"of frames 1-{SESSION_FRAMES - 1}; frame 0 {ms[0]:.2f} ms), "
           f"{cfg.view_width}x{cfg.view_height}, {scene.n_entities} entities "
@@ -1248,7 +1401,8 @@ def session_phase(card: str, scene, cfg) -> list[dict]:
     for keys, mouse in script[:SESSION_FUSED_FRAMES]:
         s_fused.feed(keys, mouse)
     launches = launches_are(f"session, fused, {SESSION_FUSED_FRAMES} frames",
-                            {"fused": SESSION_FUSED_FRAMES})
+                            {"fused": SESSION_FUSED_FRAMES,
+                             "binning": 2 * SESSION_FUSED_FRAMES})
     for f in range(SESSION_FUSED_FRAMES):
         require_equal("fused session", f"frame {f} vs the two-kernel "
                       "session", torch.from_numpy(s_fused.frames[f].image),
@@ -1262,7 +1416,8 @@ def session_phase(card: str, scene, cfg) -> list[dict]:
 def viewer_phase(card: str, scene, cfg) -> list[dict]:
     """``LiveViewer`` on graybox on the card through ``bench_loop``, the
     viewer's --bench loop, for ``VIEWER_FRAMES`` frames.  Raises unless
-    each frame launches trace 1 + shadow 1 and frame 0's image equals
+    each frame launches trace 1 + shadow 1 + binning 2 and frame 0's
+    image equals
     ``cpp_render_frame`` with the red line from the clamped cursor.
     Prints the loop's median ms/frame and the share of render + overlay
     in it.  Returns the kernels' rows on the viewer's path."""
@@ -1284,7 +1439,8 @@ def viewer_phase(card: str, scene, cfg) -> list[dict]:
     n, steps, wall = bench_loop(v, VIEWER_FRAMES)
     launches = launches_are(f"viewer, {n} frames",
                             {"trace": VIEWER_FRAMES,
-                             "shadow": VIEWER_FRAMES})
+                             "shadow": VIEWER_FRAMES,
+                             "binning": 2 * VIEWER_FRAMES})
     loop = float(np.median(steps)) * 1e3
     render = float(np.median(render_ms[1:]))
     print(f"viewer --bench loop: {n} frames, median {loop:.2f} ms/frame "
@@ -1342,7 +1498,8 @@ def config2_phase(card: str) -> list[dict]:
     32-frame light sweep through ``render_long`` in chunks of 8 into a
     checkpoint directory, then again after its last chunk is deleted.
     Raises unless the first run launches trace 4 + shadow 4 (the
-    winner-input mode of shadow.cu) and the second trace 1 + shadow 1, the
+    winner-input mode of shadow.cu) + binning 8 (a full rebin a chunk) and
+    the second trace 1 + shadow 1 + binning 2, the
     two runs' frames are equal, frames 0 and 31 equal ``cpp_render_frame``,
     ``render_with_gbuffer`` of frame 0's state (the G-buffer mode) equals
     frame 0 and the GIF is written by the native encoder.  Prints ms/frame
@@ -1361,12 +1518,14 @@ def config2_phase(card: str) -> list[dict]:
         frames = anim.render_long(ds, players, lights, tmp, CONFIG2_CHUNK)
         seconds = time.perf_counter() - t0
         launches = launches_are("config 2, render_long",
-                                {"trace": chunks, "shadow_shade": chunks})
+                                {"trace": chunks, "shadow_shade": chunks,
+                                 "binning": 2 * chunks})
         os.remove(os.path.join(tmp, f"chunk_{chunks - 1:05d}.npz"))
         reset_launches()
         again = anim.render_long(ds, players, lights, tmp, CONFIG2_CHUNK)
         launches_are("config 2, render_long after its last chunk was "
-                     "deleted", {"trace": 1, "shadow_shade": 1})
+                     "deleted", {"trace": 1, "shadow_shade": 1,
+                                 "binning": 2})
         if not np.array_equal(again, frames):
             raise RuntimeError("config 2: the resumed render's frames differ")
         path = os.path.join(tmp, "config2.gif")
@@ -1552,8 +1711,8 @@ def inverse_kernels(card: str, ds, fitter, light, launches) -> list[dict]:
 def inverse_phase(card: str, ds, renderer, anim, center) -> list[dict]:
     """``InverseLightFitter`` on graybox: 25 Adam steps toward the center
     orbit's first 8 frames, for each of INVERSE_RUNS, each run with the
-    launch counts set to 0 just before and read just after (trace 1 a
-    step, shadow 1 a step with shadows).  Raises unless the loss decreases
+    launch counts set to 0 just before and read just after (trace 1 and
+    binning 2 a step, shadow 1 a step with shadows).  Raises unless the loss decreases
     (or, from a start whose gradient is exactly 0, stays), ``soft_frame``
     and the gradient with the kernels equal the same with the plain
     versions on the card (the frame bit for bit, the gradient to rtol
@@ -1585,7 +1744,8 @@ def inverse_phase(card: str, ds, renderer, anim, center) -> list[dict]:
             step_ms.append((time.perf_counter() - t0) * 1e3)
         launches = launches_are(
             f"{tag}, {INVERSE_STEPS} steps",
-            {"trace": INVERSE_STEPS, "shadow": INVERSE_STEPS * shadows})
+            {"trace": INVERSE_STEPS, "shadow": INVERSE_STEPS * shadows,
+             "binning": 2 * INVERSE_STEPS})
         fitted = light.detach()
         with torch.no_grad():
             loss_n = float(fitter.batch_loss(fitted, ds, targets))
@@ -1721,7 +1881,8 @@ def parallel_phase(card: str, scene, ds, renderer, anim,
     applied (summed over the ranks) and its light within rtol 1e-5 of
     ``train_step``'s, its entity-sharded frame equals
     the unsharded render, and every rank launched trace 1 + shadow 1 in
-    each run.  Then the windowed and the shard kernels against their plain
+    each run, and binning 2 where it rebins (the train step and the
+    entity-sharded render).  Then the windowed and the shard kernels against their plain
     versions on the card, on each rank's inputs.  Prints ms per call
     (a functional check on one card, not a scaling measurement).  Returns
     the kernels' JSON rows."""
@@ -1750,10 +1911,13 @@ def parallel_phase(card: str, scene, ds, renderer, anim,
     print(f"parallel: {PARALLEL_RANKS} ranks sharing the card over gloo, "
           f"{time.perf_counter() - t0:.1f} s with their start-up; a "
           f"functional check on one card, not a scaling measurement")
-    want = {"trace": 1, "shadow": 1}
     launched = {}
     for path in results[0]:
         note = ""
+        # The frame x row render bins on the StaticBins cache; the train
+        # step and the entity-sharded render rebin on the binning kernel.
+        want = {"trace": 1, "shadow": 1,
+                **({} if path.startswith("render") else {"binning": 2})}
         for rank, res in enumerate(results):
             got, launches, _ = res[path]
             launches = {k: v for k, v in launches.items() if v}
@@ -2382,6 +2546,7 @@ def main() -> int:
     #        grid ---------------------------------------------------------
     rows += config5_phase(card)
     rows += wide_grid_phase(card)
+    rows += binning_phase(card)
 
     # -- 15. the run entry points: bench, bench_scale --nonramp, make_demo --
     renderer.fuse_trace_shadow = False

@@ -57,7 +57,7 @@ from .config import DEFAULT_CONFIG, RenderConfig
 from .device import card, require_cuda, resolve
 from .models.animation import AnimationRenderer
 from .models.deferred import DeferredRenderer, DeviceScene
-from .ops import fused_cuda, shadow_cuda, trace_cuda
+from .ops import binning_cuda, fused_cuda, shadow_cuda, trace_cuda
 from .ops.static_bins import StaticBins
 from .runtime import kernels, native
 from .scene import Light, Scene, default_light, graybox_world
@@ -145,7 +145,7 @@ def launch_counts() -> dict[str, int]:
     return {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches,
             "shadow_shade": shadow_cuda.shade_launches,
             "shadow_directional": shadow_cuda.directional_launches,
-            "fused": fused_cuda.launches}
+            "fused": fused_cuda.launches, "binning": binning_cuda.launches}
 
 
 def launch_tally() -> dict[str, dict[str, int]]:

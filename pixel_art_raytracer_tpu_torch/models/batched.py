@@ -107,14 +107,11 @@ def bin_stage(renderer, static_bins, dscene, players):
                              "only; build the cache with n_dynamic=1")
         return static_bins.merge(players[:, None, :],
                                  dscene.ext[:1].expand(F, 1, 3))
-    tables = []
-    for f in range(F):
-        pos_f = dscene.pos.clone()
-        pos_f[0] = players[f]
-        tables.append(binning.build_bins(pos_f, dscene.ext, renderer.config,
-                                         renderer.spans))
-    return (torch.stack([b for b, _ in tables]),
-            torch.stack([c for _, c in tables]))
+    # The full rebin of every frame, entity 0 at players[f]: one call of
+    # csrc/binning.cu on the card.
+    return binning.bin_tables(dscene.pos, dscene.ext, players,
+                              renderer.config, renderer.spans,
+                              renderer.config.bin_capacity, ring=True)
 
 
 @tracing.spanned("batch.trace")

@@ -13,6 +13,10 @@ alternative.cpp:195-269); here, as in the JAX package:
      slot r & (capacity-1), with visible count total & (capacity-1),
   4. one scatter (all surviving (bin, slot) targets are unique) builds the
      dense (hash_volume, capacity) table.
+
+That chain is the plain version, which CPU tensors take.  On the card the
+full rebin is ``csrc/binning.cu`` (``binning_cuda``): a histogram pass and
+a placing pass with no sort and no host wait (:func:`bin_tables`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..config import RenderConfig
 from ..runtime import tracing
+from . import binning_cuda
 from .cstyle import c_div
 
 
@@ -128,6 +133,74 @@ def ranked_pairs(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
     return sorted_bin, pair_ent, rank, totals
 
 
+def plain_tables(pos: torch.Tensor, ext: torch.Tensor, players,
+                 config: RenderConfig, spans: tuple[int, int, int],
+                 window: int, ring: bool, id_offset: int = 0):
+    """Each frame's per-bin tables keeping the last ``window`` ranks: the
+    plain version of ``csrc/binning.cu``, on :func:`ranked_pairs`.
+
+    Args:
+      pos, ext: (N, 3) int32.
+      players: (F, 3) int32, entity 0's position in each frame, or None
+        for one frame as ``pos`` has it.
+      spans: (Ax, Ay, Az) offset-grid bound from :func:`entity_span_bound`.
+      window: the entries kept a bin.
+      ring: the layout.  True is :func:`build_bins`' (``window`` a power
+        of two, the capacity there: rank r in slot r & (window-1), the
+        wrap of quirk Q3); False keeps the kept ranks left-aligned, as the
+        static cache stores them (``static_bins``).
+      id_offset: added to each stored entity index.
+
+    Returns:
+      ids: (F, V, window) int32, -1 for empty slots.
+      counts: (F, V) int32 — the wrap-visible occupancy total & (window-1)
+        in the ring layout, the insertion total otherwise.
+    """
+    binning_cuda.check_window(window, ring)
+    frames = ([pos] if players is None else
+              [torch.cat([players[f:f + 1], pos[1:]])
+               for f in range(players.shape[0])])
+    tables = [_window_tables(p, ext, config, spans, window, ring, id_offset)
+              for p in frames]
+    return (torch.stack([ids for ids, _ in tables]),
+            torch.stack([counts for _, counts in tables]))
+
+
+def _window_tables(pos, ext, config: RenderConfig, spans, window: int,
+                   ring: bool, id_offset: int):
+    V = config.hash_volume
+    sorted_bin, pair_ent, rank, totals = ranked_pairs(pos, ext, config, spans)
+    tot_here = totals[sorted_bin]
+    keep = (sorted_bin < V) & (rank >= tot_here - window)
+    if ring:
+        slot = rank & (window - 1)
+        counts = totals[:V] & (window - 1)
+    else:
+        # Bins with >= window entries store exactly their last ``window``
+        # ranks; smaller bins store positions 0..total-1.
+        slot = rank - (tot_here - window).clamp(min=0)
+        counts = totals[:V]
+    # Dropped pairs land in one spare slot past the table.
+    target = torch.where(keep, sorted_bin * window + slot, V * window)
+    ids = torch.full((V * window + 1,), -1, dtype=torch.int32,
+                     device=pos.device)
+    ids[target] = pair_ent + id_offset
+    return ids[:V * window].reshape(V, window), counts.to(torch.int32)
+
+
+def bin_tables(pos: torch.Tensor, ext: torch.Tensor, players,
+               config: RenderConfig, spans: tuple[int, int, int],
+               window: int, ring: bool, id_offset: int = 0):
+    """:func:`plain_tables`' tables: on the card by ``csrc/binning.cu``
+    (``binning_cuda.bin_tables``: two launches, no sort, no host wait), on
+    the CPU by the plain version."""
+    if pos.device.type == "cuda":
+        return binning_cuda.bin_tables(pos, ext, players, config, spans,
+                                       window, ring, id_offset)
+    return plain_tables(pos, ext, players, config, spans, window, ring,
+                        id_offset)
+
+
 def build_bins(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
                spans: tuple[int, int, int]):
     """Rebuild the hash grid from every entity.
@@ -140,15 +213,6 @@ def build_bins(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
       bins_ent: (hash_volume, capacity) int32, -1 for empty slots.
       counts:   (hash_volume,) int32 — the wrap-visible occupancy.
     """
-    cap = config.bin_capacity
-    V = config.hash_volume
-    sorted_bin, pair_ent, rank, totals = ranked_pairs(pos, ext, config, spans)
-    keep = (sorted_bin < V) & (rank >= totals[sorted_bin] - cap)
-    slot = rank & (cap - 1)
-    # Dropped pairs land in one spare slot past the table.
-    target = torch.where(keep, sorted_bin * cap + slot, V * cap)
-    bins_ent = torch.full((V * cap + 1,), -1, dtype=torch.int32,
-                          device=pos.device)
-    bins_ent[target] = pair_ent
-    counts = (totals[:V] & (cap - 1)).to(torch.int32)
-    return bins_ent[:V * cap].reshape(V, cap), counts
+    bins_ent, counts = bin_tables(pos, ext, None, config, spans,
+                                  config.bin_capacity, ring=True)
+    return bins_ent[0], counts[0]

@@ -177,20 +177,9 @@ def _bin_statics(pos, ext, id_offset: int, config: RenderConfig, spans,
 
     Returns ``static_total`` (V,) int32 and ``static_ids`` (V, window)
     int32: each bin's stored entries in rank order, left-aligned, -1 where
-    the bin holds fewer than ``window``.
+    the bin holds fewer than ``window`` (``binning.bin_tables``' left-aligned
+    layout; on the card ``csrc/binning.cu``).
     """
-    V = config.hash_volume
-    sorted_bin, pair_ent, rank, totals = binning.ranked_pairs(
-        pos, ext, config, spans)
-    tot_here = totals[sorted_bin]
-    keep = (sorted_bin < V) & (rank >= tot_here - window)
-    # Bins with >= window entries store exactly their last ``window`` ranks;
-    # smaller bins store positions 0..total-1.
-    stored_pos = torch.where(tot_here >= window, rank - (tot_here - window),
-                             rank)
-    target = torch.where(keep, sorted_bin * window + stored_pos, V * window)
-    ids = torch.full((V * window + 1,), -1, dtype=torch.int32,
-                     device=pos.device)
-    ids[target] = pair_ent + id_offset
-    return (totals[:V].to(torch.int32),
-            ids[:V * window].reshape(V, window))
+    ids, total = binning.bin_tables(pos, ext, None, config, spans, window,
+                                    ring=False, id_offset=id_offset)
+    return total[0], ids[0]

@@ -47,6 +47,7 @@ SIGNATURES = {
     "par_shadow_shade": [_P] * 16 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
+    "par_bin_tables": [_P] * 6 + [_I] * 15 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],

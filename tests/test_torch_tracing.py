@@ -356,3 +356,17 @@ def test_viewer_profile_flag_writes_the_spans_into_a_chrome_trace(
     assert names.count("frame") == 1
     assert {"batch", "batch.bins", "sync.upload", "sync.fetch",
             "sync.readback", "frame.overlay"} <= set(names)
+
+
+def test_span_split_reads_each_span_of_a_live_request():
+    from pixel_art_raytracer_tpu_torch import span_split
+
+    session = Session(small_scene(), config=SMALL, device="cpu")
+    ms = span_split.split(session, requests=3, warm_up=1)
+    assert {"frame", "frame.overlay", "frame.keep", "batch", "batch.bins",
+            "sync.upload", "sync.fetch", "sync.readback"} <= set(ms)
+    assert all(n.startswith(span_split.PREFIXES) for n in ms)
+    assert all(v > 0 for v in ms.values())
+    # A span's time holds the spans inside it.
+    assert ms["frame"] >= ms["batch"] >= ms["batch.bins"]
+    assert len(session.frames) == 4
