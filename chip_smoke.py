@@ -52,7 +52,14 @@ unless:
     without;
   * frames 0 and 32 of every new path equal the same states rendered on the
     CPU through the plain versions, the dithered frames hold palette
-    colours only, and the dithered two-kernel and fused frames are equal.
+    colours only, and the dithered two-kernel and fused frames are equal;
+  * BASELINE config 4's pair at its published 512x512 (``config4_phase``:
+    config 3's 1,025-box overlap scene, a 13x13x8 grid whose edge tiles
+    are partial, the same sweep): the directional mode equals its plain
+    version on all 64 frames with fewer than 1% of its pixels marched
+    directly and its union entries equal to the CPU's count, and the
+    dithered directional batch (trace 1 + the directional mode 1) holds
+    palette colours only, its frames 0 and 32 equal to the CPU's.
 
 Last, BASELINE config 5 (10,000 boxes on a 1024x1024 base view, as
 ``tools/bench_scale.py`` builds it) supersampled at s = 2 and 4: a light
@@ -311,6 +318,14 @@ CONFIG5_CHECKED = {2: list(range(CONFIG5_FRAMES)), 4: [0, 4]}
 # their plain versions on frame 0), ``make_demo``'s 32-frame sweep.
 BENCH_REPEATS = 3
 BENCH_SCALE_ITERS = 3
+# BASELINE config 4 (BASELINE.json configs[3]): 512 x 512 with shadow rays,
+# a directional light and ordered-dither palette shading, on config 3's
+# overlap scene (configs[2], tests/test_configs.py:19-31: the player and 32
+# x 32 seeded 20-cubes, 1,025 boxes), in a 13 x 13 x 8 grid whose right and
+# bottom tiles are partial (512 = 12.8 bins of 40); the sun sweep of the
+# graybox check, F = 64, the player at home.
+CONFIG4 = RenderConfig(view_width=512, view_height=512, view_length=320)
+CONFIG4_SIDE = 32
 # A grid the winner-input mode used to refuse (its visit lists needed
 # 377,520 B of shared memory): config 5's scene generator on a 2048**2 view
 # at bin 40, 52 x 52 x 8 = 21,632 bins, one frame under config 5's light.
@@ -514,14 +529,20 @@ def longest_visit_list(start_bin, light_bin, config) -> int:
     return int(first.sum(0).max())
 
 
-def directional_unions(c: dict, unions: dict, work: dict) -> None:
+def directional_unions(c: dict, unions: dict, work: dict,
+                       label: str = "directional sweep",
+                       overflow: bool = False) -> None:
     """Print the directional mode's staged union entries and slab tests
     performed (``MarchCounters.read()`` ``c``) beside the CPU's count of
     the tiles' unions (``shadow_dir.tile_unions``) and the plain version's
     slab tests (``work``); raise unless the staged entries equal that
-    count, which is below the per-key lists' entries."""
+    count, which is below the per-key lists' entries.  With ``overflow``,
+    a tile may hold more keys than the kernel's table: then the kernel
+    must report its table full (``max_starts`` one past it), march some
+    pixels directly (the keys past the table's) and stage no more entries
+    than the count."""
     ratio = unions["key_entries"] / max(1, unions["staged"])
-    print(f"directional sweep: {c['staged_entries']} union entries staged "
+    print(f"{label}: {c['staged_entries']} union entries staged "
           f"(tile_unions: {unions['staged']}; the per-key visit lists hold "
           f"{unions['key_entries']}, {ratio:.2f}x), "
           f"at most {unions['keys']} keys and {unions['largest']} union "
@@ -529,16 +550,26 @@ def directional_unions(c: dict, unions: dict, work: dict) -> None:
           f"{int(work['slab_tests'])} needed, "
           f"{int(work['slab_tests_every_probe'])} at every probe")
     if unions["keys"] > shadow_dir.TABLE_KEYS:
-        raise RuntimeError(f"directional sweep: a tile holds "
-                           f"{unions['keys']} keys, over the table's "
-                           f"{shadow_dir.TABLE_KEYS}")
-    if c["staged_entries"] != unions["staged"]:
-        raise RuntimeError(f"directional sweep: the kernel staged "
+        if not overflow:
+            raise RuntimeError(f"{label}: a tile holds {unions['keys']} "
+                               f"keys, over the table's "
+                               f"{shadow_dir.TABLE_KEYS}")
+        if (c["max_starts"] != shadow_dir.TABLE_KEYS + 1
+                or c["staged_entries"] > unions["staged"]
+                or c["direct_pixels"] == 0):
+            raise RuntimeError(f"{label}: tiles of {unions['keys']} keys, "
+                               f"yet the kernel reports {c['max_starts']} "
+                               f"keys, {c['staged_entries']} entries "
+                               f"staged of {unions['staged']} and "
+                               f"{c['direct_pixels']} pixels marched "
+                               f"directly")
+    elif c["staged_entries"] != unions["staged"]:
+        raise RuntimeError(f"{label}: the kernel staged "
                            f"{c['staged_entries']} union entries, "
                            f"tile_unions counts {unions['staged']}")
     if not unions["staged"] < unions["key_entries"]:
-        raise RuntimeError("directional sweep: the unions are no smaller "
-                           "than the per-key lists")
+        raise RuntimeError(f"{label}: the unions are no smaller than the "
+                           f"per-key lists")
 
 
 def shade_grid(tag: str, cfg, frames: int, card: str) -> None:
@@ -799,6 +830,124 @@ def timed(fn):
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
+
+
+def config4_phase(card: str) -> list[dict]:
+    """BASELINE config 4 at its published 512 x 512 (``CONFIG4``): the sun
+    sweep of 64 directions over config 3's overlap scene, the player at
+    home.  Raises unless the directional mode of the shadow kernel equals
+    its plain version (``shadow_dir.trace_light_directional``) on all 64
+    frames, with fewer than ``DIRECT_SHARE`` of its pixels marched
+    directly, its union entries those ``shadow_dir.tile_unions`` counts
+    (no more, where a tile holds more keys than the table) and its
+    ``dir_pixels`` its F * H * W; the dithered directional batch
+    through ``render_states`` launches trace 1 + the directional mode 1
+    (binning and fused 0), holds palette colours only, and its frames 0
+    and 32 equal the CPU's plain versions.  Prints the direct-march share,
+    the unions, the kernel's time beside its plain version's and bound,
+    and the batch's ms/frame.  Returns the kernel's row."""
+    cfg = CONFIG4
+    scene = overlap_scene(cfg, CONFIG4_SIDE)
+    renderer = DeferredRenderer(cfg, style="dithered").configure_for(scene)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans)
+    anim = AnimationRenderer(renderer, cfg, static_bins=cache)
+    ds = DeviceScene.from_scene(scene, cfg)
+    home = ds.pos[:1].expand(FRAMES, 3).contiguous()
+    dirs = direction_sweep(FRAMES, home.device)
+    steps = shadow_dir.grid_max_steps(cfg)
+    W, H = cfg.view_width, cfg.view_height
+    n_pix = FRAMES * H * W
+    label = "config 4 sun sweep"
+    print(f"{label}: {scene.n_entities} entities, {cfg.hash_width}x"
+          f"{cfg.hash_height}x{cfg.hash_length} bins of {cfg.bin_size} "
+          f"(partial edge tiles: {W % cfg.bin_size} columns, "
+          f"{H % cfg.bin_size} rows), step cap {steps}")
+
+    # The directional mode against its plain version, all 64 frames.
+    be, cnt = batched.bin_stage(renderer, cache, ds, home)
+    gbuf = batched.trace_stage(renderer, ds, be, cnt, home)
+    _, inv, K = shadow_dir.direction_constants(dirs, cfg)
+    dargs = (ds.pos, ds.ext, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index, inv,
+             K, home, cfg, steps)
+    work = {}
+    lit_p, plain_ms = timed(
+        lambda: shadow_dir.trace_light_directional(*dargs, work=work))
+    shadow_cuda.counters.reset()
+    lit_k = shadow_cuda.trace_light_directional(*dargs)
+    c = shadow_cuda.counters.read()
+    require_equal(label, "shadow kernel lit (directional mode)", lit_k,
+                  lit_p)
+    unions = shadow_dir.tile_unions(gbuf.y, gbuf.z, K, cfg, steps)
+    list_path(label, "shadow kernel (directional mode)", c, n_pix,
+              unions["longest"], keys=DIRECTIONAL_KEY_LABEL)
+    share = c["direct_pixels"] / n_pix
+    print(f"{label}: {share:.6f} of the pixels marched directly; "
+          f"{c['slab_tests'] / n_pix:.4f} slab tests performed a pixel "
+          f"(dir_pixels {c['dir_pixels']})")
+    # Some tiles hold more keys than the table's 16 (the pixels of the
+    # keys past it march directly), which DIRECT_SHARE still bounds.
+    directional_unions(c, unions, work, label, overflow=True)
+    if share >= DIRECT_SHARE:
+        raise RuntimeError(f"{label}: {share:.4f} of the pixels took the "
+                           f"direct march")
+    if c["dir_pixels"] != n_pix:
+        raise RuntimeError(f"{label}: dir_pixels {c['dir_pixels']}, the "
+                           f"launch has {n_pix} pixels")
+    kernel_ms = cuda_ms(lambda: shadow_cuda.trace_light_directional(*dargs),
+                        KERNEL_REPS)
+    near_far = int(work["slab_tests_finite"])
+    bound_ms, bound_by = bound(
+        entity_bytes(be, cnt, ds.pos, ds.ext)
+        + nbytes(home, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index, inv, K,
+                 lit_k),
+        NEAR_FAR_OPS * near_far
+        + SLAB_OPS * (int(work["slab_tests"]) - near_far))
+    smem, blocks, regs, local = shadow_cuda.directional_occupancy(cfg)
+    print(f"{label}: directional kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{kernel_ms / bound_ms:.1f}x) per call on F={FRAMES} {W}x{H}; "
+          f"{smem} B of shared memory per block, {blocks} blocks per SM, "
+          f"{regs} registers and {local} B of local memory a thread  "
+          f"[{card}]")
+
+    # The main path: render_states on the dithered renderer.
+    none = dict.fromkeys(read_launches(), 0)
+    frames, launches = drive(f"{label}, dithered directional", anim, ds,
+                             home, dirs,
+                             {**none, "trace": 1, "shadow_directional": 1},
+                             directional=True)
+    palette = ds.palette[:, :3].long()
+    codes = frames.long()
+    codes = (codes[..., 0] << 16) | (codes[..., 1] << 8) | codes[..., 2]
+    allowed = (palette[:, 0] << 16) | (palette[:, 1] << 8) | palette[:, 2]
+    if not bool(torch.isin(codes, allowed).all()):
+        raise RuntimeError(f"{label}: a frame holds a colour outside the "
+                           f"palette")
+    pick = [0, FRAMES // 2]
+    ds_cpu = DeviceScene.from_scene(scene, cfg, device="cpu")
+    cache_cpu = StaticBins(scene.pos, scene.ext, 1, cfg, renderer.spans,
+                           device="cpu")
+    want = AnimationRenderer(renderer, cfg, static_bins=cache_cpu) \
+        .render_states(ds_cpu, home[pick].cpu(), dirs[pick].cpu(),
+                       directional=True)
+    require_equal(label, "dithered frames 0 and 32 vs the CPU",
+                  frames[pick].cpu(), want)
+    print(f"{label}: dithered frames hold palette colours only; frames 0 "
+          f"and {FRAMES // 2} == the CPU's plain versions")
+
+    batch_ms = cuda_ms(lambda: anim.render_states(ds, home, dirs,
+                                                  directional=True),
+                       TIMED_REPS)
+    print(f"{label}, dithered directional: F={FRAMES} "
+          f"{batch_ms / FRAMES:.4f} ms/frame, "
+          f"{2 * n_pix / (batch_ms * 1e3):.2f} Mrays/s  [{card}]")
+    return [{"name": "shadow_directional (config 4)", "route": "cuda",
+             "source": DIRECTIONAL_SOURCE[0],
+             "replaces": DIRECTIONAL_SOURCE[1],
+             "launches": launches["shadow_directional"],
+             "max_abs_err": max_abs_err(lit_k, lit_p), "ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}]
 
 
 def config5_phase(card: str) -> list[dict]:
@@ -2365,6 +2514,9 @@ def main() -> int:
           f"them in frames of a finite reciprocal direction "
           f"({NEAR_FAR_OPS} operations each, {SLAB_OPS} the others; "
           f"{int(work['slab_tests_every_probe'])} at every probe)")
+    # BASELINE config 4's pair at 512 x 512: the same sweep on a grid
+    # whose edge tiles are partial, then dithered.
+    config4_rows = config4_phase(card)
 
     # -- 10. the lighting modes' main paths, one batch each ------------------
     center_players, center_lights = sweeps["center"]
@@ -2536,6 +2688,7 @@ def main() -> int:
                  "ms": mean[k], "plain_ms": mean[k + "_plain"],
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": None})
+    rows += config4_rows
     print(f"fused kernel {mean['fused']:.4f} ms vs trace + shadow kernels "
           f"{mean['trace'] + mean['shadow']:.4f} ms (G-buffer mode), "
           f"{mean['trace'] + mean['shadow_shade']:.4f} ms (winner inputs) "

@@ -131,7 +131,9 @@
 //    where the entry's mask has its key's bit, skips its own entity and
 //    stops at its first hit.
 // A pixel whose key does not fit the table or the packed fields marches on
-// its own (march_occluded) and is counted in stats[kStatDirect].  Exact
+// its own (march_occluded) and is counted in stats[kStatDirect]; the slab
+// tests of both paths add to work[kWorkTests] (a register a thread, one
+// shared add a warp, one atomicAdd a block).  Exact
 // because the lit bit is an OR over the probed bins, which ignores order
 // and repeats: the union and its masks give each pixel exactly its key's
 // bins.
@@ -256,9 +258,9 @@ constexpr int kDirBlocksPerSM = 4;
 
 // 64-bit counters, one (3,) int64 array per launch's caller (added to):
 // the directional mode's union entries staged, summed over the tiles, and
-// the slab tests its list path performed; and the winner-input mode's slab
-// tests, on its lists and in its direct march, in the launches that count
-// (shadow_shade_kernel<true>).
+// the slab tests it performed, on its union lists and in its direct march;
+// and the winner-input mode's slab tests, on its lists and in its direct
+// march, in the launches that count (shadow_shade_kernel<true>).
 enum MarchWork { kWorkStaged = 0, kWorkTests = 1, kWorkShadeTests = 2 };
 
 // The fields of a packed key, in order: the start bin's y and z, and the
@@ -1317,10 +1319,10 @@ shadow_dir_kernel(
       const par::Ray r{i / bs, hy / bs, z / bs, static_cast<float>(i),
                        static_cast<float>(y), static_cast<float>(z),
                        ivx, ivy, ivz, px.self[o]};
-      occluded = par::march_occluded(
+      occluded = par::march_occluded<true>(
           pos, ext, players, bins_ent, counts, f, g, r,
           make_int3((i + kx) / bs, (hy - (ky + kz)) / bs, (z + kz) / bs),
-          max_steps);
+          max_steps, &tests);
       ++direct;
     }
     lit[g.pixel(f, i, j)] = occluded ? 0 : 1;

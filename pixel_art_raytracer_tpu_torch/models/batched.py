@@ -67,7 +67,9 @@ for point lights, as the JAX package's row shards call ``trace`` and
 
 The stage functions are public so a profiler can time each one, and each
 runs in a span of ``runtime/tracing.py`` (``batch.bins``, ``batch.trace``,
-...) inside one ``batch`` span a request; the reference's per-frame loop
+...) inside one ``batch`` span a request, with ``batch.gbuffer`` (the
+G-buffer of the winners) inside ``batch.trace`` or ``batch.fused`` and
+``batch.dither`` inside ``batch.shade``; the reference's per-frame loop
 is alternative.cpp:628-817.  CUDA tensors run the kernels, CPU tensors
 their plain versions.
 """
@@ -130,10 +132,11 @@ def trace_stage(renderer, dscene, bins_ent, counts, players, rows=None):
     # winner_stage's body: one batch.trace span.
     winners = winner_stage.__wrapped__(renderer, dscene, bins_ent, counts,
                                        players, rows)
-    return trace.materialize_gbuffer(
-        winners, dscene.pos, dscene.ext, dscene.sprite_id,
-        dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
-        dscene.palette, players, renderer.config, rows=rows)
+    with tracing.span("batch.gbuffer"):
+        return trace.materialize_gbuffer(
+            winners, dscene.pos, dscene.ext, dscene.sprite_id,
+            dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
+            dscene.palette, players, renderer.config, rows=rows)
 
 
 @tracing.spanned("batch.shade")
@@ -177,10 +180,11 @@ def fused_stage(renderer, dscene, bins_ent, counts, players, lights):
     _, winner, lit = fused_cuda.trace_shadow(
         dscene.pos, dscene.ext, dscene.sprite_id, dscene.atlas_depth,
         bins_ent, counts, players, lights, cfg)
-    gbuf = trace.materialize_gbuffer(
-        winner, dscene.pos, dscene.ext, dscene.sprite_id,
-        dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
-        dscene.palette, players, cfg)
+    with tracing.span("batch.gbuffer"):
+        gbuf = trace.materialize_gbuffer(
+            winner, dscene.pos, dscene.ext, dscene.sprite_id,
+            dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
+            dscene.palette, players, cfg)
     return gbuf, winner, lit
 
 
@@ -229,10 +233,10 @@ def shade_stage(renderer, dscene, gbuf, factor, rows=None):
     the ordered dither picks (``style="dithered"``, at the view rows of
     the window ``rows``).  Returns (F, H, W, 3) uint8."""
     if renderer.style == "dithered":
-        return dither.shade_dithered(gbuf.color, factor,
-                                     dscene.palette[:, :3],
-                                     row0=trace.row_window(renderer.config,
-                                                           rows)[0])
+        with tracing.span("batch.dither"):
+            return dither.shade_dithered(
+                gbuf.color, factor, dscene.palette[:, :3],
+                row0=trace.row_window(renderer.config, rows)[0])
     return shade.shade_u8(gbuf.color, factor)
 
 

@@ -11,9 +11,10 @@ anything else raises.  ``launches``, ``directional_launches`` and
 ``shade_launches`` count the three modes' launches; ``counters`` holds
 the kernel's device counters of all three (pixels marched directly, the
 most keys in a tile, the longest visit list), of the directional mode
-(union entries staged, slab tests performed) and, while the program is
-traced (``runtime/tracing.py``), of the winner-input mode (slab tests
-performed, and the pixels of those launches on the host).
+(union entries staged, slab tests performed, and the pixels of its
+launches on the host) and, while the program is traced
+(``runtime/tracing.py``), of the winner-input mode (slab tests performed,
+and the pixels of those launches on the host).
 """
 
 from __future__ import annotations
@@ -304,6 +305,9 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
     (:func:`ops.shadow_dir.key_fields`), and ``RuntimeError`` where the
     launch fails, as it does for a grid whose key masks and union list
     (a word each per grid bin) overflow a block's shared memory.
+
+    Each launch adds its slab tests (union lists and direct march) to
+    ``counters`` and its F * H * W pixels to ``counters.dir_pixels``.
     """
     global directional_launches
     dev = bins_ent.device
@@ -354,6 +358,7 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
             kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_dir_lit")
     directional_launches += 1
+    counters.dir_pixels += F * H * W
     return lit
 
 

@@ -177,17 +177,19 @@ class MarchCounters:
     table's size + 1 where some did not fit) and the longest visit list;
     and a (3,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
     mode's union entries staged (``staged_entries``, summed over the tiles)
-    and the slab tests its list path performed (``slab_tests``), and the
-    slab tests of the winner-input mode's launches that count
-    (``shade_slab_tests``: its lists and its direct march).  Those launches
-    run only while the program is traced (``runtime/tracing.active``);
-    their pixels, F * H * W a launch, add to the host count
-    ``shade_pixels`` beside the tensor."""
+    and the slab tests it performed (``slab_tests``: its union lists and
+    its direct march), and the slab tests of the winner-input mode's
+    launches that count (``shade_slab_tests``: its lists and its direct
+    march).  Those launches run only while the program is traced
+    (``runtime/tracing.active``); their pixels, F * H * W a launch, add to
+    the host count ``shade_pixels`` beside the tensor, and every
+    directional launch's to ``dir_pixels``."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}
         self._work: dict[torch.device, torch.Tensor] = {}
         self.shade_pixels = 0
+        self.dir_pixels = 0
 
     def tensor(self, device: torch.device) -> torch.Tensor:
         """The (3,) int32 counters a launch on ``device`` writes to."""
@@ -208,6 +210,7 @@ class MarchCounters:
         for t in (*self._stats.values(), *self._work.values()):
             t.zero_()
         self.shade_pixels = 0
+        self.dir_pixels = 0
 
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
@@ -219,7 +222,8 @@ class MarchCounters:
                 "staged_entries": sum(w[0] for w in work),
                 "slab_tests": sum(w[1] for w in work),
                 "shade_slab_tests": sum(w[2] for w in work),
-                "shade_pixels": self.shade_pixels}
+                "shade_pixels": self.shade_pixels,
+                "dir_pixels": self.dir_pixels}
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

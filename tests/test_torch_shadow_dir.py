@@ -14,7 +14,8 @@ first hit.  A pixel whose key does not fit marches its own list.
 ``shade_directional`` on the CPU; its staged entries to
 ``ops/shadow_dir.tile_unions``, which ``chip_smoke.py`` holds the kernel's
 counter to.  The CUDA-marked tests hold the kernel's lit mask and its
-counters (staged entries, slab tests performed) to it on the card.
+counters (staged entries, slab tests performed) to it on the card, and
+the direct march's slab tests to the plain march's count.
 """
 
 import jax.numpy as jnp
@@ -333,6 +334,30 @@ def test_cuda_directional_counters_match_model(cuda, case):
         assert stats["slab_tests"] == tests
     else:
         assert stats["direct_pixels"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_direct_march_counts_its_slab_tests(cuda):
+    """A pixel whose key does not fit the packed fields marches on its own,
+    and its slab tests add to ``slab_tests``: the fine case's surface
+    points moved two view heights down put every start bin's row past the
+    field's 16 values, so every pixel takes the direct march, which tests
+    a probed bin's boxes at every probe up to its first hit (the plain
+    march's ``slab_tests_every_probe``); each launch adds its F * H * W
+    pixels to ``dir_pixels``."""
+    args = list(case_inputs("fine")[0])
+    args[4] = args[4] - 2 * FINE.view_height
+    work = {}
+    lit = shadow_dir.trace_light_directional(*args, work=work)
+    dev = tuple(a.to(cuda) if torch.is_tensor(a) else a for a in args)
+    shadow_cuda.counters.reset()
+    got = shadow_cuda.trace_light_directional(*dev)
+    torch.cuda.synchronize()
+    stats = shadow_cuda.counters.read()
+    n_pix = args[4].numel()
+    assert torch.equal(got.cpu(), lit)
+    assert stats["direct_pixels"] == stats["dir_pixels"] == n_pix
+    assert stats["slab_tests"] == int(work["slab_tests_every_probe"]) > 0
 
 
 @pytest.mark.cuda

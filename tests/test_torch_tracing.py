@@ -87,6 +87,15 @@ def run_path(path: str, device):
         r, ds, cache, players, lights = batch_inputs(device)
         anim = AnimationRenderer(r, SMALL, static_bins=cache)
         return lambda: anim.render_states(ds, players, lights)
+    if path == "render_states_sun_dithered":
+        r, ds, cache, players, _ = batch_inputs(device)
+        r = DeferredRenderer(SMALL, style="dithered").configure_for(
+            small_scene())
+        anim = AnimationRenderer(r, SMALL, static_bins=cache)
+        directions = torch.tensor([[0.6, 1.0, -0.3]] * len(LIGHTS),
+                                  device=device)
+        return lambda: anim.render_states(ds, players, directions,
+                                          directional=True)
     if path == "render_with_gbuffer":
         r, ds, _, _, _ = batch_inputs(device)
         light = Light(60, 60, 20).as_array()
@@ -119,15 +128,21 @@ def span_tree(prof) -> list:
 BINS = ("batch.bins", [("sync.upload", [])])
 # A full rebin: the offsets' upload, then bincount's read of its range.
 REBIN = ("batch.bins", [("sync.upload", []), ("sync.bincount", [])])
-GBUFFER_BATCH = ("batch", [REBIN, ("batch.trace", [("sync.upload", [])]),
-                           ("batch.geometry", []), ("batch.shadow", []),
-                           ("batch.shade", [])])
+# The G-buffer of the winners uploads the background colour.
+GBUFFER = ("batch.trace", [("batch.gbuffer", [("sync.upload", [])])])
+GBUFFER_BATCH = ("batch", [REBIN, GBUFFER, ("batch.geometry", []),
+                           ("batch.shadow", []), ("batch.shade", [])])
 TREES = {
     # The main path: the plain winner-input mode uploads the background
     # colour for its shade on the CPU.
     "render_states_batched": [
         ("batch", [BINS, ("batch.trace", []),
                    ("batch.shade", [("sync.upload", [])])])],
+    # BASELINE config 4's route: the G-buffer, the directional march and
+    # the dither.
+    "render_states_sun_dithered": [
+        ("batch", [BINS, GBUFFER, ("batch.directional", []),
+                   ("batch.shade", [("batch.dither", [])])])],
     # The light's upload, then one batch span (never two).
     "render_with_gbuffer": [("sync.upload", []), GBUFFER_BATCH],
     "session_feed": [
