@@ -760,7 +760,7 @@ def binning_phase(card: str) -> list[dict]:
 def reset_launches() -> None:
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
     shadow_cuda.directional_launches = shadow_cuda.shade_launches = 0
-    binning_cuda.launches = 0
+    shadow_cuda.dir_shade_launches = binning_cuda.launches = 0
 
 
 read_launches = bench.launch_counts
@@ -841,11 +841,15 @@ def config4_phase(card: str) -> list[dict]:
     directly, its union entries those ``shadow_dir.tile_unions`` counts
     (no more, where a tile holds more keys than the table) and its
     ``dir_pixels`` its F * H * W; the dithered directional batch
-    through ``render_states`` launches trace 1 + the directional mode 1
-    (binning and fused 0), holds palette colours only, and its frames 0
-    and 32 equal the CPU's plain versions.  Prints the direct-march share,
-    the unions, the kernel's time beside its plain version's and bound,
-    and the batch's ms/frame.  Returns the kernel's row."""
+    through ``render_states`` launches trace 1 + the winner-input
+    directional mode 1 (binning, fused and the lit-mask mode 0), adds its
+    F * H * W to ``dir_shade_pixels``, holds palette colours only, equals
+    the G-buffer route (``gbuffer_and_frames``) on all 64 frames, and its
+    frames 0 and 32 equal the CPU's plain versions.  Prints the
+    direct-march share, the unions, the lit-mask kernel's time beside its
+    plain version's and bound, the winner-input kernel's beside it, both
+    kernels' registers and blocks per SM, and the batch's ms/frame.
+    Returns the two kernels' rows."""
     cfg = CONFIG4
     scene = overlap_scene(cfg, CONFIG4_SIDE)
     renderer = DeferredRenderer(cfg, style="dithered").configure_for(scene)
@@ -910,12 +914,52 @@ def config4_phase(card: str) -> list[dict]:
           f"{regs} registers and {local} B of local memory a thread  "
           f"[{card}]")
 
-    # The main path: render_states on the dithered renderer.
+    # The main path: render_states on the dithered renderer, which shades
+    # from the winners in the winner-input directional mode.
     none = dict.fromkeys(read_launches(), 0)
+    shadow_cuda.counters.reset()
     frames, launches = drive(f"{label}, dithered directional", anim, ds,
                              home, dirs,
-                             {**none, "trace": 1, "shadow_directional": 1},
+                             {**none, "trace": 1, "shadow_dir_shade": 1},
                              directional=True)
+    shaded = shadow_cuda.counters.read()["dir_shade_pixels"]
+    if shaded != n_pix:
+        raise RuntimeError(f"{label}: dir_shade_pixels {shaded}, the batch "
+                           f"has {n_pix} pixels")
+    route = batched.gbuffer_and_frames(renderer, cache, ds, home, dirs,
+                                       directional=True)[1]
+    require_equal(label, "winner-input frames vs the G-buffer route, all "
+                  f"{FRAMES} frames", frames, route)
+    print(f"{label}: the winner-input directional mode's frames == the "
+          f"G-buffer route's on all {FRAMES} frames; dir_shade_pixels "
+          f"{shaded}")
+    winners = batched.winner_stage(renderer, ds, be, cnt, home)
+    tl, _, _ = shadow_dir.direction_constants(dirs, cfg)
+    sargs = (winners, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+             ds.atlas_depth, ds.atlas_normal, ds.palette, ds.palette_luma,
+             be, cnt, home, tl, inv, K, cfg, "dithered")
+    plain_frames, shade_plain_ms = timed(
+        lambda: shade.directional_frames(*sargs[:8], *sargs[9:]))
+    require_equal(label, "winner-input directional kernel vs its plain "
+                  "version", shadow_cuda.shade_directional(*sargs),
+                  plain_frames)
+    shade_ms = cuda_ms(lambda: shadow_cuda.shade_directional(*sargs),
+                       KERNEL_REPS)
+    shade_bound_ms, shade_by = bound(
+        entity_bytes(be, cnt, ds.pos, ds.ext)
+        + nbytes(home, be, cnt, winners, tl, inv, K, frames),
+        NEAR_FAR_OPS * near_far
+        + SLAB_OPS * (int(work["slab_tests"]) - near_far))
+    s_smem, s_blocks, s_regs, s_local = \
+        shadow_cuda.directional_shade_occupancy(cfg)
+    print(f"{label}: winner-input directional kernel {shade_ms:.4f} ms, "
+          f"plain {shade_plain_ms:.4f} ms, "
+          f"bound {shade_bound_ms:.4f} ms ({shade_by}, "
+          f"{shade_ms / shade_bound_ms:.1f}x) per call; {s_smem} B of shared "
+          f"memory per block, {s_blocks} blocks per SM, {s_regs} registers "
+          f"and {s_local} B of local memory a thread (lit-mask mode: "
+          f"{kernel_ms:.4f} ms, {smem} B, {blocks} blocks per SM, {regs} "
+          f"registers, {local} B)  [{card}]")
     palette = ds.palette[:, :3].long()
     codes = frames.long()
     codes = (codes[..., 0] << 16) | (codes[..., 1] << 8) | codes[..., 2]
@@ -947,7 +991,14 @@ def config4_phase(card: str) -> list[dict]:
              "launches": launches["shadow_directional"],
              "max_abs_err": max_abs_err(lit_k, lit_p), "ms": kernel_ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None}]
+             "bound_by": bound_by, "library_ms": None},
+            {"name": "shadow_dir_shade (config 4)", "route": "cuda",
+             "source": DIRECTIONAL_SOURCE[0],
+             "replaces": DIRECTIONAL_SOURCE[1],
+             "launches": launches["shadow_dir_shade"],
+             "max_abs_err": max_abs_err(frames, route), "ms": shade_ms,
+             "plain_ms": shade_plain_ms, "bound_ms": shade_bound_ms,
+             "bound_by": shade_by, "library_ms": None}]
 
 
 def config5_phase(card: str) -> list[dict]:
@@ -2526,7 +2577,7 @@ def main() -> int:
     anim_dithered = AnimationRenderer(dithered, cfg, static_bins=cache)
     none = dict.fromkeys(read_launches(), 0)
     two_kernel = {**none, "trace": 1, "shadow": 1}
-    directional_only = {**none, "trace": 1, "shadow_directional": 1}
+    directional_only = {**none, "trace": 1, "shadow_dir_shade": 1}
     paths = {}  # label -> (anim, players, lights, directional, frames)
     counts = {}  # label -> launches per batch
     for fuse in (False, True):

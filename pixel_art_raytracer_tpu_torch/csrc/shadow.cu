@@ -36,6 +36,16 @@
 // light geometry, lit mask or dot reaches device memory.  Its plain
 // version is ops/shade.py::point_frames.
 //
+// Winner-input directional mode (par_shadow_dir_shade): the directional
+// mode's march, from trace.cu's winners to the frames.  Its first phase
+// decodes each pixel's surface from its winner (ops/trace.py::
+// decode_winner) into the tile's shared memory, and its store shades the
+// pixel (the Lambert dot against the frame's direction, the ambient +
+// Lambert factor of ops/shade.py, then the truncated u8 colour or the
+// ordered dither of ops/dither.py onto the palette, in their op order) and
+// writes RGB.  No G-buffer, dot, lit mask or factor reaches device memory.
+// Its plain version is ops/shade.py::directional_frames.
+//
 // Directional mode (par_shadow_dir_lit): the march of the JAX package's
 // shade_directional, i.e. trace_light_dynamic with the per-pixel light bins
 // of ops/shadow_dir.py::pixel_light_bins and the step cap max_steps
@@ -51,7 +61,8 @@
 // and 1 B of output a pixel; in the winner-input mode 4 B of winner and
 // 3 B of frame a pixel, so the slab tests may bound it instead; in
 // directional mode the slab tests the rays need (13 B a pixel; ~190 M tests of 23 operations on chip_smoke.py's
-// sweep of 64 graybox frames).  It runs at several times its bound.
+// sweep of 64 graybox frames), and in its winner-input mode too (4 B of
+// winner and 3 B of frame a pixel).  It runs at several times its bound.
 // Marched per pixel, as the reference does,
 // each ray ran ~48 DDA phases, probed the same bins again and again (14-31
 // distinct of ~40-56 probes on graybox) and gathered every tested box's
@@ -130,6 +141,13 @@
 //    boxes' shared-memory reads are broadcasts; a pixel tests an entry only
 //    where the entry's mask has its key's bit, skips its own entity and
 //    stops at its first hit.
+// The winner-input directional mode (shadow_dir_kernel<DirFrames>) is the
+// same march with another first phase and store: phase 1 decodes each
+// pixel once and keeps in shared memory what the walk and the store read
+// (the surface point's y and z in 16 bits each, the entity, the texel's
+// offset in its sprite: 10 B a pixel), and phase 5 shades.  A pixel whose
+// y or z does not fit 16 bits takes the direct march, which decodes its
+// winner again.
 // A pixel whose key does not fit the table or the packed fields marches on
 // its own (march_occluded) and is counted in stats[kStatDirect]; the slab
 // tests of both paths add to work[kWorkTests] (a register a thread, one
@@ -234,6 +252,88 @@ struct SurfacePixels {
   const int* z;
   const int* self;
 };
+
+// Inputs of the winner-input directional mode: trace.cu's winners and the
+// arrays the surface and the shade read (WinnerPixels; its lights are not
+// read), each frame's direction toward the light, and the style's tables.
+struct DirFrames {
+  WinnerPixels w;
+  const float* tl;            // (F, 3) the L1-normalised direction
+  const float* palette_luma;  // (P,) ops/dither.luminance of the palette
+  int n_palette;
+  float bg_luma;              // the background colour's luminance
+  bool dithered;              // style "dithered", else "reference"
+};
+
+// The texel offset of a background pixel in DirSmem::local.
+constexpr unsigned short kNoTexel = 0xFFFF;
+
+// The threshold of view column i and row j in ops/dither.bayer_matrix(4):
+// (m + 0.5) / 16 for the entry m at row j % 4 and column i % 4, which is
+// 4 B(i % 2, j % 2) + B(i / 2 % 2, j / 2 % 2) with B(x, y) = 2 (x ^ y) + y,
+// the 2 x 2 matrix the recursion starts from.
+__device__ __forceinline__ float bayer4(int i, int j) {
+  const int x0 = i & 1, y0 = j & 1;
+  const int x1 = (i >> 1) & 1, y1 = (j >> 1) & 1;
+  const int m = 4 * (2 * (x0 ^ y0) + y0) + 2 * (x1 ^ y1) + y1;
+  return (static_cast<float>(m) + 0.5f) / 16.0f;
+}
+
+// Whether v fits a 16-bit signed integer.
+__device__ __forceinline__ bool fits16(int v) {
+  return v == static_cast<short>(v);
+}
+
+// The frame of a pixel at (i, j) of the view, from its decoded surface
+// (hit, texel) and lit bit, into rgb[0..2]: ops/shade.py's lambert_dot
+// against the frame's direction t, factor_from_dot (std::min/std::max as
+// ternaries, so a NaN dot gives a diffuse of 0), then shade_u8, or with
+// px.dithered ops/dither.py's shade_dithered at view row j (the palette
+// neighbours of the lit luminance by a count of palette lumas <= it, a
+// clamp that keeps NaN, and the Bayer threshold of (j % 4, i % 4)).
+__device__ __forceinline__ void shade_directional_pixel(
+    const DirFrames& px, float t0, float t1, float t2, int i, int j,
+    bool hit, int texel, bool occluded, unsigned char* rgb) {
+  float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
+  int c = 0;
+  if (hit) {
+    const float* nv = px.w.atlas_normal + 3 * static_cast<size_t>(texel);
+    n0 = nv[0];
+    n1 = nv[1];
+    n2 = nv[2];
+    c = px.w.atlas_color[texel];
+  }
+  const float dot = n0 * t0 + n1 * t1 + n2 * t2;
+  const float diffuse = 0.0f < dot ? dot : 0.0f;
+  const float bright = diffuse + px.w.ambient;
+  const float factor = occluded ? px.w.ambient
+                                : (bright < 1.0f ? bright : 1.0f);
+  const unsigned char* pal = px.w.palette;
+  if (!px.dithered) {
+    const int col[3] = {hit ? pal[4 * c] : px.w.bg_r,
+                        hit ? pal[4 * c + 1] : px.w.bg_g,
+                        hit ? pal[4 * c + 2] : px.w.bg_b};
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      rgb[a] = static_cast<unsigned char>(
+          static_cast<int>(static_cast<float>(col[a]) * factor));
+    return;
+  }
+  const float* luma = px.palette_luma;
+  const float target = (hit ? luma[c] : px.bg_luma) * factor;
+  int below = -1;
+  for (int k = 0; k < px.n_palette; ++k) below += luma[k] <= target ? 1 : 0;
+  const int lo = below < 0 ? 0 : below;
+  const int hi = min(lo + 1, px.n_palette - 1);
+  const float luma_lo = luma[lo];
+  const float luma_hi = luma[hi];
+  const float span = luma_hi > luma_lo ? luma_hi - luma_lo : 1.0f;
+  float frac = (target - luma_lo) / span;
+  if (frac == frac) frac = frac < 0.0f ? 0.0f : (frac > 1.0f ? 1.0f : frac);
+  const int idx = frac > bayer4(i, j) ? hi : lo;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) rgb[a] = pal[4 * idx + a];
+}
 
 // ---------------------------------------------------------------------------
 // The directional mode's march: one union of visit lists per tile.
@@ -346,8 +446,9 @@ __device__ __forceinline__ bool near_far_hit(float4 n, float4 r, float ox,
   return hi >= lo;
 }
 
-// The shared memory shadow_dir_kernel works in; the base must be 16-byte
-// aligned.
+// The shared memory shadow_dir_kernel works in, with the per-pixel
+// surface of the winner-input mode where `frames`; the base must be
+// 16-byte aligned.
 struct DirSmem {
   float4* cand;               // (kDirChunk * cap, 2) staged boxes
                               // (common.cuh Box)
@@ -367,20 +468,26 @@ struct DirSmem {
   unsigned* mask;             // (V,) the key mask of each flat bin
   int* list;                  // (V,) the union: bins with a mask, in flat
                               // order
+  int* self;                  // (n_pix,) with frames: the pixel's entity
+  short* y;                   // (n_pix,) the surface point's y
+  short* z;                   // (n_pix,) and z (where they fit 16 bits)
+  unsigned short* local;      // (n_pix,) the texel's offset in its sprite,
+                              // kNoTexel for background
   unsigned short* perm;       // (n_pix,) the list path's pixels by key
   unsigned short* rank;       // (n_pix,) a pixel's place among its key's
   unsigned char* slot;        // (n_pix,) each pixel's table slot, kDirect
                               // or kNoPixel
   unsigned char* occ;         // (n_pix,) occluded by a union entry so far
 
-  __host__ __device__ static size_t bytes(const par::Grid& g, int n_pix) {
+  __host__ __device__ static size_t bytes(const par::Grid& g, int n_pix,
+                                          bool frames) {
     return static_cast<size_t>(32 * kDirChunk * g.bin_cap
                                + 8 * (kDirSlots + kDirKeys)
                                + 4 * (2 * kDirSlots + 2 * kDirChunk + 4
                                       + par::kMarchWarps)
-                               + 8 * g.volume() + 6 * n_pix);
+                               + 8 * g.volume() + (frames ? 16 : 6) * n_pix);
   }
-  __device__ DirSmem(int* base, const par::Grid& g, int n_pix) {
+  __device__ DirSmem(int* base, const par::Grid& g, int n_pix, bool frames) {
     char* p = reinterpret_cast<char*>(base);
     cand = reinterpret_cast<float4*>(p);
     p += 32 * kDirChunk * g.bin_cap;
@@ -394,7 +501,11 @@ struct DirSmem {
     slot_n = warp_n + par::kMarchWarps;
     mask = reinterpret_cast<unsigned*>(slot_n + kDirSlots);
     list = reinterpret_cast<int*>(mask + g.volume());
-    perm = reinterpret_cast<unsigned short*>(list + g.volume());
+    self = list + g.volume();
+    y = reinterpret_cast<short*>(self + (frames ? n_pix : 0));
+    z = y + (frames ? n_pix : 0);
+    local = reinterpret_cast<unsigned short*>(z + (frames ? n_pix : 0));
+    perm = local + (frames ? n_pix : 0);
     rank = perm + n_pix;
     slot = reinterpret_cast<unsigned char*>(rank + n_pix);
     occ = slot + n_pix;
@@ -1013,23 +1124,27 @@ shadow_shade_kernel(
   }
 }
 
-// The lit mask of bin-column tile blockIdx.x of frame blockIdx.y under a
-// directional light, in five phases (the header's 1-4, then the pixels off
-// the list path).  All threads of the block take part; blockDim.x is a
-// multiple of 32 and at most kMarchThreads.
+// The lit mask (Px = SurfacePixels: out is (F, H, W) 0/1) or the frame
+// (Px = DirFrames: out is (F, H, W, 3) RGB) of bin-column tile blockIdx.x
+// of frame blockIdx.y under a directional light, in five phases (the
+// header's 1-4, then the pixels off the list path and the store).  All
+// threads of the block take part; blockDim.x is a multiple of 32 and at
+// most kMarchThreads.
+template <class Px>
 __global__ void __launch_bounds__(par::kMarchThreads, kDirBlocksPerSM)
 shadow_dir_kernel(
     const int* __restrict__ pos, const int* __restrict__ ext,
     const int* __restrict__ players, const int* __restrict__ bins_ent,
-    const int* __restrict__ counts, SurfacePixels px,
+    const int* __restrict__ counts, Px px,
     const float* __restrict__ inv, const int* __restrict__ offsets,
-    unsigned char* __restrict__ lit, int* __restrict__ stats,
+    unsigned char* __restrict__ out, int* __restrict__ stats,
     unsigned long long* __restrict__ work, par::Grid g, int max_steps,
     KeyFields kf) {
+  constexpr bool kFrames = std::is_same<Px, DirFrames>::value;
   extern __shared__ __align__(16) int smem[];
   const int bs = g.bin_size;
   const int n_pix = bs * bs;
-  const DirSmem s(smem, g, n_pix);
+  const DirSmem s(smem, g, n_pix, kFrames);
   const int V = g.volume();
   const int cap = g.bin_cap;
   const int tid = threadIdx.x;
@@ -1056,10 +1171,14 @@ shadow_dir_kernel(
   //    point (i, y, z), and the tile's table of distinct keys: the lowest
   //    lane of each key in a warp inserts it and takes places for the
   //    key's lanes among the slot's pixels.  A thread loads the surface
-  //    points of kDirPixels pixels (those of TilePixel's order) at once.
+  //    points of kDirPixels pixels (those of TilePixel's order) at once;
+  //    with frames it decodes them from their winners and keeps them in
+  //    shared memory, and a pixel whose y or z does not fit there takes
+  //    the direct march.
   par::TilePixel tp(bs);
   for (int r0 = 0; r0 < n_pix; r0 += nt * kDirPixels) {
     int qs[kDirPixels], is[kDirPixels], ys[kDirPixels], zs[kDirPixels];
+    unsigned wide = 0u;  // bit p: pixel p's y or z does not fit 16 bits
 #pragma unroll
     for (int p = 0; p < kDirPixels; ++p) {
       qs[p] = tp.q;
@@ -1067,9 +1186,25 @@ shadow_dir_kernel(
       const int j = j0 + tp.row;
       ys[p] = zs[p] = 0;
       if (tp.q < n_pix && is[p] < g.view_w && j < g.view_h) {
-        const size_t o = g.pixel(f, is[p], j);
-        ys[p] = px.y[o];
-        zs[p] = px.z[o];
+        if constexpr (kFrames) {
+          const WinnerPixels& w = px.w;
+          const Surface u = decode_winner(pos, ext, players, w, g, f, is[p],
+                                          j);
+          ys[p] = u.y;
+          zs[p] = u.z;
+          s.self[tp.q] = u.ent;
+          s.y[tp.q] = static_cast<short>(u.y);
+          s.z[tp.q] = static_cast<short>(u.z);
+          s.local[tp.q] = u.hit ? static_cast<unsigned short>(
+                                      u.texel - w.sprite_id[u.ent]
+                                                    * w.sprite_h * w.sprite_w)
+                                : kNoTexel;
+          wide |= fits16(u.y) && fits16(u.z) ? 0u : 1u << p;
+        } else {
+          const size_t o = g.pixel(f, is[p], j);
+          ys[p] = px.y[o];
+          zs[p] = px.z[o];
+        }
       } else {
         is[p] = -1;  // out of view
       }
@@ -1088,6 +1223,9 @@ shadow_dir_kernel(
                                    div_bs(hy - (ky + kz), kf) - sby,
                                    div_bs(zs[p] + kz, kf) - sbz};
         key = pack_key(kf, v);
+        if constexpr (kFrames) {
+          if ((wide >> p) & 1u) key = kNoKey;
+        }
       }
       const unsigned same = __match_any_sync(par::kFullWarp, key);
       const int leader = __ffs(same) - 1;
@@ -1243,11 +1381,17 @@ shadow_dir_kernel(
           if (at < n_list && !s.occ[q]) {
             const int row = static_cast<int>(udiv_bs(q, kf));
             const int i = i0 + q - row * bs;
-            const size_t o = g.pixel(f, i, j0 + row);
             ox[p] = static_cast<float>(i);
-            oy[p] = static_cast<float>(px.y[o]);
-            oz[p] = static_cast<float>(px.z[o]);
-            self[p] = px.self[o];
+            if constexpr (kFrames) {
+              oy[p] = static_cast<float>(s.y[q]);
+              oz[p] = static_cast<float>(s.z[q]);
+              self[p] = s.self[q];
+            } else {
+              const size_t o = g.pixel(f, i, j0 + row);
+              oy[p] = static_cast<float>(px.y[o]);
+              oz[p] = static_cast<float>(px.z[o]);
+              self[p] = px.self[o];
+            }
             bit[p] = 1u << key_index(q);
           }
         }
@@ -1303,7 +1447,14 @@ shadow_dir_kernel(
     march_chunks(std::false_type{});
   }
 
-  // 5. Pixels off the list path march on their own; every pixel's lit bit.
+  // 5. Pixels off the list path march on their own (with frames, from
+  //    their winners decoded again); every pixel's lit bit, or its colour.
+  float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;  // with frames: the direction
+  if constexpr (kFrames) {
+    t0 = px.tl[3 * f];
+    t1 = px.tl[3 * f + 1];
+    t2 = px.tl[3 * f + 2];
+  }
   int direct = 0;
   for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
     const int sl = s.slot[p.q];
@@ -1311,21 +1462,44 @@ shadow_dir_kernel(
     const int i = i0 + p.col;
     const int j = j0 + p.row;
     bool occluded = s.occ[p.q] != 0;
+    bool hit = false;  // with frames: the pixel's surface, hit and texel
+    int texel = 0;
     if (key_index(p.q) == par::kDirect) {
-      const size_t o = g.pixel(f, i, j);
-      const int y = px.y[o];
-      const int z = px.z[o];
+      int y, z, self;
+      if constexpr (kFrames) {
+        const Surface u = decode_winner(pos, ext, players, px.w, g, f, i, j);
+        y = u.y;
+        z = u.z;
+        self = u.ent;
+        hit = u.hit;
+        texel = u.texel;
+      } else {
+        const size_t o = g.pixel(f, i, j);
+        y = px.y[o];
+        z = px.z[o];
+        self = px.self[o];
+      }
       const int hy = g.view_h - y - z;
       const par::Ray r{i / bs, hy / bs, z / bs, static_cast<float>(i),
                        static_cast<float>(y), static_cast<float>(z),
-                       ivx, ivy, ivz, px.self[o]};
+                       ivx, ivy, ivz, self};
       occluded = par::march_occluded<true>(
           pos, ext, players, bins_ent, counts, f, g, r,
           make_int3((i + kx) / bs, (hy - (ky + kz)) / bs, (z + kz) / bs),
           max_steps, &tests);
       ++direct;
+    } else if constexpr (kFrames) {
+      const int local = s.local[p.q];
+      hit = local != kNoTexel;
+      texel = px.w.sprite_id[s.self[p.q]] * px.w.sprite_h * px.w.sprite_w
+              + local;
     }
-    lit[g.pixel(f, i, j)] = occluded ? 0 : 1;
+    if constexpr (kFrames) {
+      shade_directional_pixel(px, t0, t1, t2, i, j, hit, texel, occluded,
+                              out + 3 * g.pixel(f, i, j));
+    } else {
+      out[g.pixel(f, i, j)] = occluded ? 0 : 1;
+    }
   }
   if (direct > 0) atomicAdd(stats + par::kStatDirect, direct);
   tests = __reduce_add_sync(par::kFullWarp, tests);
@@ -1347,8 +1521,24 @@ size_t shadow_smem(const par::Grid& g, int max_steps) {
                                             max_steps));
 }
 
-size_t dir_smem(const par::Grid& g) {
-  return DirSmem::bytes(g, g.bin_size * g.bin_size);
+size_t dir_smem(const par::Grid& g, bool frames) {
+  return DirSmem::bytes(g, g.bin_size * g.bin_size, frames);
+}
+
+// The KeyFields of fields (10,) int32 on the host, each key field's lo then
+// its bits (ops/shadow_dir.key_fields), for bins of bin_size.
+KeyFields key_fields(const void* fields, int bin_size) {
+  const int* fl = static_cast<const int*>(fields);
+  KeyFields kf;
+  int shift = 0;
+  for (int a = 0; a < kKeyFields; ++a) {
+    kf.lo[a] = fl[a];
+    kf.bits[a] = fl[kKeyFields + a];
+    kf.shift[a] = shift;
+    shift += kf.bits[a];
+  }
+  bin_divisor(static_cast<unsigned>(bin_size), kf);
+  return kf;
 }
 
 size_t shade_smem(const par::Grid& g, int chunk) {
@@ -1492,18 +1682,8 @@ extern "C" int par_shadow_dir_lit(
     int max_steps, const void* fields, int threads, void* stream) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  const int* fl = static_cast<const int*>(fields);
-  KeyFields kf;
-  int shift = 0;
-  for (int a = 0; a < kKeyFields; ++a) {
-    kf.lo[a] = fl[a];
-    kf.bits[a] = fl[kKeyFields + a];
-    kf.shift[a] = shift;
-    shift += kf.bits[a];
-  }
-  bin_divisor(static_cast<unsigned>(bin_size), kf);
-  const size_t smem = dir_smem(g);
-  const int rc = allow_smem(shadow_dir_kernel, smem);
+  const size_t smem = dir_smem(g, false);
+  const int rc = allow_smem(shadow_dir_kernel<SurfacePixels>, smem);
   if (rc != 0) return rc;
   const SurfacePixels px{static_cast<const int*>(y),
                          static_cast<const int*>(z),
@@ -1516,7 +1696,61 @@ extern "C" int par_shadow_dir_lit(
       static_cast<const int*>(counts), px, static_cast<const float*>(inv),
       static_cast<const int*>(offsets), static_cast<unsigned char*>(lit),
       static_cast<int*>(stats), static_cast<unsigned long long*>(work), g,
-      max_steps, kf);
+      max_steps, key_fields(fields, bin_size));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The winner-input directional mode: rgb (F, H, W, 3) uint8, the frames.
+// winner, sprite_id, atlas_*, palette as for par_shadow_shade; tl, inv
+// (F, 3) float32 and offsets (F, 3) int32 of each frame
+// (ops/shadow_dir.direction_constants); palette_luma (P,) float32 the
+// palette's ops/dither.luminance and bg_luma the background colour's (read
+// with dithered != 0 only, which dithers with ops/dither.bayer_matrix(4));
+// stats, work, max_steps, fields and the rest as for par_shadow_dir_lit.
+// Returns cudaGetLastError().
+extern "C" int par_shadow_dir_shade(
+    const void* pos, const void* ext, const void* players,
+    const void* bins_ent, const void* counts, const void* winner,
+    const void* sprite_id, const void* atlas_depth, const void* atlas_color,
+    const void* atlas_normal, const void* palette, const void* palette_luma,
+    const void* tl, const void* inv, const void* offsets, void* rgb,
+    void* stats, void* work, int n_frames, int view_w, int view_h,
+    int bin_size, int bin_cap, int hash_w, int hash_h, int hash_l,
+    int max_steps, int sprite_w, int sprite_h, int bg_r, int bg_g, int bg_b,
+    int n_palette, int dithered, float ambient, float bg_luma,
+    const void* fields, int threads, void* stream) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  const size_t smem = dir_smem(g, true);
+  const int rc = allow_smem(shadow_dir_kernel<DirFrames>, smem);
+  if (rc != 0) return rc;
+  const DirFrames px{WinnerPixels{static_cast<const int*>(winner),
+                                  static_cast<const int*>(sprite_id),
+                                  static_cast<const int*>(atlas_depth),
+                                  static_cast<const int*>(atlas_color),
+                                  static_cast<const float*>(atlas_normal),
+                                  static_cast<const unsigned char*>(palette),
+                                  nullptr,
+                                  sprite_w,
+                                  sprite_h,
+                                  bg_r,
+                                  bg_g,
+                                  bg_b,
+                                  ambient},
+                     static_cast<const float*>(tl),
+                     static_cast<const float*>(palette_luma),
+                     n_palette,
+                     bg_luma,
+                     dithered != 0};
+  const dim3 grid(hash_w * hash_h, n_frames);
+  shadow_dir_kernel<<<grid, threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(pos), static_cast<const int*>(ext),
+      static_cast<const int*>(players), static_cast<const int*>(bins_ent),
+      static_cast<const int*>(counts), px, static_cast<const float*>(inv),
+      static_cast<const int*>(offsets), static_cast<unsigned char*>(rgb),
+      static_cast<int*>(stats), static_cast<unsigned long long*>(work), g,
+      max_steps, key_fields(fields, bin_size));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1550,7 +1784,20 @@ extern "C" int par_shadow_dir_occupancy(int view_w, int view_h, int bin_size,
                                         int hash_l, int threads, int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_dir_kernel, dir_smem(g), threads, out);
+  return occupancy(shadow_dir_kernel<SurfacePixels>, dir_smem(g, false),
+                   threads, out);
+}
+
+// The same for the winner-input directional mode.
+extern "C" int par_shadow_dir_shade_occupancy(int view_w, int view_h,
+                                              int bin_size, int bin_cap,
+                                              int hash_w, int hash_h,
+                                              int hash_l, int threads,
+                                              int* out) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  return occupancy(shadow_dir_kernel<DirFrames>, dir_smem(g, true), threads,
+                   out);
 }
 
 #ifdef PAR_SHADE_PHASES

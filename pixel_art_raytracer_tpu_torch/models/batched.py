@@ -15,16 +15,27 @@ render_states_batched``.  A point light per frame in ``style="reference"``
 as the JAX package's batched path does by default with its winner-direct
 shadow inputs (``models/batched.py:133-141`` there) and, here, its shade
 epilogue (``shadow_pallas.py:1140-1216``): no G-buffer, ray buffer, lit
-mask or dot reaches device memory.
+mask or dot reaches device memory.  A directional light per frame, in
+either style, runs stages 1-2 and
+
+  3. shade    — kernel 2's winner-input directional mode: each pixel's
+                surface decoded from its winner, the march toward its
+                virtual far light, the Lambert dot against the frame's
+                direction, the factor and the u8 scale or the ordered
+                dither onto the palette, in the kernel → (F, H, W, 3)
+                uint8 (:func:`shade_directional_stage`),
+
+the G-buffer route's frames with no G-buffer, dot, lit mask or factor in
+device memory.
 
 The other requests keep the G-buffer, each by the JAX package's own path
 choice: the callers that hand the G-buffer back (``gbuffer_and_frames``:
 ``DeferredRenderer.render_with_gbuffer``, hence the session, the viewer and
-single frames) and the row windows of ``parallel/mesh.py``, the
-directional mode (the JAX winner mode excludes it), additive multi-light
-and the dithered style (the JAX shade epilogue excludes both: they need
-per-light lit masks or re-quantise), and the fused opt-in (the JAX fused
-kernel has no shade epilogue).  Their point lights run
+single frames; its directional route is the one below) and the row windows
+of ``parallel/mesh.py``, additive multi-light and the dithered style of
+point lights (the JAX shade epilogue excludes both: they need per-light
+lit masks or re-quantise), and the fused opt-in (the JAX fused kernel has
+no shade epilogue).  Their point lights run
 
   2. trace    — kernel 1 → winners → ``materialize_gbuffer``,
   3. geometry — ``light_geometry`` and the Lambert dot,
@@ -49,9 +60,10 @@ path does (``models/batched.py:888-905`` there):
   (L launches of kernel 2) and each light's shadowed diffuse adds over the
   shared ambient base (:func:`multi_light_stage`);
 * directional lights, ``directional=True`` with (F, 3) float32 directions
-  toward the light: the frame's constant direction gives the Lambert dot,
-  and kernel 2's directional mode marches each pixel toward its own
-  virtual far light under the grid's step cap (:func:`directional_stage`).
+  toward the light, in ``gbuffer_and_frames``: the frame's constant
+  direction gives the Lambert dot, and kernel 2's directional mode marches
+  each pixel toward its own virtual far light under the grid's step cap
+  into a lit mask (:func:`directional_stage`).
 
 The JAX package runs its fused kernel only for (F, 3) point lights
 (``models/batched.py:161-172`` there), so multi-light and directional
@@ -68,8 +80,9 @@ for point lights, as the JAX package's row shards call ``trace`` and
 The stage functions are public so a profiler can time each one, and each
 runs in a span of ``runtime/tracing.py`` (``batch.bins``, ``batch.trace``,
 ...) inside one ``batch`` span a request, with ``batch.gbuffer`` (the
-G-buffer of the winners) inside ``batch.trace`` or ``batch.fused`` and
-``batch.dither`` inside ``batch.shade``; the reference's per-frame loop
+G-buffer of the winners) inside ``batch.trace`` or ``batch.fused`` and,
+on the G-buffer route, ``batch.dither`` inside ``batch.shade``; the
+reference's per-frame loop
 is alternative.cpp:628-817.  CUDA tensors run the kernels, CPU tensors
 their plain versions.
 """
@@ -149,6 +162,21 @@ def shade_point_stage(renderer, dscene, bins_ent, counts, players, winners,
         winners, dscene.pos, dscene.ext, dscene.sprite_id,
         dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
         dscene.palette, bins_ent, counts, players, lights, renderer.config)
+
+
+@tracing.spanned("batch.shade")
+def shade_directional_stage(renderer, dscene, bins_ent, counts, players,
+                            winners, directions):
+    """The frames of (F, 3) directions toward the light from the winners,
+    in kernel 2's winner-input directional mode (surface, march and shade
+    in the renderer's style in one launch).  Returns (F, H, W, 3) uint8."""
+    cfg = renderer.config
+    tl, inv, K = shadow_dir.direction_constants(directions, cfg)
+    return shadow_cuda.shade_directional(
+        winners, dscene.pos, dscene.ext, dscene.sprite_id,
+        dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
+        dscene.palette, dscene.palette_luma, bins_ent, counts, players, tl,
+        inv, K, cfg, renderer.style)
 
 
 @tracing.spanned("batch.geometry")
@@ -265,16 +293,21 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
                                               directional)[1]
     bins_ent, counts = bin_stage(renderer, static_bins, dscene, players)
     winners = winner_stage(renderer, dscene, bins_ent, counts, players)
+    if directional:
+        return shade_directional_stage(renderer, dscene, bins_ent, counts,
+                                       players, winners, lights)
     return shade_point_stage(renderer, dscene, bins_ent, counts, players,
                              winners, lights)
 
 
 def winner_inputs(renderer, lights, directional: bool) -> bool:
-    """Whether a batch takes the main path, kernel 2's winner-input point
-    mode: (F, 3) point lights in ``style="reference"`` without the fused
-    opt-in (module docstring)."""
-    return (lights.dim() == 2 and not directional
-            and renderer.style == "reference"
+    """Whether a batch shades from the winners in kernel 2: (F, 3)
+    directions in either style (the winner-input directional mode), or
+    (F, 3) point lights in ``style="reference"`` without the fused opt-in
+    (the winner-input point mode; module docstring)."""
+    if directional:
+        return lights.dim() == 2
+    return (lights.dim() == 2 and renderer.style == "reference"
             and not renderer.fuse_trace_shadow)
 
 

@@ -11,6 +11,7 @@ frame for the session, the viewer and their mouse inspector, where
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..device import resolve
-from ..ops import binning
+from ..ops import binning, dither
 from ..ops import shade as shade_ops
 from ..ops.trace import GBufferArrays
 from ..runtime import tracing
@@ -75,6 +76,13 @@ class DeviceScene:
     @property
     def device(self) -> torch.device:
         return self.pos.device
+
+    @functools.cached_property
+    def palette_luma(self) -> torch.Tensor:
+        """(P,) float32 ``dither.luminance`` of the palette's colours, the
+        table the winner-input directional mode dithers with: computed on
+        the scene's device at first use and kept."""
+        return dither.luminance(self.palette[:, :3])
 
 
 class DeferredRenderer:

@@ -18,6 +18,8 @@ luminance moves a pixel across a Bayer threshold.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -52,6 +54,13 @@ def luminance(rgb: torch.Tensor) -> torch.Tensor:
     # A tensor divisor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which is not the IEEE quotient.
     return acc / torch.full_like(acc, 255.0)
+
+
+@functools.cache
+def color_luminance(rgb: tuple[int, int, int]) -> float:
+    """:func:`luminance` of one u8 colour ``(r, g, b)``, on the host: the
+    float32 value as a Python float, with no device operation."""
+    return float(luminance(torch.tensor(rgb, dtype=torch.uint8)))
 
 
 def dither_to_palette(target: torch.Tensor, palette_luma: torch.Tensor,

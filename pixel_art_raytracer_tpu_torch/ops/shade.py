@@ -5,8 +5,9 @@ Counterpart of ``pixel_art_raytracer_tpu/ops/shade.py`` (its non-integer
 factor rules of the JAX batched path (``models/batched.py:888-905``): the
 directional factor, which is ``factor_from_dot``'s op sequence with the
 frame's constant direction, and the additive multi-light sum; and
-:func:`point_frames`, the chain from the trace kernel's winners to the
-frames that the winner-input mode of ``csrc/shadow.cu`` runs.  Float math
+:func:`point_frames` and :func:`directional_frames`, the chains from the
+trace kernel's winners to the frames that the winner-input point and
+directional modes of ``csrc/shadow.cu`` run.  Float math
 stays float32 in the reference's op order (alternative.cpp:702-760):
 
 * the towards-light direction is ``d / len`` and the inverse direction is
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from . import shadow, trace
+from . import dither, shadow, shadow_dir, trace
 from .cstyle import c_div, c_max, c_min
 from .trace import GBufferArrays
 
@@ -140,3 +141,36 @@ def point_frames(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
                                            atlas_normal, palette, config)
     return shade_u8(color, factor_from_dot(lambert_dot(normal, tl), lit,
                                            config))
+
+
+def directional_frames(winner, pos, ext, sprite_id, atlas_color,
+                       atlas_depth, atlas_normal, palette, bins_ent, counts,
+                       players, tl, inv, K, config: RenderConfig,
+                       style: str = "reference") -> torch.Tensor:
+    """The frames of a directional light per frame, from the trace
+    kernel's winners: the plain version of ``csrc/shadow.cu``'s
+    winner-input directional mode (``ops/shadow_cuda.shade_directional``).
+
+    ``trace.decode_winner`` → ``shadow_dir.trace_light_directional``
+    (step cap ``shadow_dir.grid_max_steps``) → :func:`lambert_dot` against
+    the frame's direction and :func:`factor_from_dot` →
+    :func:`shade_u8` (``style="reference"``) or ``dither.shade_dithered``
+    onto the palette (``style="dithered"``, the whole view's rows): the
+    G-buffer route's chain from a winner map.  tl, inv, K: (F, 3) of
+    ``shadow_dir.direction_constants``; the other arguments as
+    :func:`point_frames`.  Returns (F, H, W, 3) uint8.
+    """
+    F = tl.shape[0]
+    y, z, ent, texel = trace.decode_winner(winner, pos, ext, sprite_id,
+                                           atlas_depth, players, config)
+    lit = shadow_dir.trace_light_directional(
+        pos, ext, bins_ent, counts, y, z, ent, inv, K, players, config,
+        shadow_dir.grid_max_steps(config))
+    color, normal = trace.texel_attributes(winner >= 0, texel, atlas_color,
+                                           atlas_normal, palette, config)
+    dot = lambert_dot(normal, tuple(tl[:, a].view(F, 1, 1)
+                                    for a in range(3)))
+    factor = factor_from_dot(dot, lit, config)
+    if style == "dithered":
+        return dither.shade_dithered(color, factor, palette[:, :3])
+    return shade_u8(color, factor)

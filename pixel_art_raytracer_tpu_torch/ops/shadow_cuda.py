@@ -1,20 +1,22 @@
 """Wrappers of kernel 2 (``csrc/shadow.cu``): the per-pixel lit mask of a
 point light (:func:`trace_light`, from a G-buffer's ray inputs) or a
 directional light (:func:`trace_light_directional`) per frame, and the
-shaded frames (or the lit mask) of a point light per frame straight from
-the trace kernel's winners (:func:`shade_point`).
+shaded frames straight from the trace kernel's winners of a point light
+(:func:`shade_point`, or its lit mask) or a directional light
+(:func:`shade_directional`) per frame.
 
 CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`,
-:func:`ops.shadow_dir.trace_light_directional` and
-:func:`ops.shade.point_frames`; CUDA tensors launch the kernel, and
-anything else raises.  ``launches``, ``directional_launches`` and
-``shade_launches`` count the three modes' launches; ``counters`` holds
-the kernel's device counters of all three (pixels marched directly, the
-most keys in a tile, the longest visit list), of the directional mode
-(union entries staged, slab tests performed, and the pixels of its
-launches on the host) and, while the program is traced
-(``runtime/tracing.py``), of the winner-input mode (slab tests performed,
-and the pixels of those launches on the host).
+:func:`ops.shadow_dir.trace_light_directional`,
+:func:`ops.shade.point_frames` and :func:`ops.shade.directional_frames`;
+CUDA tensors launch the kernel, and anything else raises.  ``launches``,
+``directional_launches``, ``shade_launches`` and ``dir_shade_launches``
+count the four modes' launches; ``counters`` holds the kernel's device
+counters of all four (pixels marched directly, the most keys in a tile,
+the longest visit list), of the two directional modes (union entries
+staged, slab tests performed, and the pixels of their launches on the
+host) and, while the program is traced (``runtime/tracing.py``), of the
+winner-input point mode (slab tests performed, and the pixels of those
+launches on the host).
 """
 
 from __future__ import annotations
@@ -25,11 +27,12 @@ import torch
 
 from ..config import RenderConfig
 from ..runtime import kernels, tracing
-from . import shade, shadow, shadow_dir, trace, trace_cuda
+from . import dither, shade, shadow, shadow_dir, trace, trace_cuda
 
 launches = 0
 directional_launches = 0
 shade_launches = 0
+dir_shade_launches = 0
 counters = kernels.MarchCounters()
 
 # Shared memory a block may use on Hopper (opt-in above 48 KB).
@@ -50,6 +53,11 @@ SHADE_KEY_BYTES = 64
 # Shared memory of a Hopper SM, and what the runtime reserves a block.
 SM_SMEM = 228 * 1024
 BLOCK_RESERVED_SMEM = 1024
+# The styles of the winner-input directional mode (models/deferred.STYLES).
+STYLES = ("reference", "dithered")
+# csrc/shadow.cu kNoTexel: the texel offset in a sprite that marks a
+# background pixel, so a sprite holds fewer texels.
+NO_TEXEL = 0xFFFF
 
 
 def march_threads(config: RenderConfig, pixels: int | None = None) -> int:
@@ -362,6 +370,101 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
     return lit
 
 
+def shade_directional(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
+                      atlas_normal, palette, palette_luma, bins_ent, counts,
+                      players, tl, inv, K, config: RenderConfig,
+                      style: str = "reference") -> torch.Tensor:
+    """The (F, H, W, 3) uint8 frames of a directional light per frame, from
+    the trace kernel's winners: the winner-input directional mode of the
+    kernel, which decodes each pixel's surface, marches it as
+    :func:`trace_light_directional` does and shades it (``style``
+    "reference" or "dithered") where it stores, so no G-buffer, dot, lit
+    mask or factor exists.
+
+    Arguments as :func:`ops.shade.directional_frames`, and
+    ``palette_luma`` (P,) float32, ``dither.luminance(palette[:, :3])``
+    (``models/deferred.DeviceScene.palette_luma``), which the plain
+    version computes itself.  Raises ``ValueError`` for a tensor the kernel
+    does not take, another style, a sprite of NO_TEXEL texels or more, or
+    a key the config cannot pack (:func:`ops.shadow_dir.key_fields`).
+
+    Each launch adds its slab tests (union lists and direct march) to
+    ``counters`` and its F * H * W pixels to ``counters.dir_pixels`` and
+    ``counters.dir_shade_pixels``.
+    """
+    global dir_shade_launches
+    if style not in STYLES:
+        raise ValueError(f"shade_directional: style {style!r}, expected one "
+                         f"of {STYLES}")
+    dev = bins_ent.device
+    if dev.type == "cpu":
+        return shade.directional_frames(winner, pos, ext, sprite_id,
+                                        atlas_color, atlas_depth,
+                                        atlas_normal, palette, bins_ent,
+                                        counts, players, tl, inv, K, config,
+                                        style)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_directional: no kernel for device {dev}")
+
+    cfg = config
+    fields = shadow_dir.key_fields(cfg)
+    F = bins_ent.shape[0]
+    H, W = cfg.view_height, cfg.view_width
+    V, cap = cfg.hash_volume, cfg.bin_capacity
+    N = pos.shape[0]
+    P = palette.shape[0]
+    atlas = (atlas_depth.shape[0], cfg.sprite_height, cfg.sprite_width)
+    for t, name, dtype, shape in (
+            (winner, "winner", torch.int32, (F, H, W)),
+            (pos, "pos", torch.int32, (N, 3)),
+            (ext, "ext", torch.int32, (N, 3)),
+            (sprite_id, "sprite_id", torch.int32, (N,)),
+            (atlas_color, "atlas_color", torch.int32, atlas),
+            (atlas_depth, "atlas_depth", torch.int32, atlas),
+            (atlas_normal, "atlas_normal", torch.float32, atlas + (3,)),
+            (palette, "palette", torch.uint8, (P, 4)),
+            (palette_luma, "palette_luma", torch.float32, (P,)),
+            (bins_ent, "bins_ent", torch.int32, (F, V, cap)),
+            (counts, "counts", torch.int32, (F, V)),
+            (players, "players", torch.int32, (F, 3)),
+            (tl, "tl", torch.float32, (F, 3)),
+            (inv, "inv", torch.float32, (F, 3)),
+            (K, "K", torch.int32, (F, 3))):
+        kernels.require(t, name, dtype, shape, dev)
+    if cfg.sprite_width * cfg.sprite_height >= NO_TEXEL:
+        raise ValueError(f"shade_directional: a sprite of "
+                         f"{cfg.sprite_width} x {cfg.sprite_height} texels, "
+                         f"the kernel's 16-bit offsets hold fewer than "
+                         f"{NO_TEXEL}")
+    packed = (ctypes.c_int * 10)(*(lo for lo, _ in fields),
+                                 *(bits for _, bits in fields))
+    r, g, b = cfg.background[:3]
+
+    out = torch.empty((F, H, W, 3), dtype=torch.uint8, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.par_shadow_dir_shade(
+            pos.data_ptr(), ext.data_ptr(), players.data_ptr(),
+            bins_ent.data_ptr(), counts.data_ptr(), winner.data_ptr(),
+            sprite_id.data_ptr(), atlas_depth.data_ptr(),
+            atlas_color.data_ptr(), atlas_normal.data_ptr(),
+            palette.data_ptr(), palette_luma.data_ptr(), tl.data_ptr(),
+            inv.data_ptr(), K.data_ptr(), out.data_ptr(),
+            counters.tensor(dev).data_ptr(), counters.work(dev).data_ptr(),
+            F, W, H, cfg.bin_size, cap,
+            cfg.hash_width, cfg.hash_height, cfg.hash_length,
+            shadow_dir.grid_max_steps(cfg), cfg.sprite_width,
+            cfg.sprite_height, r, g, b, P, int(style == "dithered"),
+            cfg.ambient, dither.color_luminance((r, g, b)),
+            ctypes.addressof(packed), march_threads(cfg),
+            kernels.stream_handle(dev))
+    kernels.check(rc, "par_shadow_dir_shade")
+    dir_shade_launches += 1
+    counters.dir_pixels += F * H * W
+    counters.dir_shade_pixels += F * H * W
+    return out
+
+
 def occupancy(config: RenderConfig) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
     local bytes per thread)`` of the point mode (needs the card)."""
@@ -379,4 +482,10 @@ def shade_occupancy(config: RenderConfig) -> tuple[int, ...]:
 def directional_occupancy(config: RenderConfig) -> tuple[int, ...]:
     """The same for the directional mode."""
     return kernels.occupancy("par_shadow_dir_occupancy", config,
+                             march_threads(config))
+
+
+def directional_shade_occupancy(config: RenderConfig) -> tuple[int, ...]:
+    """The same for the winner-input directional mode."""
+    return kernels.occupancy("par_shadow_dir_shade_occupancy", config,
                              march_threads(config))

@@ -24,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
+from . import shade
 from .cstyle import c_div
-from .shade import surface_rays
 from .shadow import dda_first_visits, trace_light_dynamic
 
 # The keys a tile's table of the directional kernel holds
@@ -94,7 +94,7 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
     :func:`pixel_light_bins`.
     """
     F = gbuf_y.shape[0]
-    rb, origin = surface_rays(gbuf_y, gbuf_z, config)
+    rb, origin = shade.surface_rays(gbuf_y, gbuf_z, config)
     lb = pixel_light_bins(gbuf_y, gbuf_z, K, config)
     inv_b = tuple(inv[:, a].reshape(F, 1, 1) for a in range(3))
     return trace_light_dynamic(pos, ext, bins_ent, counts, rb, lb,
@@ -169,7 +169,7 @@ def tile_unions(gbuf_y, gbuf_z, K, config: RenderConfig,
     bs = cfg.bin_size
     F, H, W = gbuf_y.shape
     dev = gbuf_y.device
-    rb, _ = surface_rays(gbuf_y, gbuf_z, cfg)
+    rb, _ = shade.surface_rays(gbuf_y, gbuf_z, cfg)
     lb = pixel_light_bins(gbuf_y, gbuf_z, K, cfg)
     values = (rb[1], rb[2], lb[0] - rb[0], lb[1] - rb[1], lb[2] - rb[2])
     fits = torch.ones_like(gbuf_y, dtype=torch.bool)

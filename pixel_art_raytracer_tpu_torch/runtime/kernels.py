@@ -40,17 +40,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # Argument types of each C entry point: pointers and the stream as void*,
-# sizes as int, the ambient factor as float.
+# sizes as int, the ambient factor and a luminance as float.
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
     "par_shadow_shade": [_P] * 16 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
+    "par_shadow_dir_shade": [_P] * 18 + [_I] * 16 + [_F] * 2
+                            + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
     "par_bin_tables": [_P] * 6 + [_I] * 15 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
+    "par_shadow_dir_shade_occupancy": [_I] * 8 + [_P],
     "par_shadow_shade_occupancy": [_I] * 9 + [_P],
     "par_fused_occupancy": [_I] * 8 + [_P],
 }
@@ -182,14 +185,16 @@ class MarchCounters:
     launches that count (``shade_slab_tests``: its lists and its direct
     march).  Those launches run only while the program is traced
     (``runtime/tracing.active``); their pixels, F * H * W a launch, add to
-    the host count ``shade_pixels`` beside the tensor, and every
-    directional launch's to ``dir_pixels``."""
+    the host count ``shade_pixels`` beside the tensor, every directional
+    launch's (lit mask or frames) to ``dir_pixels``, and those of the
+    directional launches that shade the frames to ``dir_shade_pixels``."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}
         self._work: dict[torch.device, torch.Tensor] = {}
         self.shade_pixels = 0
         self.dir_pixels = 0
+        self.dir_shade_pixels = 0
 
     def tensor(self, device: torch.device) -> torch.Tensor:
         """The (3,) int32 counters a launch on ``device`` writes to."""
@@ -211,6 +216,7 @@ class MarchCounters:
             t.zero_()
         self.shade_pixels = 0
         self.dir_pixels = 0
+        self.dir_shade_pixels = 0
 
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
@@ -223,7 +229,8 @@ class MarchCounters:
                 "slab_tests": sum(w[1] for w in work),
                 "shade_slab_tests": sum(w[2] for w in work),
                 "shade_pixels": self.shade_pixels,
-                "dir_pixels": self.dir_pixels}
+                "dir_pixels": self.dir_pixels,
+                "dir_shade_pixels": self.dir_shade_pixels}
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

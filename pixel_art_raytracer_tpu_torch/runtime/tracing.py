@@ -16,7 +16,8 @@ The spans, from the requests down:
   (``bins``, ``trace``, ``shade``, ``geometry``, ``shadow``, ``fused``,
   ``lights``, ``directional``), and inside them ``batch.gbuffer`` (the
   G-buffer of the winners, in ``batch.trace`` or ``batch.fused``) and
-  ``batch.dither`` (the ordered dither, in ``batch.shade``);
+  ``batch.dither`` (the G-buffer route's ordered dither, in
+  ``batch.shade``);
 * ``frame``: one live request (``runtime.session.Session.feed``, the
   viewer's frame), with ``frame.overlay`` (the host copy and its debug
   line) and ``frame.keep`` (the session's record of the frame);

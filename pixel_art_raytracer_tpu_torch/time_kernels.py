@@ -18,15 +18,18 @@ sweep (64 directions (cos t, 1, 0.5 sin t), the player at home, the step
 cap ``shadow_dir.grid_max_steps``), and three means of 5 batches of that
 sweep through ``AnimationRenderer.render_states(..., directional=True)``
 (the directional path, ms per batch of 64 frames).  Where the tree has
+``shade_directional`` it times three means of 20 of its calls (the
+winner-input directional mode, dithered frames out) on that sweep's
+winners.  Where the tree has
 ``shade_point`` it also times three means of 5 of its calls on BASELINE
 config 5 at s = 4 (``bench_scale``'s scene and light orbit, F = 2, 4096**2
 pixels in bins of 160).  With ``--shade-sweep`` (trees whose winner-input
 mode streams its lists, ``shadow_cuda.shade_chunk``) it times that mode on
 both scenes at several chunk lengths, each with its shared memory and
-blocks per SM.  Apart from ``shade_point``, which it skips where it is
-missing, it uses only calls whose signatures are the same in earlier
-trees, so one copy of it times both trees.  Two trees are compared in one
-call on one card, in turns
+blocks per SM.  Apart from ``shade_point`` and ``shade_directional``,
+which it skips where they are missing, it uses only calls whose
+signatures are the same in earlier trees, so one copy of it times both
+trees.  Two trees are compared in one call on one card, in turns
 (parent, change, change, parent), since cards and their hosts differ
 between calls.  Needs a CUDA card.
 """
@@ -147,7 +150,7 @@ def main(label: str, sweep: bool = False) -> dict:
     t = 2.0 * np.pi * np.arange(64) / 64
     dirs = np.stack([np.cos(t), np.ones(64), 0.5 * np.sin(t)], axis=1)
     dirs = torch.as_tensor(dirs.astype(np.float32), device=players.device)
-    _, dinv, K = shadow_dir.direction_constants(dirs, cfg)
+    tl, dinv, K = shadow_dir.direction_constants(dirs, cfg)
     dargs = (ds.pos, ds.ext, be, cnt, gbuf.y, gbuf.z, gbuf.entity_index,
              dinv, K, players, cfg, shadow_dir.grid_max_steps(cfg))
     out = {"tree": label,
@@ -170,6 +173,13 @@ def main(label: str, sweep: bool = False) -> dict:
             out["shade_sweep"] = shade_sweep({"graybox": wargs,
                                               "config5_s4": c5args})
         del c5args
+    if hasattr(shadow_cuda, "shade_directional"):
+        dsargs = (win, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+                  ds.atlas_depth, ds.atlas_normal, ds.palette,
+                  ds.palette_luma, be, cnt, players, tl, dinv, K, cfg,
+                  "dithered")
+        out["dir_shade_ms"] = [ms(lambda: shadow_cuda.shade_directional(
+            *dsargs), 20) for _ in range(3)]
     return {**out,
             "point_path_ms": [ms(lambda: anim.render_states(
                 ds, players, lights), 5) for _ in range(3)],

@@ -13,6 +13,8 @@ through ``harness.run`` is correct, with and without the traced split of
 its stages, and a run whose frames are altered is not.  The cell's three
 readers read their numbers from made-up records and nothing from records
 without their inputs, as a program without the directional counter gives.
+On the card, the port's frames at the published 512 x 512 equal the
+reference's.
 """
 
 from __future__ import annotations
@@ -190,15 +192,49 @@ def test_small_cell_run_is_correct(trace):
 
 
 def test_altered_frames_are_caught(monkeypatch):
-    real = batched.shade_stage
+    # The stage that shades the cell's frames: the winner-input
+    # directional mode's.
+    real = batched.shade_directional_stage
 
     def altered(*args, **kw):
         frames = real(*args, **kw).clone()
         frames[..., 0, 0, :] ^= 1
         return frames
 
-    monkeypatch.setattr(batched, "shade_stage", altered)
+    monkeypatch.setattr(batched, "shade_directional_stage", altered)
     assert run_cell(cell(), False)[1]["correct"] is False
+
+
+@pytest.mark.cuda
+def test_cuda_port_equals_reference_at_512():
+    """On the card, the port's frames at config 4's published 512 x 512
+    (the winner-input directional mode, dithered) equal the plain
+    reference's, at two sun positions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda")
+    c = spec.make_cell("config4.sun64", "config4", "sun64", 1,
+                       json.loads(spec.BENCHMARK.read_text()))
+    arrays = c.scene()
+    cfg = program.render_config(c.config)
+    scene = program.scene(arrays)
+    t = np.float32([0.7, 3.9])
+    directions = np.stack([np.cos(t), np.ones_like(t), 0.5 * np.sin(t)],
+                          -1).astype(np.float32)
+    players = np.tile(arrays["pos"][0], (2, 1)).astype(np.int32)
+    r = DeferredRenderer(cfg, style="dithered").configure_for(scene)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, r.spans, device=cuda)
+    got = AnimationRenderer(r, cfg, static_bins=cache).render_states(
+        DeviceScene.from_scene(scene, cfg, device=cuda),
+        torch.from_numpy(players).to(cuda),
+        torch.from_numpy(directions).to(cuda), directional=True)
+    want = sun.render_frames(
+        harness.reference_scene(arrays, c.config, cuda),
+        torch.from_numpy(players).to(cuda),
+        torch.from_numpy(directions).to(cuda), harness.view(c.config),
+        torch.float32, c.config["bayer"])
+    assert got.shape == (2, 512, 512, 3)
+    assert torch.equal(got, want)
 
 
 def record(stages=None, traced=True):

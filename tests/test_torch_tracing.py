@@ -138,11 +138,12 @@ TREES = {
     "render_states_batched": [
         ("batch", [BINS, ("batch.trace", []),
                    ("batch.shade", [("sync.upload", [])])])],
-    # BASELINE config 4's route: the G-buffer, the directional march and
-    # the dither.
+    # BASELINE config 4's route: the winners, then the winner-input
+    # directional mode, whose plain version uploads the background colour
+    # for its shade on the CPU.
     "render_states_sun_dithered": [
-        ("batch", [BINS, GBUFFER, ("batch.directional", []),
-                   ("batch.shade", [("batch.dither", [])])])],
+        ("batch", [BINS, ("batch.trace", []),
+                   ("batch.shade", [("sync.upload", [])])])],
     # The light's upload, then one batch span (never two).
     "render_with_gbuffer": [("sync.upload", []), GBUFFER_BATCH],
     "session_feed": [
