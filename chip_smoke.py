@@ -24,7 +24,7 @@ unless:
     ``factor_from_dot``, ``shade_u8``), and the fused counter rose during
     the fused run;
   * the shadow and fused kernels' list path (one DDA per start bin of a
-    tile, csrc/common.cuh march_tile) took pixels on every orbit and on
+    band, csrc/common.cuh march_band) took pixels on every orbit and on
     both main paths, beside the pixels they marched directly;
   * the fused path's frames equal the two-kernel path's bit for bit;
   * both paths' frames equal ``runtime.native.cpp_render_frame`` pixel for
@@ -169,7 +169,7 @@ Last, the inverse fitter and the sharded paths (``inverse_phase``,
 
 It prints the card, the build times, the three kernels' shared memory per
 block and blocks per SM, per orbit each march kernel's counters (pixels
-marched directly, the most start bins one tile held, the longest visit
+marched directly, the most start bins one band held, the longest visit
 list), ms/frame, Mrays/s and the per-stage split of both paths, the
 kernels' times beside their plain versions and their bounds, the same
 for the new paths (Mrays/s counting 1 + L rays a pixel) and the
@@ -507,7 +507,7 @@ def list_path(name: str, what: str, c: dict, n_pix: int,
     that length.  ``keys`` names what its table holds."""
     print(f"{name} {what}: {n_pix - c['direct_pixels']} pixels on the list "
           f"path, {c['direct_pixels']} marched directly, at most "
-          f"{c['max_starts']} {keys} in a tile, longest visit list "
+          f"{c['max_starts']} {keys} in a table, longest visit list "
           f"{c['max_list']} bins")
     if c["direct_pixels"] >= n_pix:
         raise RuntimeError(f"{name}: the {what}'s list path took no pixel")
@@ -1046,9 +1046,9 @@ def config5_phase(card: str) -> list[dict]:
                 ("trace", trace_cuda.occupancy(cfg),
                  trace_cuda.block_threads(cfg)),
                 ("shadow", shadow_cuda.occupancy(cfg),
-                 shadow_cuda.march_threads(cfg)),
+                 shadow_cuda.MARCH_THREADS),
                 ("fused", fused_cuda.occupancy(cfg),
-                 fused_cuda.block_threads(cfg))):
+                 shadow_cuda.MARCH_THREADS)):
             smem, blocks, regs, local = occ
             print(f"{tag} {k} kernel: {smem} B of shared memory per block, "
                   f"{blocks} blocks per SM at {threads} threads, {regs} "
@@ -1376,7 +1376,7 @@ def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
     for k, c in stats.items():
         print(f"{tag} {k} kernel: {c['direct_pixels']} of {F * H * W} "
               f"pixels marched directly, at most {c['max_starts']} start "
-              f"bins in a {'band' if k == 'fused' else 'tile'}, longest "
+              f"bins in a band, longest "
               f"visit list {c['max_list']} bins")
     rows = []
     for k, (src, rep) in SOURCES.items():
@@ -2280,9 +2280,9 @@ def main() -> int:
             ("trace", trace_cuda.occupancy(cfg),
              trace_cuda.block_threads(cfg)),
             ("shadow", shadow_cuda.occupancy(cfg),
-             shadow_cuda.march_threads(cfg)),
+             shadow_cuda.MARCH_THREADS),
             ("fused", fused_cuda.occupancy(cfg),
-             fused_cuda.block_threads(cfg))):
+             shadow_cuda.MARCH_THREADS)):
         smem, blocks, regs, local = occ
         print(f"{k} kernel: {smem} B of shared memory per block, {blocks} "
               f"blocks per SM at {threads} threads, {regs} registers and "

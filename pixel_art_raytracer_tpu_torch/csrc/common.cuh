@@ -9,10 +9,12 @@
 // The bodies live here as __device__ functions: the bin-column walk of
 // primary visibility, which draws a column's candidates in walk order into
 // per-pixel state in shared memory (trace.cu), the slab test, the 7-phase
-// DDA and the tile march over per-start-bin visit lists of a point light's
-// shadow rays (shadow.cu's point mode), and both in sequence (fused.cu).
-// shadow.cu's directional mode marches on the same slab test and DDA
-// rounds.  The kernels call the same code, so they agree by construction.
+// DDA, and march_band, the one march of a point light's shadow rays over
+// a band's streamed per-start-bin visit lists, whose pixels come from
+// trace.cu's winners or from ray buffers (shadow.cu) or from the walk
+// (fused.cu).  shadow.cu's directional mode marches on the same slab test
+// and DDA rounds.  The kernels call the same code, so they agree by
+// construction.
 #pragma once
 
 #include <climits>
@@ -463,7 +465,7 @@ __device__ inline bool dda_walk(int sbx, int sby, int sbz, int lbx, int lby,
 // bin tests its first `count` slots of frame f's table (bins_ent, counts in
 // global memory), skipping the ray's own entity.  Returns true at the first
 // occluder.  The per-pixel march of the reference, kept for the pixels
-// whose key does not fit their tile's table (march_tile).  With kCount,
+// whose key does not fit their band's or tile's table.  With kCount,
 // each slab test adds 1 to *tests; without, tests is not read.
 template <bool kCount = false>
 __device__ inline bool march_occluded(const int* pos, const int* ext,
@@ -495,10 +497,10 @@ __device__ inline bool march_occluded(const int* pos, const int* ext,
 }
 
 // ---------------------------------------------------------------------------
-// The march of one tile's pixels over per-key visit lists (kernels 2 and 3).
+// The shadow marches' shared parts, and the point-light march of one band
+// of a tile (kernels 2 and 3).
 // ---------------------------------------------------------------------------
 
-constexpr int kChunkBins = 64;   // list entries staged in shared memory
 // Threads of a march block at most, and the blocks an SM should hold: 4
 // blocks of 320 threads leave 51 registers a thread (48 used), which
 // measured faster than 3 blocks at 64 registers.
@@ -508,24 +510,10 @@ constexpr int kMarchWarps = kMarchThreads / 32;
 constexpr unsigned char kDirect = 0xFE;  // pixel marched by march_occluded
 constexpr unsigned char kNoPixel = 0xFF;  // outside the view
 
-// A tile's table of march keys: up to kKeys distinct keys of kKeyInts ints.
-// A ray's probed bins depend only on its start bin, its light bin and the
-// step cap, so under a point light (one light bin a frame) the key is the
-// start bin.
-template <int kKeys_, int kKeyInts_>
-struct MarchTable {
-  static constexpr int kKeys = kKeys_;
-  static constexpr int kKeyInts = kKeyInts_;
-  struct Key {
-    int v[kKeyInts_];
-  };
-};
-// Point lights: graybox tiles hold at most 2 start bins.
-using PointTable = MarchTable<4, 3>;
-
 // Counters of the list path, one (3,) int32 array per launch's caller:
-// pixels marched directly, the most keys one tile held (kKeys + 1 where
-// some did not fit), the longest visit list.
+// pixels marched directly, the most keys one band (directional mode: one
+// tile) held (the table's size + 1 where some did not fit), the longest
+// visit list.
 enum MarchStat { kStatDirect = 0, kStatStarts = 1, kStatList = 2 };
 
 // The probes of dda_walk from start bin (sbx, sby, sbz) toward light bin
@@ -590,32 +578,6 @@ __device__ inline void dda_rounds(int sbx, int sby, int sbz, int lbx,
   }
 }
 
-// The distinct flat bins that dda_walk visits from start bin
-// (sbx, sby, sbz) toward light bin (lbx, lby, lbz) under step cap
-// max_steps, appended to `list` in first-visit order, with bit v of `seen`
-// (cleared by the caller) marking bin v.  Returns the list's length.  All
-// 32 lanes of a warp call it.  In each round of dda_rounds the lowest lane
-// of equal bins that is not yet in `seen` appends it, in lane order.
-__device__ inline int dda_visit_list(int sbx, int sby, int sbz, int lbx,
-                                     int lby, int lbz, const Grid& g,
-                                     int max_steps, unsigned* seen,
-                                     int* list) {
-  const int lane = threadIdx.x & 31;
-  int m = 0;
-  dda_rounds(sbx, sby, sbz, lbx, lby, lbz, g, max_steps, [&](int flat) {
-    const unsigned same = __match_any_sync(kFullWarp, flat);
-    const bool fresh = flat >= 0 && __ffs(same) - 1 == lane
-                       && (seen[flat >> 5] & (1u << (flat & 31))) == 0u;
-    const unsigned fresh_lanes = __ballot_sync(kFullWarp, fresh);
-    if (fresh) {
-      atomicOr(seen + (flat >> 5), 1u << (flat & 31));
-      list[m + __popc(fresh_lanes & ((1u << lane) - 1u))] = flat;
-    }
-    m += __popc(fresh_lanes);
-  });
-  return m;
-}
-
 // A candidate box as the march stages it: float corners lo xyz with the
 // raw entity id (as int bits), then corners hi xyz.
 struct Box {
@@ -637,81 +599,6 @@ __device__ __forceinline__ Box candidate_box(const int* pos, const int* ext,
                          static_cast<float>(p[2] + x[2]), 0.0f)};
 }
 
-// The shared memory march_tile works in; the base must be 16-byte aligned.
-template <class Table>
-struct MarchSmem {
-  static constexpr int kKeys = Table::kKeys;
-  static constexpr int kKeyInts = Table::kKeyInts;
-
-  float4* cand;      // (kChunkBins * cap, 2) corners lo xyz + raw entity id
-                     // (as int bits), corners hi xyz
-  int* cand_n;       // (kChunkBins,) live slots of each staged list entry
-  int* key;          // (kKeys, kKeyInts) the tile's distinct keys
-  int* len;          // (kKeys,) visit list lengths
-  int* table;        // [0] keys in `key`, [1] 1 if one did not fit
-  int* warp_key;     // (kMarchWarps, kKeys, kKeyInts) each warp's keys
-  int* warp_n;       // (kMarchWarps,) keys in warp_key
-  int* warp_slot;    // (kMarchWarps, kKeys) their index in `key`, or kDirect
-  unsigned* seen;    // (kKeys, words) bins already in each list
-  int* list;         // (kKeys, list_cap) distinct flats in first-visit order
-  unsigned char* slot;  // (n_pix,) index in the warp's warp_key, kDirect
-                        // or kNoPixel
-  unsigned char* occ;   // (n_pix,) occluded by a list entry so far
-  int list_cap;
-
-  __host__ __device__ static int words(const Grid& g) {
-    return (g.volume() + 31) / 32;
-  }
-  // The entries a visit list can hold: its distinct bins, at most the
-  // grid's volume, and at most 7 a step under a step cap.
-  __host__ __device__ static int list_capacity(const Grid& g, int max_steps) {
-    return max_steps <= g.volume() / 7 ? 7 * max_steps : g.volume();
-  }
-  // Shared ints the layout takes for n_pix pixels.
-  __host__ __device__ static int ints(const Grid& g, int n_pix,
-                                      int max_steps) {
-    return 8 * kChunkBins * g.bin_cap + kChunkBins + kKeys * kKeyInts
-           + kKeys + 2 + kMarchWarps * (kKeys * kKeyInts + 1 + kKeys)
-           + kKeys * words(g) + kKeys * list_capacity(g, max_steps)
-           + (2 * n_pix + 3) / 4;
-  }
-  __device__ MarchSmem(int* p, const Grid& g, int n_pix, int max_steps) {
-    list_cap = list_capacity(g, max_steps);
-    cand = reinterpret_cast<float4*>(p);
-    cand_n = p + 8 * kChunkBins * g.bin_cap;
-    key = cand_n + kChunkBins;
-    len = key + kKeys * kKeyInts;
-    table = len + kKeys;
-    warp_key = table + 2;
-    warp_n = warp_key + kMarchWarps * kKeys * kKeyInts;
-    warp_slot = warp_n + kMarchWarps;
-    seen = reinterpret_cast<unsigned*>(warp_slot + kMarchWarps * kKeys);
-    list = reinterpret_cast<int*>(seen + kKeys * words(g));
-    slot = reinterpret_cast<unsigned char*>(list + kKeys * list_cap);
-    occ = slot + n_pix;
-  }
-};
-
-// Whether the key of kKeyInts ints at `a` equals k.
-template <class Table>
-__device__ __forceinline__ bool same_key(const int* a,
-                                         const typename Table::Key& k) {
-  bool same = true;
-#pragma unroll
-  for (int c = 0; c < Table::kKeyInts; ++c) same = same && a[c] == k.v[c];
-  return same;
-}
-
-// The index of key k among the first n entries of keys (kKeys, kKeyInts),
-// or -1.
-template <class Table>
-__device__ __forceinline__ int find_key(const int* keys, int n,
-                                        const typename Table::Key& k) {
-  for (int i = 0; i < n; ++i)
-    if (same_key<Table>(keys + Table::kKeyInts * i, k)) return i;
-  return -1;
-}
-
 // off[k] for a k known only at run time, off[] kept in registers.
 template <int kKeys>
 __device__ __forceinline__ int pick(const int (&off)[kKeys + 1], int k) {
@@ -721,192 +608,527 @@ __device__ __forceinline__ int pick(const int (&off)[kKeys + 1], int k) {
   return r;
 }
 
-// march_tile's store of a lit mask: lit (F, g.rows, W) uint8, 1 where the
-// light is reachable, at g.pixel().
-struct LitStore {
-  unsigned char* lit;
-  const Grid& g;
-  int f;
-  __device__ void operator()(int, int i, int j, bool is_lit) const {
-    lit[g.pixel(f, i, j)] = is_lit ? 1 : 0;
+// Start bins a band's table holds: a graybox tile has at most 2.
+constexpr int kShadeKeys = 4;
+// Pixels a thread loads at once, so that their gathers overlap: a band of
+// 1,600 pixels is one round of 320 threads.
+constexpr int kShadePixels = 5;
+// A pixel's state byte: its key's index in the band's table, kShadeDirect
+// (its key did not fit: it marches on its own) or kShadeNone (outside the
+// view), with kShadeOccluded set once a staged box hits it.
+constexpr unsigned char kShadeDirect = 0x7E;
+constexpr unsigned char kShadeNone = 0x7F;
+constexpr unsigned char kShadeOccluded = 0x80;
+
+// The phases of march_band that shade_phases.py times: load, merge, key
+// set-up, listing, staging, march, direct march and store.
+constexpr int kShadePhases = 7;
+#ifdef PAR_SHADE_PHASES
+// Built with -DPAR_SHADE_PHASES (shade_phases.py only): thread 0 of every
+// block reads clock64() at each mark, and at the end adds each phase's
+// cycles, and 1 for the block, to its source file's g_shade_phase, which
+// shadow.cu's par_shade_phases copies out and clears.
+static __device__ unsigned long long g_shade_phase[kShadePhases + 1];
+struct ShadePhaseClock {
+  long long cycles[kShadePhases] = {};
+  long long last;
+  // (Set in the body: nvcc's host pass keeps an initializer list.)
+  __device__ ShadePhaseClock() { last = clock64(); }
+  // Phase a ends here.
+  __device__ void mark(int a) {
+    if (threadIdx.x != 0) return;
+    const long long now = clock64();
+    cycles[a] += now - last;
+    last = now;
+  }
+  // The last phase ends here, once every thread has stored.
+  __device__ void end() {
+    __syncthreads();
+    mark(kShadePhases - 1);
+    if (threadIdx.x != 0) return;
+    for (int a = 0; a < kShadePhases; ++a)
+      atomicAdd(g_shade_phase + a,
+                static_cast<unsigned long long>(cycles[a]));
+    atomicAdd(g_shade_phase + kShadePhases, 1ull);
+  }
+};
+#else
+// Otherwise the marks compile to nothing.
+struct ShadePhaseClock {
+  __device__ void mark(int) {}
+  __device__ void end() {}
+};
+#endif
+
+// A key's DDA toward the frame's light bin (the rounds of dda_rounds),
+// kept in shared memory from one chunk to the next.
+struct ShadeKey {
+  float ax, ay, az;     // the anchor: the start bin plus k0 steps, by the
+                        // same float adds as dda_rounds
+  float stx, sty, stz;  // the step
+  int sby, sbz;         // the start bin's y and z
+  int n_steps;          // min(int(largest), step cap): 7 * n_steps phases
+  int start_flat;
+  int k0;               // the next round's first step, a multiple of 4
+  int skip;             // lanes of round k0 already listed
+  int len;              // entries listed in this chunk
+  int total;            // entries listed so far: the visit list's length
+  int pad0, pad1;
+};
+
+// The shared memory march_band works in for a band of n_pix pixels and
+// chunks of `chunk` list entries; the base must be 16-byte aligned.  The
+// per-pixel arrays start after the march's own head, or at `reserve` bytes
+// where that is more (fused.cu's walk keeps its draw list there).
+struct ShadeSmem {
+  float4* cand;                  // (chunk * cap, 2) staged boxes (Box)
+  unsigned long long* warp_key;  // (kMarchWarps, kShadeKeys) each warp's
+                                 // start bins (the source's keys)
+  unsigned long long* key_id;    // (kShadeKeys,) the band's start bins
+  ShadeKey* key;                 // (kShadeKeys,) their DDAs
+  int* cand_n;                   // (chunk,) live slots of a staged entry
+  int* flat;                     // (chunk,) each active key's share of
+                                 // the chunk's listed bins
+  int* warp_n;                   // (kMarchWarps,) keys in warp_key
+  int* warp_slot;                // (kMarchWarps, kShadeKeys) their index
+                                 // in key_id, or kShadeDirect
+  int* ctl;                      // [0] keys in the table, [1] 1 if one did
+                                 // not fit
+  unsigned* seen;                // (kShadeKeys, words) bins each key has
+                                 // listed
+  int* y;                        // (n_pix,) the ray origin's y
+  int* z;                        // (n_pix,) and z
+  int* self;                     // (n_pix,) the pixel's entity
+  int* texel;                    // (n_pix,) its atlas texel, -1 for
+                                 // background (what the source keeps)
+  float* ivx;                    // (n_pix,) the reciprocal direction
+  float* ivy;
+  float* ivz;
+  unsigned char* state;          // (n_pix,) key index and occluded bit
+
+  __host__ __device__ static int words(const Grid& g) {
+    return (g.volume() + 31) / 32;
+  }
+  __host__ __device__ static size_t bytes(const Grid& g, int n_pix,
+                                          int chunk, size_t reserve = 0) {
+    const size_t head =
+        static_cast<size_t>(32 * chunk * g.bin_cap
+                            + 8 * (kMarchWarps + 1) * kShadeKeys)
+        + sizeof(ShadeKey) * kShadeKeys
+        + static_cast<size_t>(4 * (2 * chunk + kMarchWarps
+                                   + kMarchWarps * kShadeKeys + 2)
+                              + 4 * kShadeKeys * words(g));
+    return (head > reserve ? head : reserve) + 29 * static_cast<size_t>(n_pix);
+  }
+  __device__ ShadeSmem(int* base, const Grid& g, int n_pix, int chunk,
+                       size_t reserve = 0) {
+    char* p = reinterpret_cast<char*>(base);
+    cand = reinterpret_cast<float4*>(p);
+    p += 32 * chunk * g.bin_cap;
+    warp_key = reinterpret_cast<unsigned long long*>(p);
+    key_id = warp_key + kMarchWarps * kShadeKeys;
+    key = reinterpret_cast<ShadeKey*>(key_id + kShadeKeys);
+    cand_n = reinterpret_cast<int*>(key + kShadeKeys);
+    flat = cand_n + chunk;
+    warp_n = flat + chunk;
+    warp_slot = warp_n + kMarchWarps;
+    ctl = warp_slot + kMarchWarps * kShadeKeys;
+    seen = reinterpret_cast<unsigned*>(ctl + 2);
+    y = reinterpret_cast<int*>(seen + kShadeKeys * words(g));
+    const size_t head = reinterpret_cast<char*>(y)
+                        - reinterpret_cast<char*>(base);
+    if (reserve > head)
+      y = reinterpret_cast<int*>(reinterpret_cast<char*>(base) + reserve);
+    z = y + n_pix;
+    self = z + n_pix;
+    texel = self + n_pix;
+    ivx = reinterpret_cast<float*>(texel + n_pix);
+    ivy = ivx + n_pix;
+    ivz = ivy + n_pix;
+    state = reinterpret_cast<unsigned char*>(ivz + n_pix);
   }
 };
 
-// The lit bit of every pixel in the view of band b of frame f (a whole
-// tile or some of its rows), handed to store(q, i, j, lit) once a pixel.
-// The band's pixels are q = 0..b.rows*bs-1 at column i = b.i0(g) + q % bs
-// and row j = b.j0(g) + q / bs; key_of(q, i, j) gives pixel q's key
-// (Table::Key) and ray_of(q, i, j) its Ray.  LitStore writes the lit mask;
-// shadow.cu's winner-input mode shades the pixel there instead.
-// frame_light is the frame's light bin and max_steps the step cap
-// (kNoStepCap for none).  All threads of the block call it; blockDim.x is
-// a multiple of 32 and at most kMarchThreads.
+// A start bin's y and z in one word: equal words, equal bins.
+__device__ __forceinline__ unsigned long long pack_start(int sby, int sbz) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(sby)) << 32)
+         | static_cast<unsigned>(sbz);
+}
+
+// The towards-light direction of ops/shade.py::light_geometry from origin
+// (i, y, z) to light l: d / length with length = (|dx| + |dy|) + |dz|,
+// IEEE divisions (NaN for a light on the surface point).
+__device__ __forceinline__ float3 towards_light(int i, int y, int z,
+                                                int3 l) {
+  const float dx = static_cast<float>(l.x) - static_cast<float>(i);
+  const float dy = static_cast<float>(l.y) - static_cast<float>(y);
+  const float dz = static_cast<float>(l.z) - static_cast<float>(z);
+  const float length = fabsf(dx) + fabsf(dy) + fabsf(dz);
+  return make_float3(dx / length, dy / length, dz / length);
+}
+
+// The bin of point light l, C's `/`.
+__device__ __forceinline__ int3 light_bin(int3 l, const Grid& g) {
+  return make_int3(l.x / g.bin_size, (g.view_h - l.y - l.z) / g.bin_size,
+                   l.z / g.bin_size);
+}
+
+// The rays of surface points of the view, as march_band's sources from
+// winners (shadow.cu) and from the walk (fused.cu) load them: s.y and s.z
+// hold pixel (i, j)'s surface point, the ray starts at (i, y, z) in bin
+// (i / bs, (view_h - y - z) / bs, z / bs), and i / bs is the band's bin
+// column, so a key is the start bin's y and z (pack_start).
+struct SurfaceRays {
+  __device__ static bool key(const ShadeSmem& s, const Grid& g, int q, int,
+                             int, unsigned long long& k) {
+    const int y = s.y[q];
+    const int z = s.z[q];
+    k = pack_start((g.view_h - y - z) / g.bin_size, z / g.bin_size);
+    return true;
+  }
+  __device__ static int3 start(unsigned long long k, const Band& b) {
+    return make_int3(b.bin_x, static_cast<int>(static_cast<unsigned>(k >> 32)),
+                     static_cast<int>(static_cast<unsigned>(k)));
+  }
+  __device__ static float3 origin(const ShadeSmem& s, int q, int i) {
+    return make_float3(static_cast<float>(i), static_cast<float>(s.y[q]),
+                       static_cast<float>(s.z[q]));
+  }
+  __device__ static Ray direct(const ShadeSmem& s, const Grid& g,
+                               const Band& b, int q, int i, int) {
+    const int y = s.y[q];
+    const int z = s.z[q];
+    return Ray{b.bin_x, (g.view_h - y - z) / g.bin_size, z / g.bin_size,
+               static_cast<float>(i), static_cast<float>(y),
+               static_cast<float>(z), s.ivx[q], s.ivy[q], s.ivz[q],
+               s.self[q]};
+  }
+};
+
+// List key K's next distinct bins, at most `room`, into out[0..) in
+// first-visit order: the rounds of dda_rounds from the anchor where the
+// last call stopped, the lowest lane of equal bins not yet in `seen`
+// listing it, in lane order.  Where a round holds more fresh bins than the
+// room left, its lanes up to the first fresh one that does not fit are
+// listed and the next call resumes the round from that lane (K.skip): the
+// bins the lanes before it probed are all in `seen` by then.  All 32
+// lanes of a warp call it; it sets K.len to the entries listed.
+__device__ inline void list_next(ShadeKey& K, const Grid& g, unsigned* seen,
+                                 int* out, int room) {
+  const int V = g.volume();
+  const int lane = threadIdx.x & 31;
+  const int d = lane / 7;
+  const int phase = lane % 7;
+  const bool ax = phase == 0 || phase == 3 || phase == 4 || phase == 6;
+  const bool ay = phase == 1 || phase == 3 || phase == 5 || phase == 6;
+  const bool az = phase == 2 || phase == 4 || phase == 5 || phase == 6;
+  const float stx = K.stx, sty = K.sty, stz = K.stz;
+  const int n_steps = K.n_steps;
+  const int start_flat = K.start_flat;
+  float bx = K.ax, by = K.ay, bz = K.az;
+  int k0 = K.k0;
+  int skip = K.skip;
+  int m = 0;
+  while (k0 < n_steps && m < room) {
+    float tx = bx, ty = by, tz = bz;
+    for (int a = 0; a < d && a < 4; ++a) {
+      tx = tx + stx;
+      ty = ty + sty;
+      tz = tz + stz;
+    }
+    int flat = -1 - lane;  // never a bin, and unique to the lane
+    if (d < 4 && k0 + d < n_steps && lane >= skip) {
+      const int v = g.flat(static_cast<int>(tx + (ax ? stx : 0.0f)),
+                           static_cast<int>(ty + (ay ? sty : 0.0f)),
+                           static_cast<int>(tz + (az ? stz : 0.0f)));
+      if (v >= 0 && v < V && v != start_flat) flat = v;
+    }
+    const unsigned same = __match_any_sync(kFullWarp, flat);
+    const bool fresh = flat >= 0 && __ffs(same) - 1 == lane
+                       && (seen[flat >> 5] & (1u << (flat & 31))) == 0u;
+    const unsigned fresh_lanes = __ballot_sync(kFullWarp, fresh);
+    const int rank = __popc(fresh_lanes & ((1u << lane) - 1u));
+    const int left = room - m;
+    if (fresh && rank < left) {
+      atomicOr(seen + (flat >> 5), 1u << (flat & 31));
+      out[m + rank] = flat;
+    }
+    if (__popc(fresh_lanes) > left) {
+      skip = __ffs(__ballot_sync(kFullWarp, fresh && rank == left)) - 1;
+      m = room;
+      break;
+    }
+    m += __popc(fresh_lanes);
+    for (int a = 0; a < 4; ++a) {
+      bx = bx + stx;
+      by = by + sty;
+      bz = bz + stz;
+    }
+    k0 += 4;
+    skip = 0;
+    __syncwarp();
+  }
+  __syncwarp();
+  if (lane == 0) {
+    K.ax = bx;
+    K.ay = by;
+    K.az = bz;
+    K.k0 = k0;
+    K.skip = skip;
+    K.len = m;
+    K.total += m;
+  }
+}
+
+// The lit bit of every pixel in the view of band b of frame f under a
+// point light in bin lb, each pixel's ray probing 7 * min(int(largest),
+// max_steps) phases (kNoStepCap for none), handed with the pixel to
+// src.store.  The pixels come from `src` (Src), which loads each into the
+// band's shared memory and says how its ray starts:
+//   load(s, g, q, i, j)   pixel q at view column i, row j: its ray's
+//                         origin y and z, entity and reciprocal direction
+//                         (and what its store reads) into s's arrays;
+//   key(s, g, q, i, j, k) its start bin's key; false where it has none
+//                         that fits (the pixel marches on its own);
+//   start(k, b)           the start bin of key k;
+//   origin(s, q, i)       the ray's origin;
+//   direct(s, g, b, q, i, j)  the Ray of a pixel that marches on its own;
+//   store(s, g, q, i, j, occluded).
+// All threads of the block call it; blockDim.x is a multiple of 32, at
+// least 32 * kShadeKeys and at most kMarchThreads, and chunk >= kShadeKeys.
+// With kCount the block adds its slab tests to *tests_out; without,
+// tests_out is not read.
 //
-// 1. Collect the tile's distinct keys, up to Table::kKeys: each warp lists
-//    the distinct keys of its pixels (up to kKeys; a key missing from the
-//    list is added by the lowest lane that has it), then one thread merges
-//    the warps' lists into the tile's table.  Pixels whose key did not fit
-//    take the direct march.
-// 2. One warp per key walks the DDA once (dda_visit_list, the same float
-//    stepping and cap as the per-pixel march) and lists the distinct flats
-//    in first-visit order.
-// 3. The lists are read as one sequence, kChunkBins entries at a time: all
-//    threads stage each entry's first min(count, cap) slots (raw entity id
-//    and float corners, entity 0 at players[f]), then every pixel not yet
-//    occluded tests the staged entries of its own list in order, skipping
-//    its own entity and stopping at its first hit.
-// 4. Leftover pixels march on their own (march_occluded, tables in global
-//    memory), and every pixel's lit bit is stored.
+// 1. Each pixel is loaded once, kShadePixels a thread at a time so that
+//    their gathers overlap; then its key goes into its warp's list of
+//    distinct keys (a key missing from the list is added by the lowest
+//    lane that has it), or the pixel takes kShadeDirect past kShadeKeys.
+// 2. Warp 0 merges the warps' lists into the band's table.
+// 3. Each pixel takes its index in the table, and each key's DDA is set up
+//    as dda_rounds sets it up.
+// 4. The visit lists are streamed: each key keeps its DDA where it stopped
+//    (ShadeKey, and a V-bit mask of the bins listed), and each chunk its
+//    warp lists the key's next distinct bins, in first-visit order, into
+//    its share of `chunk` entries; the staged entries' boxes are tested by
+//    every pixel of the key not yet occluded, in that order (a ray meets
+//    its occluder sooner among the bins near its start).
+// 5. The pixels whose key did not fit march on their own (march_occluded),
+//    and every pixel is stored.
 //
 // Exact: a ray's probed bins depend only on (start bin, light bin, step
 // cap), which its key and the launch fix, and its occlusion is an OR over
 // them of a test of the ray and a box, which ignores order and repeats.
-// So any set of pixels marches exactly, a band as well as a tile; the
-// counters' "tile" is the band.
-template <class Table, class KeyFn, class RayFn, class StoreFn>
-__device__ void march_tile(const int* pos, const int* ext, const int* players,
-                           const int* bins_ent, const int* counts, int f,
-                           const Grid& g, const Band& b, int3 frame_light,
-                           int max_steps, const MarchSmem<Table>& s,
-                           KeyFn key_of, RayFn ray_of, StoreFn store,
-                           int* stats) {
-  constexpr int kKeys = Table::kKeys;
-  constexpr int kKeyInts = Table::kKeyInts;
-  using Key = typename Table::Key;
+// So any set of pixels marches exactly, a band as well as a tile.
+template <bool kCount, class Src>
+__device__ __forceinline__ void march_band(
+    const int* pos, const int* ext, const int* players, const int* bins_ent,
+    const int* counts, int f, const Grid& g, const Band& b, int3 lb,
+    int max_steps, const ShadeSmem& s, int chunk, const Src& src,
+    int* stats, unsigned long long* tests_out) {
+  ShadePhaseClock phases;
   const int bs = g.bin_size;
-  const int n_pix = b.pixels(g);
   const int cap = g.bin_cap;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int i0 = b.i0(g);
-  const int j0 = b.j0(g);
-
-  // 1. Distinct keys.
   const int lane = tid & 31;
   const int warp = tid / 32;
-  int* wkey = s.warp_key + warp * kKeys * kKeyInts;
+  const int n_pix = b.pixels(g);
+  const int i0 = b.i0(g);
+  const int j0 = b.j0(g);
+  const int words = ShadeSmem::words(g);
+  unsigned tests = 0u;  // this thread's slab tests (kCount)
+
+  for (int w = tid; w < kShadeKeys * words; w += nt) s.seen[w] = 0u;
+
+  // 1. Load each pixel; its key into its warp's list.
+  unsigned long long* wkey = s.warp_key + warp * kShadeKeys;
   int wn = 0;  // entries of wkey, the same in every lane
-  for (TilePixel p(bs); p.q - lane < n_pix; p.next()) {
-    const int q = p.q;
-    const bool live = q < n_pix && i0 + p.col < g.view_w
-                      && j0 + p.row < g.view_h;
-    Key k{};
-    if (live) k = key_of(q, i0 + p.col, j0 + p.row);
-    int slot = live ? find_key<Table>(wkey, wn, k) : kNoPixel;
-    unsigned missing = __ballot_sync(kFullWarp, slot < 0);
-    while (missing != 0u) {
-      const int leader = __ffs(missing) - 1;
-      Key lk;
+  TilePixel tp(bs);
+  for (int r0 = 0; r0 < n_pix; r0 += nt * kShadePixels) {
+    unsigned live = 0u;  // bit p: the round's pixel p is in the view
+    TilePixel dp = tp;
 #pragma unroll
-      for (int c = 0; c < kKeyInts; ++c)
-        lk.v[c] = __shfl_sync(kFullWarp, k.v[c], leader);
-      const int added = wn < kKeys ? wn : kDirect;
-      if (lane == leader && wn < kKeys) {
-#pragma unroll
-        for (int c = 0; c < kKeyInts; ++c) wkey[kKeyInts * wn + c] = lk.v[c];
+    for (int p = 0; p < kShadePixels; ++p) {
+      const int i = i0 + dp.col;
+      const int j = j0 + dp.row;
+      if (dp.q < n_pix && i < g.view_w && j < g.view_h) {
+        src.load(s, g, dp.q, i, j);
+        live |= 1u << p;
       }
-      wn += wn < kKeys ? 1 : 0;
-      if (slot < 0 && same_key<Table>(lk.v, k)) slot = added;
-      missing = __ballot_sync(kFullWarp, slot < 0);
-      __syncwarp();
+      dp.next();
     }
-    if (q < n_pix) {
-      s.slot[q] = static_cast<unsigned char>(slot);
-      s.occ[q] = 0;
+#pragma unroll
+    for (int p = 0; p < kShadePixels; ++p) {
+      const int q = tp.q;
+      unsigned long long key = 0ull;
+      int slot = kShadeNone;
+      if ((live >> p) & 1u) {
+        slot = kShadeDirect;
+        if (src.key(s, g, q, i0 + tp.col, j0 + tp.row, key)) {
+          slot = -1;
+          for (int a = 0; a < wn; ++a)
+            if (wkey[a] == key) slot = a;
+        }
+      }
+      unsigned missing = __ballot_sync(kFullWarp, slot < 0);
+      while (missing != 0u) {
+        const int leader = __ffs(missing) - 1;
+        const unsigned long long lk = __shfl_sync(kFullWarp, key, leader);
+        const int added = wn < kShadeKeys ? wn : kShadeDirect;
+        if (lane == leader && wn < kShadeKeys) wkey[wn] = lk;
+        wn += wn < kShadeKeys ? 1 : 0;
+        if (slot < 0 && key == lk) slot = added;
+        missing = __ballot_sync(kFullWarp, slot < 0);
+        __syncwarp();
+      }
+      if (q < n_pix) s.state[q] = static_cast<unsigned char>(slot);
+      tp.next();
     }
   }
   if (lane == 0) s.warp_n[warp] = wn;
   __syncthreads();
-  if (tid == 0) {
-    int n_keys = 0;
-    int full = 0;
-    for (int w = 0; w < nt / 32; ++w) {
-      for (int e = 0; e < s.warp_n[w]; ++e) {
-        const int* wk = s.warp_key + (w * kKeys + e) * kKeyInts;
-        Key k;
-#pragma unroll
-        for (int c = 0; c < kKeyInts; ++c) k.v[c] = wk[c];
-        int i = find_key<Table>(s.key, n_keys, k);
-        if (i < 0 && n_keys < kKeys) {
-#pragma unroll
-          for (int c = 0; c < kKeyInts; ++c)
-            s.key[kKeyInts * n_keys + c] = k.v[c];
-          i = n_keys++;
-        }
-        full |= i < 0 ? 1 : 0;
-        s.warp_slot[w * kKeys + e] = i >= 0 ? i : kDirect;
-      }
+  phases.mark(0);
+
+  // 2. Warp 0 merges the warps' lists into the band's table, 32 entries at
+  //    a time: an entry already in the table takes its index; the lowest
+  //    lane of each new key (__match_any_sync) adds it, in lane order, up
+  //    to kShadeKeys.
+  if (warp == 0) {
+    const int nc = nt / 32 * kShadeKeys;
+    int n = 0;
+    bool over = false;
+    for (int c0 = 0; c0 < nc; c0 += 32) {
+      const int c = c0 + lane;
+      const bool valid = c < nc && c % kShadeKeys < s.warp_n[c / kShadeKeys];
+      const unsigned long long k = valid ? s.warp_key[c] : 0ull;
+      int idx = -1;
+      for (int a = 0; a < n; ++a)
+        if (valid && s.key_id[a] == k) idx = a;
+      const bool fresh = valid && idx < 0;
+      const unsigned fresh_lanes = __ballot_sync(kFullWarp, fresh);
+      const unsigned same = __match_any_sync(kFullWarp, k) & fresh_lanes;
+      const int leader = fresh ? __ffs(same) - 1 : lane;
+      const unsigned leaders =
+          __ballot_sync(kFullWarp, fresh && leader == lane);
+      const int at = n + __popc(leaders & ((1u << lane) - 1u));
+      if (fresh && leader == lane && at < kShadeKeys) s.key_id[at] = k;
+      const int got = __shfl_sync(kFullWarp, at, leader);
+      if (fresh) idx = got < kShadeKeys ? got : kShadeDirect;
+      if (c < nc) s.warp_slot[c] = idx;
+      over = over || n + __popc(leaders) > kShadeKeys;
+      n = min(n + __popc(leaders), kShadeKeys);
+      __syncwarp();
     }
-    s.table[0] = n_keys;
-    s.table[1] = full;
+    if (lane == 0) {
+      s.ctl[0] = n;
+      s.ctl[1] = over ? 1 : 0;
+    }
   }
   __syncthreads();
-  const int n = s.table[0];
-  const bool overflow = s.table[1] != 0;
-  // Pixel q's index in the tile's table, kDirect or kNoPixel.
-  auto start_of = [&](int q) {
-    const int e = s.slot[q];
-    return e < kKeys ? s.warp_slot[warp * kKeys + e] : e;
-  };
+  phases.mark(1);
+  const int n = s.ctl[0];
 
-  // 2. One visit list per key, a warp each.
-  const int words = MarchSmem<Table>::words(g);
-  for (int w = tid; w < n * words; w += nt) s.seen[w] = 0u;
-  __syncthreads();
-  for (int k = tid / 32; k < n; k += nt / 32) {
-    const int* kp = s.key + kKeyInts * k;
-    const int m = dda_visit_list(kp[0], kp[1], kp[2], frame_light.x,
-                                 frame_light.y, frame_light.z, g, max_steps,
-                                 s.seen + k * words, s.list + k * s.list_cap);
-    if ((tid & 31) == 0) s.len[k] = m;
+  // 3. Each pixel's index in the table (the thread that loaded it reads
+  //    it), and each key's DDA from its start bin.
+  for (TilePixel p(bs); p.q < n_pix; p.next()) {
+    const int st = s.state[p.q];
+    if (st < kShadeKeys)
+      s.state[p.q] = static_cast<unsigned char>(
+          s.warp_slot[warp * kShadeKeys + st]);
+  }
+  if (tid < n) {
+    ShadeKey& K = s.key[tid];
+    const int3 sb = src.start(s.key_id[tid], b);
+    K.sby = sb.y;
+    K.sbz = sb.z;
+    const float sx = static_cast<float>(sb.x);
+    const float sy = static_cast<float>(sb.y);
+    const float sz = static_cast<float>(sb.z);
+    const float dx = static_cast<float>(lb.x) - sx;
+    const float dy = static_cast<float>(lb.y) - sy;
+    const float dz = static_cast<float>(lb.z) - sz;
+    const float largest = c_max(c_max(fabsf(dx), fabsf(dy)), fabsf(dz));
+    K.stx = dx / largest;
+    K.sty = dy / largest;
+    K.stz = dz / largest;
+    K.n_steps = min(static_cast<int>(largest), max_steps);
+    K.start_flat = g.flat(sb.x, sb.y, sb.z);
+    K.ax = sx;
+    K.ay = sy;
+    K.az = sz;
+    K.k0 = 0;
+    K.skip = 0;
+    K.len = 0;
+    K.total = 0;
   }
   __syncthreads();
-  int off[kKeys + 1];
-  int longest = 0;
-  off[0] = 0;
-#pragma unroll
-  for (int k = 0; k < kKeys; ++k) {
-    const int m = k < n ? s.len[k] : 0;
-    off[k + 1] = off[k] + m;
-    longest = max(longest, m);
-  }
-  const int total = pick<kKeys>(off, n);
+  phases.mark(2);
 
-  // 3. Stage the lists' candidates chunk by chunk; test each pixel's own.
+  // 4. The lists in chunks: each active key's warp lists its next bins
+  //    into its share of the chunk; the entries, compacted in key order
+  //    (key k's from off[k]), have their first min(count, cap) slots staged
+  //    as boxes (entity 0 at players[f]); every pixel of a key, not yet
+  //    occluded, tests its key's entries in order, skipping its own entity
+  //    and stopping at its first hit.
   const size_t fbase = static_cast<size_t>(f) * g.volume();
-  for (int c0 = 0; c0 < total; c0 += kChunkBins) {
-    const int nb = min(kChunkBins, total - c0);
-    for (int t = tid; t < nb * cap; t += nt) {
-      const int e = c0 + t / cap;
-      const int k = t % cap;
-      int li = 0;
+  // Keys whose DDA has steps left: at first those with any (n_steps, which
+  // no warp writes again, unlike k0).
+  unsigned active = 0u;
+  for (int k = 0; k < n; ++k) active |= s.key[k].n_steps > 0 ? 1u << k : 0u;
+  while (active != 0u) {
+    const int share = chunk / __popc(active);
+    if (warp < n && ((active >> warp) & 1u))
+      list_next(s.key[warp], g, s.seen + warp * words,
+                s.flat + __popc(active & ((1u << warp) - 1u)) * share,
+                share);
+    __syncthreads();
+    phases.mark(3);
+    int off[kShadeKeys + 1];
+    unsigned next = 0u;
+    off[0] = 0;
 #pragma unroll
-      for (int a = 1; a < kKeys; ++a) li += e >= off[a] ? 1 : 0;
-      const size_t b =
-          fbase + s.list[li * s.list_cap + e - pick<kKeys>(off, li)];
-      const int live = min(counts[b], cap);
-      if (k == 0) s.cand_n[t / cap] = live;
-      if (k < live) {
+    for (int k = 0; k < kShadeKeys; ++k) {
+      const bool on = ((active >> k) & 1u) != 0u;
+      off[k + 1] = off[k] + (on ? s.key[k].len : 0);
+      next |= on && s.key[k].k0 < s.key[k].n_steps ? 1u << k : 0u;
+    }
+    const int total = off[kShadeKeys];
+    for (int t = tid; t < total * cap; t += nt) {
+      const int e = t / cap;
+      const int slot = t - e * cap;
+      int k = 0;
+#pragma unroll
+      for (int a = 1; a < kShadeKeys; ++a) k += e >= off[a] ? 1 : 0;
+      const size_t bb = fbase + s.flat[__popc(active & ((1u << k) - 1u))
+                                       * share
+                                       + e - pick<kShadeKeys>(off, k)];
+      const int live = min(counts[bb], cap);
+      if (slot == 0) s.cand_n[e] = live;
+      if (slot < live) {
         const Box box = candidate_box(pos, ext, players,
-                                      bins_ent[b * cap + k], f);
+                                      bins_ent[bb * cap + slot], f);
         s.cand[2 * t] = box.lo;
         s.cand[2 * t + 1] = box.hi;
       }
     }
     __syncthreads();
+    phases.mark(4);
     for (TilePixel p(bs); p.q < n_pix; p.next()) {
-      const int li = start_of(p.q);
-      if (li >= n || s.occ[p.q]) continue;
-      const int e0 = max(c0, pick<kKeys>(off, li));
-      const int e1 = min(c0 + nb, pick<kKeys>(off, li + 1));
+      const int st = s.state[p.q];
+      if (st >= kShadeKeys) continue;  // occluded, direct or no pixel
+      const int e0 = pick<kShadeKeys>(off, st);
+      const int e1 = pick<kShadeKeys>(off, st + 1);
       if (e0 >= e1) continue;
-      const Ray r = ray_of(p.q, i0 + p.col, j0 + p.row);
+      const float3 o = src.origin(s, p.q, i0 + p.col);
+      const Ray r{0, 0, 0, o.x, o.y, o.z,
+                  s.ivx[p.q], s.ivy[p.q], s.ivz[p.q], s.self[p.q]};
       bool hit = false;
-      for (int e = e0 - c0; e < e1 - c0 && !hit; ++e) {
+      for (int e = e0; e < e1 && !hit; ++e) {
         const int live = s.cand_n[e];
         for (int t = e * cap; t < e * cap + live; ++t) {
           const float4 lo = s.cand[2 * t];
           if (__float_as_int(lo.w) == r.self) continue;
+          if constexpr (kCount) ++tests;
           const float4 hi = s.cand[2 * t + 1];
           if (slab_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r)) {
             hit = true;
@@ -914,30 +1136,50 @@ __device__ void march_tile(const int* pos, const int* ext, const int* players,
           }
         }
       }
-      if (hit) s.occ[p.q] = 1;
+      if (hit)
+        s.state[p.q] = static_cast<unsigned char>(st | kShadeOccluded);
     }
+    active = next;
     __syncthreads();
+    phases.mark(5);
   }
 
-  // 4. Leftover pixels, and every pixel's lit bit.
+  // 5. Pixels whose key did not fit march on their own; every pixel is
+  //    stored.
   int direct = 0;
   for (TilePixel p(bs); p.q < n_pix; p.next()) {
-    const int li = start_of(p.q);
-    if (li == kNoPixel) continue;
+    const int st = s.state[p.q];
+    if (st == kShadeNone) continue;
     const int i = i0 + p.col;
     const int j = j0 + p.row;
-    bool occluded = s.occ[p.q] != 0;
-    if (li == kDirect) {
-      occluded = march_occluded(pos, ext, players, bins_ent, counts, f, g,
-                                ray_of(p.q, i, j), frame_light, max_steps);
+    bool occluded = (st & kShadeOccluded) != 0;
+    if (st == kShadeDirect) {
+      occluded = march_occluded<kCount>(pos, ext, players, bins_ent, counts,
+                                        f, g, src.direct(s, g, b, p.q, i, j),
+                                        lb, max_steps, &tests);
       ++direct;
     }
-    store(p.q, i, j, !occluded);
+    src.store(s, g, p.q, i, j, occluded);
   }
+  phases.end();
   if (direct > 0) atomicAdd(stats + kStatDirect, direct);
   if (tid == 0) {
-    atomicMax(stats + kStatStarts, n + (overflow ? 1 : 0));
+    int longest = 0;
+    for (int k = 0; k < n; ++k) longest = max(longest, s.key[k].total);
+    atomicMax(stats + kStatStarts, n + s.ctl[1]);
     atomicMax(stats + kStatList, longest);
+  }
+  if constexpr (kCount) {
+    // warp_n is not read after step 2: it holds each warp's sum.
+    tests = __reduce_add_sync(kFullWarp, tests);
+    if (lane == 0) s.warp_n[warp] = static_cast<int>(tests);
+    __syncthreads();
+    if (tid == 0) {
+      unsigned long long block = 0ull;
+      for (int w = 0; w < nt / 32; ++w)
+        block += static_cast<unsigned>(s.warp_n[w]);
+      atomicAdd(tests_out, block);
+    }
   }
 }
 

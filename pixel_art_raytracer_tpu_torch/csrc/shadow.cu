@@ -14,27 +14,27 @@
 // and in-range aliased bins are used as they are.  Every pixel is marched,
 // background included.
 //
-// Point mode (par_shadow_lit): the light bin is the frame's, and the march
-// is exact for any light, with no table or reroute.  It takes an optional
-// step cap: a ray probes 7 * min(int(largest), max_steps) phases, the
-// statically bounded march of the JAX package's ops/shadow.py::trace_light
-// (max_steps < 0 for none, as the render paths call it; the inverse
-// fitter's soft_frame passes the renderer's shadow_max_steps).  A launch
-// covers a window of whole bin rows of the view (all of them, or a row
-// shard's, parallel/mesh.py), with per-pixel arrays of the window's rows.
+// G-buffer point mode (par_shadow_lit): ten per-pixel ray buffers, the
+// light bin is the frame's, and the march is exact for any light and any
+// rays, with no table or reroute.  It takes an optional step cap: a ray
+// probes 7 * min(int(largest), max_steps) phases, the statically bounded
+// march of the JAX package's ops/shadow.py::trace_light (max_steps < 0 for
+// none, as the render paths call it; the inverse fitter's soft_frame
+// passes the renderer's shadow_max_steps).  A launch covers a window of
+// whole bin rows of the view (all of them, or a row shard's,
+// parallel/mesh.py), with per-pixel arrays of the window's rows.
 //
 // Winner-input point mode (par_shadow_shade): the JAX kernel's winner-direct
 // inputs and its shade epilogue (shadow_pallas.py:766-790, 1140-1216).  It
 // reads trace.cu's winners instead of ten per-pixel ray buffers, decodes
 // each pixel's surface point once (ops/trace.py::decode_winner) and derives
 // its start bin, origin and reciprocal direction (ops/shade.py::
-// light_geometry); the march is the point mode's, uncapped, over the whole
-// view, on a march of its own (shadow_shade_kernel).  Where a frame is
-// asked for, the store shades the pixel (the Lambert dot, the ambient +
-// Lambert factor and the truncated u8 colour of ops/shade.py, in its op
-// order) and writes RGB; otherwise it writes the lit mask.  No G-buffer,
-// light geometry, lit mask or dot reaches device memory.  Its plain
-// version is ops/shade.py::point_frames.
+// light_geometry); the march is the G-buffer mode's, uncapped, over the
+// whole view.  Where a frame is asked for, the store shades the pixel (the
+// Lambert dot, the ambient + Lambert factor and the truncated u8 colour of
+// ops/shade.py, in its op order) and writes RGB; otherwise it writes the
+// lit mask.  No G-buffer, light geometry, lit mask or dot reaches device
+// memory.  Its plain version is ops/shade.py::point_frames.
 //
 // Winner-input directional mode (par_shadow_dir_shade): the directional
 // mode's march, from trace.cu's winners to the frames.  Its first phase
@@ -57,14 +57,14 @@
 // bin ((i + Kx) / bs, (view_h - y - z - (Ky + Kz)) / bs, (z + Kz) / bs)
 // from the frame's offsets K, C's truncating `/` throughout.
 //
-// What bounds it on the H100: in point mode the bytes, 41 B of ray inputs
-// and 1 B of output a pixel; in the winner-input mode 4 B of winner and
-// 3 B of frame a pixel, so the slab tests may bound it instead; in
-// directional mode the slab tests the rays need (13 B a pixel; ~190 M tests of 23 operations on chip_smoke.py's
-// sweep of 64 graybox frames), and in its winner-input mode too (4 B of
-// winner and 3 B of frame a pixel).  It runs at several times its bound.
-// Marched per pixel, as the reference does,
-// each ray ran ~48 DDA phases, probed the same bins again and again (14-31
+// What bounds it on the H100: in the G-buffer point mode the bytes, 41 B
+// of ray inputs and 1 B of output a pixel; in the winner-input mode 4 B of
+// winner and 3 B of frame a pixel, so the slab tests may bound it instead;
+// in directional mode the slab tests the rays need (13 B a pixel; ~190 M
+// tests of 23 operations on chip_smoke.py's sweep of 64 graybox frames),
+// and in its winner-input mode too (4 B of winner and 3 B of frame a
+// pixel).  It runs at several times its bound.  Marched per pixel, as the
+// reference does, each ray ran ~48 DDA phases, probed the same bins again and again (14-31
 // distinct of ~40-56 probes on graybox) and gathered every tested box's
 // 24 B from the entity arrays, in loops of different lengths within a
 // warp.  What is left is the per-pixel slab tests and each block's short
@@ -73,30 +73,27 @@
 // What the design does about it: a ray's probed bins depend only on its
 // start bin, its light bin and the step cap, and a tile's pixels share few
 // of them.  So one block takes one (frame, bin-column tile) of bs x bs
-// pixels.
+// pixels, or one band of its rows.
 //
-// Point mode: common.cuh march_tile over the tile's start bins (PointTable,
-// 4 keys; hit pixels start at (i / bs, j / bs, z / bs)): one warp-parallel
-// DDA per start bin into a list of its distinct bins in first-visit order,
-// the candidate boxes of those bins staged once in shared memory as float
-// corners, and every pixel tests its key's boxes.
-//
-// Winner-input point mode (shadow_shade_kernel): march_tile sized its
-// shared memory by the tile (2 B a pixel of bs x bs) and the grid (a visit
-// list of V entries a key), which held config 5's 2048**2 and 4096**2
-// views (80- and 160-pixel bins) to 1 block per SM and refused grids past
-// ~12,800 bins; and it decoded a pixel's surface (five dependent gathers)
-// at every key, ray and store call.  Its own march:
+// Point modes: one template, shadow_shade_kernel<kCount, Px>, runs
+// common.cuh march_band, the one point-light march of the port (fused.cu
+// runs it too), from winners (Px = WinnerPixels) or from ray buffers
+// (Px = PixelRays):
 // 1. one block per (frame, bin-column tile, band of rows), trace.cu's
 //    bands (par::Grid's band_rows: the most rows whose pixels fit
 //    kBandPixels), so the per-pixel state is the band's whatever the bin
 //    size;
-// 2. each pixel's winner is decoded once, kShadePixels pixels a thread at
-//    a time so their gathers overlap, into the band's shared memory: the
-//    surface point (y, z), the entity, the texel, and the reciprocal
-//    direction 1 / (d / length);
+// 2. each pixel is loaded once, kShadePixels pixels a thread at a time so
+//    their gathers overlap, into the band's shared memory: the ray's
+//    origin y and z, the entity, the texel, and the reciprocal direction;
+//    from winners, the surface point decoded and 1 / (d / length); from
+//    ray buffers, the buffers' values (the origin's x as well, in the
+//    texel's place, so rays that do not come from the view march as any
+//    other);
 // 3. the band's distinct start bins (up to kShadeKeys): each warp lists its
-//    own, and warp 0 merges the warps' lists with __match_any_sync;
+//    own, and warp 0 merges the warps' lists with __match_any_sync; a
+//    start bin from ray buffers whose components do not fit a packed key
+//    (21 bits each) marches on its own;
 // 4. the visit lists are streamed: each key keeps its DDA where it stopped
 //    (the anchor of dda_rounds, the step it reached, the lanes of that
 //    round already listed, and a V-bit mask of the bins listed), and each
@@ -106,18 +103,18 @@
 //    not yet occluded, in that order (the order matters for speed: a ray
 //    meets its occluder sooner among the bins near its start);
 // 5. the pixels whose key did not fit march on their own, and every
-//    pixel's lit bit or colour is stored from its decoded state.
+//    pixel's lit bit or colour is stored from its loaded state.
 // Shared memory is then fixed but for the V / 8 B of each key's mask
 // (ShadeSmem::bytes), and the wrapper takes the longest chunk, up to 32
 // entries, at which 4 blocks fit an SM (shadow_cuda.shade_chunk).
-// The kernel is a template on kCount: shadow_shade_kernel<false> is the
-// render path's kernel, and shadow_shade_kernel<true>, which the wrapper
-// launches only while the program is traced (runtime/tracing.py), also
-// counts its slab tests into work[kWorkShadeTests]: each thread in a
-// register, one warp reduce, one atomicAdd a block.  The count is each
-// pixel's tests up to its first hit, over its key's distinct bins in
-// first-visit order (ops/shadow.py's work["slab_tests"]), plus those of
-// the pixels that march on their own, repeats included.
+// shadow_shade_kernel<false, WinnerPixels> is the render path's kernel,
+// and shadow_shade_kernel<true, WinnerPixels>, which the wrapper launches
+// only while the program is traced (runtime/tracing.py), also counts its
+// slab tests into work[kWorkShadeTests]: each thread in a register, one
+// warp reduce, one atomicAdd a block.  The count is each pixel's tests up
+// to its first hit, over its key's distinct bins in first-visit order
+// (ops/shadow.py's work["slab_tests"]), plus those of the pixels that
+// march on their own, repeats included.
 //
 // Directional mode (shadow_dir_kernel): each pixel has its own virtual far
 // light, so a key is a (start bin, light bin) pair, ~4.8 of them a graybox
@@ -177,9 +174,10 @@
 
 namespace {
 
-// Per-pixel ray inputs of the point mode, each (F, H, W): the start bin,
-// the float origin, the reciprocal direction (from ops/shade.light_geometry)
-// and the pixel's own entity (from the G-buffer).
+// Ray inputs of the G-buffer point mode: per pixel, each (F, H, W), the
+// start bin, the float origin, the reciprocal direction (from
+// ops/shade.light_geometry) and the pixel's own entity (from the
+// G-buffer); and each frame's light bin, (F, 3).
 struct PixelRays {
   const int* rbx;
   const int* rby;
@@ -191,6 +189,7 @@ struct PixelRays {
   const float* ivy;
   const float* ivz;
   const int* self;
+  const int* light_bin;
 };
 
 // Inputs of the winner-input point mode: trace.cu's winners, the atlas and
@@ -231,18 +230,6 @@ __device__ __forceinline__ Surface decode_winner(
   const int sdep = px.atlas_depth[texel];
   return Surface{hit ? p[1] + x[1] + x[2] - row - sdep : 0,
                  hit ? p[2] + sdep : 0, ent, texel, hit};
-}
-
-// The towards-light direction of ops/shade.py::light_geometry from origin
-// (i, y, z) to light l: d / length with length = (|dx| + |dy|) + |dz|,
-// IEEE divisions (NaN for a light on the surface point).
-__device__ __forceinline__ float3 towards_light(int i, int y, int z,
-                                                int3 l) {
-  const float dx = static_cast<float>(l.x) - static_cast<float>(i);
-  const float dy = static_cast<float>(l.y) - static_cast<float>(y);
-  const float dz = static_cast<float>(l.z) - static_cast<float>(z);
-  const float length = fabsf(dx) + fabsf(dy) + fabsf(dz);
-  return make_float3(dx / length, dy / length, dz / length);
 }
 
 // Per-pixel inputs of the directional mode, each (F, H, W) int32: the
@@ -533,553 +520,52 @@ __device__ inline int insert_key(const DirSmem& s, unsigned long long key) {
   return par::kDirect;
 }
 
-__global__ void __launch_bounds__(par::kMarchThreads,
-                                  par::kMarchBlocksPerSM)
-shadow_lit_kernel(
-    const int* __restrict__ pos, const int* __restrict__ ext,
-    const int* __restrict__ players, const int* __restrict__ bins_ent,
-    const int* __restrict__ counts, PixelRays rays,
-    const int* __restrict__ light_bin, unsigned char* __restrict__ lit,
-    int* __restrict__ stats, par::Grid g, int max_steps) {
-  extern __shared__ __align__(16) int smem[];
-  const int bs = g.bin_size;
-  const par::MarchSmem<par::PointTable> s(smem, g, bs * bs, max_steps);
-
-  const int f = blockIdx.y;
-  const par::Band tile = par::Band::tile(g, blockIdx.x);
-  auto index = [&](int i, int j) { return g.pixel(f, i, j); };
-  auto key_of = [&](int, int i, int j) {
-    const size_t o = index(i, j);
-    return par::PointTable::Key{{rays.rbx[o], rays.rby[o], rays.rbz[o]}};
-  };
-  auto ray_of = [&](int, int i, int j) {
-    const size_t o = index(i, j);
-    return par::Ray{rays.rbx[o], rays.rby[o], rays.rbz[o],
-                    rays.ox[o],  rays.oy[o],  rays.oz[o],
-                    rays.ivx[o], rays.ivy[o], rays.ivz[o],
-                    rays.self[o]};
-  };
-  par::march_tile(pos, ext, players, bins_ent, counts, f, g, tile,
-                  make_int3(light_bin[3 * f], light_bin[3 * f + 1],
-                            light_bin[3 * f + 2]),
-                  max_steps, s, key_of, ray_of, par::LitStore{lit, g, f},
-                  stats);
-}
-
 // ---------------------------------------------------------------------------
-// The winner-input point mode's march: row bands, each pixel decoded once,
-// streamed visit lists.
+// The point modes: par::march_band from trace.cu's winners or from ray
+// buffers.
 // ---------------------------------------------------------------------------
 
-// Start bins a band's table holds, as march_tile's PointTable: a graybox
-// tile has at most 2.
-constexpr int kShadeKeys = 4;
-// Pixels a thread decodes at once, so that their gathers overlap: a band of
-// 1,600 pixels is one round of 320 threads.
-constexpr int kShadePixels = 5;
-// A pixel's state byte: its key's index in the band's table, kShadeDirect
-// (its key did not fit: it marches on its own) or kShadeNone (outside the
-// view), with kShadeOccluded set once a staged box hits it.
-constexpr unsigned char kShadeDirect = 0x7E;
-constexpr unsigned char kShadeNone = 0x7F;
-constexpr unsigned char kShadeOccluded = 0x80;
+// march_band's source of the winner-input point mode: each pixel's surface
+// decoded from its winner (decode_winner) and its reciprocal direction
+// 1 / (d / length) toward the frame's light; its store writes the lit bit,
+// or with rgb the pixel's colour: ops/shade.py's lambert_dot,
+// factor_from_dot (std::min/std::max as ternaries, so a NaN dot gives a
+// diffuse of 0) and shade_u8.
+struct WinnerRays : par::SurfaceRays {
+  const int* pos;
+  const int* ext;
+  const int* players;
+  const WinnerPixels& px;
+  int f;
+  int3 light;
+  unsigned char* lit;
+  unsigned char* rgb;
+  static constexpr int max_steps = par::kNoStepCap;
 
-// The phases of shadow_shade_kernel that shade_phases.py times: decode,
-// merge, key set-up, listing, staging, march, direct march and store.
-constexpr int kShadePhases = 7;
-#ifdef PAR_SHADE_PHASES
-// Built with -DPAR_SHADE_PHASES (shade_phases.py only): thread 0 of every
-// block reads clock64() at each mark, and at the end adds each phase's
-// cycles, and 1 for the block, to g_shade_phase, which par_shade_phases
-// copies out and clears.
-__device__ unsigned long long g_shade_phase[kShadePhases + 1];
-struct ShadePhaseClock {
-  long long cycles[kShadePhases] = {};
-  long long last;
-  // (Set in the body: nvcc's host pass keeps an initializer list.)
-  __device__ ShadePhaseClock() { last = clock64(); }
-  // Phase a ends here.
-  __device__ void mark(int a) {
-    if (threadIdx.x != 0) return;
-    const long long now = clock64();
-    cycles[a] += now - last;
-    last = now;
+  __device__ int3 light_bin(const par::Grid& g) const {
+    return par::light_bin(light, g);
   }
-  // The last phase ends here, once every thread has stored.
-  __device__ void end() {
-    __syncthreads();
-    mark(kShadePhases - 1);
-    if (threadIdx.x != 0) return;
-    for (int a = 0; a < kShadePhases; ++a)
-      atomicAdd(g_shade_phase + a,
-                static_cast<unsigned long long>(cycles[a]));
-    atomicAdd(g_shade_phase + kShadePhases, 1ull);
+  __device__ void load(const par::ShadeSmem& s, const par::Grid& g, int q,
+                       int i, int j) const {
+    const Surface u = decode_winner(pos, ext, players, px, g, f, i, j);
+    const float3 tl = par::towards_light(i, u.y, u.z, light);
+    s.y[q] = u.y;
+    s.z[q] = u.z;
+    s.self[q] = u.ent;
+    s.texel[q] = u.hit ? u.texel : -1;
+    s.ivx[q] = 1.0f / tl.x;
+    s.ivy[q] = 1.0f / tl.y;
+    s.ivz[q] = 1.0f / tl.z;
   }
-};
-#else
-// Otherwise the marks compile to nothing.
-struct ShadePhaseClock {
-  __device__ void mark(int) {}
-  __device__ void end() {}
-};
-#endif
-
-// A key's DDA toward the frame's light bin (the rounds of par::dda_rounds),
-// kept in shared memory from one chunk to the next.
-struct ShadeKey {
-  float ax, ay, az;     // the anchor: the start bin plus k0 steps, by the
-                        // same float adds as dda_rounds
-  float stx, sty, stz;  // the step
-  int sby, sbz;         // the start bin's y and z (its x is the tile's)
-  int n_steps;          // int(largest): 7 * n_steps phases
-  int start_flat;
-  int k0;               // the next round's first step, a multiple of 4
-  int skip;             // lanes of round k0 already listed
-  int len;              // entries listed in this chunk
-  int total;            // entries listed so far: the visit list's length
-  int pad0, pad1;
-};
-
-// The shared memory shadow_shade_kernel works in for a band of n_pix
-// pixels and chunks of `chunk` list entries; the base must be 16-byte
-// aligned.
-struct ShadeSmem {
-  float4* cand;                  // (chunk * cap, 2) staged boxes
-                                 // (common.cuh Box)
-  unsigned long long* warp_key;  // (kMarchWarps, kShadeKeys) each warp's
-                                 // start bins (pack_start)
-  unsigned long long* key_id;    // (kShadeKeys,) the band's start bins
-  ShadeKey* key;                 // (kShadeKeys,) their DDAs
-  int* cand_n;                   // (chunk,) live slots of a staged entry
-  int* flat;                     // (chunk,) each active key's share of
-                                 // the chunk's listed bins
-  int* warp_n;                   // (kMarchWarps,) keys in warp_key
-  int* warp_slot;                // (kMarchWarps, kShadeKeys) their index
-                                 // in key_id, or kShadeDirect
-  int* ctl;                      // [0] keys in the table, [1] 1 if one did
-                                 // not fit
-  unsigned* seen;                // (kShadeKeys, words) bins each key has
-                                 // listed
-  int* y;                        // (n_pix,) the surface point's y
-  int* z;                        // (n_pix,) and z
-  int* self;                     // (n_pix,) the pixel's entity
-  int* texel;                    // (n_pix,) its atlas texel, -1 for
-                                 // background
-  float* ivx;                    // (n_pix,) the reciprocal direction
-  float* ivy;
-  float* ivz;
-  unsigned char* state;          // (n_pix,) key index and occluded bit
-
-  __host__ __device__ static int words(const par::Grid& g) {
-    return (g.volume() + 31) / 32;
-  }
-  __host__ __device__ static size_t bytes(const par::Grid& g, int n_pix,
-                                          int chunk) {
-    return static_cast<size_t>(32 * chunk * g.bin_cap
-                               + 8 * (par::kMarchWarps + 1) * kShadeKeys)
-           + sizeof(ShadeKey) * kShadeKeys
-           + static_cast<size_t>(4 * (2 * chunk + par::kMarchWarps
-                                      + par::kMarchWarps * kShadeKeys + 2)
-                                 + 4 * kShadeKeys * words(g) + 29 * n_pix);
-  }
-  __device__ ShadeSmem(int* base, const par::Grid& g, int n_pix, int chunk) {
-    char* p = reinterpret_cast<char*>(base);
-    cand = reinterpret_cast<float4*>(p);
-    p += 32 * chunk * g.bin_cap;
-    warp_key = reinterpret_cast<unsigned long long*>(p);
-    key_id = warp_key + par::kMarchWarps * kShadeKeys;
-    key = reinterpret_cast<ShadeKey*>(key_id + kShadeKeys);
-    cand_n = reinterpret_cast<int*>(key + kShadeKeys);
-    flat = cand_n + chunk;
-    warp_n = flat + chunk;
-    warp_slot = warp_n + par::kMarchWarps;
-    ctl = warp_slot + par::kMarchWarps * kShadeKeys;
-    seen = reinterpret_cast<unsigned*>(ctl + 2);
-    y = reinterpret_cast<int*>(seen + kShadeKeys * words(g));
-    z = y + n_pix;
-    self = z + n_pix;
-    texel = self + n_pix;
-    ivx = reinterpret_cast<float*>(texel + n_pix);
-    ivy = ivx + n_pix;
-    ivz = ivy + n_pix;
-    state = reinterpret_cast<unsigned char*>(ivz + n_pix);
-  }
-};
-
-// A start bin's y and z in one word: equal words, equal bins.
-__device__ __forceinline__ unsigned long long pack_start(int sby, int sbz) {
-  return (static_cast<unsigned long long>(static_cast<unsigned>(sby)) << 32)
-         | static_cast<unsigned>(sbz);
-}
-
-// List key K's next distinct bins, at most `room`, into out[0..) in
-// first-visit order, as par::dda_visit_list lists them: the rounds of
-// par::dda_rounds from the anchor where the last call stopped, the lowest
-// lane of equal bins not yet in `seen` listing it, in lane order.  Where a
-// round holds more fresh bins than the room left, its lanes up to the
-// first fresh one that does not fit are listed and the next call resumes
-// the round from that lane (K.skip): the bins the lanes before it probed
-// are all in `seen` by then.  All 32 lanes of a warp call it; it sets
-// K.len to the entries listed.
-__device__ inline void list_next(ShadeKey& K, const par::Grid& g,
-                                 unsigned* seen, int* out, int room) {
-  const int V = g.volume();
-  const int lane = threadIdx.x & 31;
-  const int d = lane / 7;
-  const int phase = lane % 7;
-  const bool ax = phase == 0 || phase == 3 || phase == 4 || phase == 6;
-  const bool ay = phase == 1 || phase == 3 || phase == 5 || phase == 6;
-  const bool az = phase == 2 || phase == 4 || phase == 5 || phase == 6;
-  const float stx = K.stx, sty = K.sty, stz = K.stz;
-  const int n_steps = K.n_steps;
-  const int start_flat = K.start_flat;
-  float bx = K.ax, by = K.ay, bz = K.az;
-  int k0 = K.k0;
-  int skip = K.skip;
-  int m = 0;
-  while (k0 < n_steps && m < room) {
-    float tx = bx, ty = by, tz = bz;
-    for (int a = 0; a < d && a < 4; ++a) {
-      tx = tx + stx;
-      ty = ty + sty;
-      tz = tz + stz;
-    }
-    int flat = -1 - lane;  // never a bin, and unique to the lane
-    if (d < 4 && k0 + d < n_steps && lane >= skip) {
-      const int v = g.flat(static_cast<int>(tx + (ax ? stx : 0.0f)),
-                           static_cast<int>(ty + (ay ? sty : 0.0f)),
-                           static_cast<int>(tz + (az ? stz : 0.0f)));
-      if (v >= 0 && v < V && v != start_flat) flat = v;
-    }
-    const unsigned same = __match_any_sync(par::kFullWarp, flat);
-    const bool fresh = flat >= 0 && __ffs(same) - 1 == lane
-                       && (seen[flat >> 5] & (1u << (flat & 31))) == 0u;
-    const unsigned fresh_lanes = __ballot_sync(par::kFullWarp, fresh);
-    const int rank = __popc(fresh_lanes & ((1u << lane) - 1u));
-    const int left = room - m;
-    if (fresh && rank < left) {
-      atomicOr(seen + (flat >> 5), 1u << (flat & 31));
-      out[m + rank] = flat;
-    }
-    if (__popc(fresh_lanes) > left) {
-      skip = __ffs(__ballot_sync(par::kFullWarp, fresh && rank == left)) - 1;
-      m = room;
-      break;
-    }
-    m += __popc(fresh_lanes);
-    for (int a = 0; a < 4; ++a) {
-      bx = bx + stx;
-      by = by + sty;
-      bz = bz + stz;
-    }
-    k0 += 4;
-    skip = 0;
-    __syncwarp();
-  }
-  __syncwarp();
-  if (lane == 0) {
-    K.ax = bx;
-    K.ay = by;
-    K.az = bz;
-    K.k0 = k0;
-    K.skip = skip;
-    K.len = m;
-    K.total += m;
-  }
-}
-
-// The winner-input point mode: the lit mask, or with rgb the shaded frame,
-// of band blockIdx.z of bin-column tile blockIdx.x of frame blockIdx.y
-// (par::Band::of_block), from trace.cu's winners, in the five phases of the
-// header.  One of lit and rgb is null.  All threads of the block take part;
-// blockDim.x is a multiple of 32, at least 32 * kShadeKeys and at most
-// kMarchThreads, and chunk >= kShadeKeys.  With kCount the block adds its
-// slab tests to work[kWorkShadeTests]; without, work is not read.
-template <bool kCount>
-__global__ void __launch_bounds__(par::kMarchThreads,
-                                  par::kMarchBlocksPerSM)
-shadow_shade_kernel(
-    const int* __restrict__ pos, const int* __restrict__ ext,
-    const int* __restrict__ players, const int* __restrict__ bins_ent,
-    const int* __restrict__ counts, WinnerPixels px,
-    unsigned char* __restrict__ lit, unsigned char* __restrict__ rgb,
-    int* __restrict__ stats, unsigned long long* __restrict__ work,
-    par::Grid g, int chunk) {
-  extern __shared__ __align__(16) int smem[];
-  const ShadeSmem s(smem, g, g.band_pixels(), chunk);
-  ShadePhaseClock phases;
-  const int bs = g.bin_size;
-  const int cap = g.bin_cap;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid / 32;
-  const int f = blockIdx.y;
-  const par::Band b = par::Band::of_block(g);
-  const int n_pix = b.pixels(g);
-  const int i0 = b.i0(g);
-  const int j0 = b.j0(g);
-  const int words = ShadeSmem::words(g);
-  unsigned tests = 0u;  // this thread's slab tests (kCount)
-  const int3 light = make_int3(px.lights[3 * f], px.lights[3 * f + 1],
-                               px.lights[3 * f + 2]);
-  // The frame's light bin, C's `/`.
-  const int3 lb = make_int3(light.x / bs,
-                            (g.view_h - light.y - light.z) / bs,
-                            light.z / bs);
-
-  for (int w = tid; w < kShadeKeys * words; w += nt) s.seen[w] = 0u;
-
-  // 1. Decode each pixel once, kShadePixels a thread at a time so that
-  //    their gathers overlap: its surface, entity, texel and
-  //    1 / (d / length) into shared memory.  Then its start bin
-  //    (i / bs, (view_h - y - z) / bs, z / bs) into its warp's list of
-  //    distinct start bins (a bin missing from the list is added by the
-  //    lowest lane that has it), or kShadeDirect past kShadeKeys.
-  unsigned long long* wkey = s.warp_key + warp * kShadeKeys;
-  int wn = 0;  // entries of wkey, the same in every lane
-  par::TilePixel tp(bs);
-  for (int r0 = 0; r0 < n_pix; r0 += nt * kShadePixels) {
-    unsigned live = 0u;  // bit p: the round's pixel p is in the view
-    par::TilePixel dp = tp;
-#pragma unroll
-    for (int p = 0; p < kShadePixels; ++p) {
-      const int i = i0 + dp.col;
-      const int j = j0 + dp.row;
-      if (dp.q < n_pix && i < g.view_w && j < g.view_h) {
-        const Surface u = decode_winner(pos, ext, players, px, g, f, i, j);
-        const float3 tl = towards_light(i, u.y, u.z, light);
-        s.y[dp.q] = u.y;
-        s.z[dp.q] = u.z;
-        s.self[dp.q] = u.ent;
-        s.texel[dp.q] = u.hit ? u.texel : -1;
-        s.ivx[dp.q] = 1.0f / tl.x;
-        s.ivy[dp.q] = 1.0f / tl.y;
-        s.ivz[dp.q] = 1.0f / tl.z;
-        live |= 1u << p;
-      }
-      dp.next();
-    }
-#pragma unroll
-    for (int p = 0; p < kShadePixels; ++p) {
-      const int q = tp.q;
-      unsigned long long key = 0ull;
-      int slot = kShadeNone;
-      if ((live >> p) & 1u) {
-        const int y = s.y[q];
-        const int z = s.z[q];
-        key = pack_start((g.view_h - y - z) / bs, z / bs);
-        slot = -1;
-        for (int a = 0; a < wn; ++a)
-          if (wkey[a] == key) slot = a;
-      }
-      unsigned missing = __ballot_sync(par::kFullWarp, slot < 0);
-      while (missing != 0u) {
-        const int leader = __ffs(missing) - 1;
-        const unsigned long long lk = __shfl_sync(par::kFullWarp, key, leader);
-        const int added = wn < kShadeKeys ? wn : kShadeDirect;
-        if (lane == leader && wn < kShadeKeys) wkey[wn] = lk;
-        wn += wn < kShadeKeys ? 1 : 0;
-        if (slot < 0 && key == lk) slot = added;
-        missing = __ballot_sync(par::kFullWarp, slot < 0);
-        __syncwarp();
-      }
-      if (q < n_pix) s.state[q] = static_cast<unsigned char>(slot);
-      tp.next();
-    }
-  }
-  if (lane == 0) s.warp_n[warp] = wn;
-  __syncthreads();
-  phases.mark(0);
-
-  // 2. Warp 0 merges the warps' lists into the band's table, 32 entries at
-  //    a time: an entry already in the table takes its index; the lowest
-  //    lane of each new start bin (__match_any_sync) adds it, in lane
-  //    order, up to kShadeKeys.
-  if (warp == 0) {
-    const int nc = nt / 32 * kShadeKeys;
-    int n = 0;
-    bool over = false;
-    for (int c0 = 0; c0 < nc; c0 += 32) {
-      const int c = c0 + lane;
-      const bool valid = c < nc && c % kShadeKeys < s.warp_n[c / kShadeKeys];
-      const unsigned long long k = valid ? s.warp_key[c] : 0ull;
-      int idx = -1;
-      for (int a = 0; a < n; ++a)
-        if (valid && s.key_id[a] == k) idx = a;
-      const bool fresh = valid && idx < 0;
-      const unsigned fresh_lanes = __ballot_sync(par::kFullWarp, fresh);
-      const unsigned same = __match_any_sync(par::kFullWarp, k) & fresh_lanes;
-      const int leader = fresh ? __ffs(same) - 1 : lane;
-      const unsigned leaders =
-          __ballot_sync(par::kFullWarp, fresh && leader == lane);
-      const int at = n + __popc(leaders & ((1u << lane) - 1u));
-      if (fresh && leader == lane && at < kShadeKeys) s.key_id[at] = k;
-      const int got = __shfl_sync(par::kFullWarp, at, leader);
-      if (fresh) idx = got < kShadeKeys ? got : kShadeDirect;
-      if (c < nc) s.warp_slot[c] = idx;
-      over = over || n + __popc(leaders) > kShadeKeys;
-      n = min(n + __popc(leaders), kShadeKeys);
-      __syncwarp();
-    }
-    if (lane == 0) {
-      s.ctl[0] = n;
-      s.ctl[1] = over ? 1 : 0;
-    }
-  }
-  __syncthreads();
-  phases.mark(1);
-  const int n = s.ctl[0];
-
-  // 3. Each pixel's index in the table (the thread that decoded it reads
-  //    it), and each key's DDA from its start bin, as dda_rounds sets it up.
-  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
-    const int st = s.state[p.q];
-    if (st < kShadeKeys)
-      s.state[p.q] = static_cast<unsigned char>(
-          s.warp_slot[warp * kShadeKeys + st]);
-  }
-  if (tid < n) {
-    ShadeKey& K = s.key[tid];
-    const unsigned long long k = s.key_id[tid];
-    K.sby = static_cast<int>(static_cast<unsigned>(k >> 32));
-    K.sbz = static_cast<int>(static_cast<unsigned>(k));
-    const float sx = static_cast<float>(b.bin_x);
-    const float sy = static_cast<float>(K.sby);
-    const float sz = static_cast<float>(K.sbz);
-    const float dx = static_cast<float>(lb.x) - sx;
-    const float dy = static_cast<float>(lb.y) - sy;
-    const float dz = static_cast<float>(lb.z) - sz;
-    const float largest =
-        par::c_max(par::c_max(fabsf(dx), fabsf(dy)), fabsf(dz));
-    K.stx = dx / largest;
-    K.sty = dy / largest;
-    K.stz = dz / largest;
-    K.n_steps = static_cast<int>(largest);  // min(., kNoStepCap)
-    K.start_flat = g.flat(b.bin_x, K.sby, K.sbz);
-    K.ax = sx;
-    K.ay = sy;
-    K.az = sz;
-    K.k0 = 0;
-    K.skip = 0;
-    K.len = 0;
-    K.total = 0;
-  }
-  __syncthreads();
-  phases.mark(2);
-
-  // 4. The lists in chunks: each active key's warp lists its next bins
-  //    into its share of the chunk; the entries, compacted in key order
-  //    (key k's from off[k]), have their first min(count, cap) slots staged
-  //    as boxes (entity 0 at players[f]); every pixel of a key, not yet
-  //    occluded, tests its key's entries in order, skipping its own entity
-  //    and stopping at its first hit.
-  const size_t fbase = static_cast<size_t>(f) * g.volume();
-  // Keys whose DDA has steps left: at first those with any (n_steps, which
-  // no warp writes again, unlike k0).
-  unsigned active = 0u;
-  for (int k = 0; k < n; ++k) active |= s.key[k].n_steps > 0 ? 1u << k : 0u;
-  while (active != 0u) {
-    const int share = chunk / __popc(active);
-    if (warp < n && ((active >> warp) & 1u))
-      list_next(s.key[warp], g, s.seen + warp * words,
-                s.flat + __popc(active & ((1u << warp) - 1u)) * share,
-                share);
-    __syncthreads();
-    phases.mark(3);
-    int off[kShadeKeys + 1];
-    unsigned next = 0u;
-    off[0] = 0;
-#pragma unroll
-    for (int k = 0; k < kShadeKeys; ++k) {
-      const bool on = ((active >> k) & 1u) != 0u;
-      off[k + 1] = off[k] + (on ? s.key[k].len : 0);
-      next |= on && s.key[k].k0 < s.key[k].n_steps ? 1u << k : 0u;
-    }
-    const int total = off[kShadeKeys];
-    for (int t = tid; t < total * cap; t += nt) {
-      const int e = t / cap;
-      const int slot = t - e * cap;
-      int k = 0;
-#pragma unroll
-      for (int a = 1; a < kShadeKeys; ++a) k += e >= off[a] ? 1 : 0;
-      const size_t bb = fbase + s.flat[__popc(active & ((1u << k) - 1u))
-                                       * share
-                                       + e - par::pick<kShadeKeys>(off, k)];
-      const int live = min(counts[bb], cap);
-      if (slot == 0) s.cand_n[e] = live;
-      if (slot < live) {
-        const par::Box box = par::candidate_box(pos, ext, players,
-                                                bins_ent[bb * cap + slot], f);
-        s.cand[2 * t] = box.lo;
-        s.cand[2 * t + 1] = box.hi;
-      }
-    }
-    __syncthreads();
-    phases.mark(4);
-    for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
-      const int st = s.state[p.q];
-      if (st >= kShadeKeys) continue;  // occluded, direct or no pixel
-      const int e0 = par::pick<kShadeKeys>(off, st);
-      const int e1 = par::pick<kShadeKeys>(off, st + 1);
-      if (e0 >= e1) continue;
-      const par::Ray r{0, 0, 0,
-                       static_cast<float>(i0 + p.col),
-                       static_cast<float>(s.y[p.q]),
-                       static_cast<float>(s.z[p.q]),
-                       s.ivx[p.q], s.ivy[p.q], s.ivz[p.q], s.self[p.q]};
-      bool hit = false;
-      for (int e = e0; e < e1 && !hit; ++e) {
-        const int live = s.cand_n[e];
-        for (int t = e * cap; t < e * cap + live; ++t) {
-          const float4 lo = s.cand[2 * t];
-          if (__float_as_int(lo.w) == r.self) continue;
-          if constexpr (kCount) ++tests;
-          const float4 hi = s.cand[2 * t + 1];
-          if (par::slab_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, r)) {
-            hit = true;
-            break;
-          }
-        }
-      }
-      if (hit)
-        s.state[p.q] = static_cast<unsigned char>(st | kShadeOccluded);
-    }
-    active = next;
-    __syncthreads();
-    phases.mark(5);
-  }
-
-  // 5. Pixels whose key did not fit march on their own (march_occluded);
-  //    every pixel's lit bit, or its colour: ops/shade.py's lambert_dot,
-  //    factor_from_dot (std::min/std::max as ternaries, so a NaN dot gives
-  //    a diffuse of 0) and shade_u8.
-  int direct = 0;
-  for (par::TilePixel p(bs); p.q < n_pix; p.next()) {
-    const int st = s.state[p.q];
-    if (st == kShadeNone) continue;
-    const int i = i0 + p.col;
-    const int j = j0 + p.row;
-    const int y = s.y[p.q];
-    const int z = s.z[p.q];
-    bool occluded = (st & kShadeOccluded) != 0;
-    if (st == kShadeDirect) {
-      const par::Ray r{b.bin_x, (g.view_h - y - z) / bs, z / bs,
-                       static_cast<float>(i), static_cast<float>(y),
-                       static_cast<float>(z), s.ivx[p.q], s.ivy[p.q],
-                       s.ivz[p.q], s.self[p.q]};
-      occluded = par::march_occluded<kCount>(pos, ext, players, bins_ent,
-                                             counts, f, g, r, lb,
-                                             par::kNoStepCap, &tests);
-      ++direct;
-    }
+  __device__ void store(const par::ShadeSmem& s, const par::Grid& g, int q,
+                        int i, int j, bool occluded) const {
     const size_t o = g.pixel(f, i, j);
     if (rgb == nullptr) {
       lit[o] = occluded ? 0 : 1;
-      continue;
+      return;
     }
-    const float3 tl = towards_light(i, y, z, light);
-    const int texel = s.texel[p.q];
+    const float3 tl = par::towards_light(i, s.y[q], s.z[q], light);
+    const int texel = s.texel[q];
     float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
     int col[3] = {px.bg_r, px.bg_g, px.bg_b};
     if (texel >= 0) {
@@ -1102,26 +588,122 @@ shadow_shade_kernel(
       rgb[3 * o + a] = static_cast<unsigned char>(
           static_cast<int>(static_cast<float>(col[a]) * factor));
   }
-  phases.end();
-  if (direct > 0) atomicAdd(stats + par::kStatDirect, direct);
-  if (tid == 0) {
-    int longest = 0;
-    for (int k = 0; k < n; ++k) longest = max(longest, s.key[k].total);
-    atomicMax(stats + par::kStatStarts, n + s.ctl[1]);
-    atomicMax(stats + par::kStatList, longest);
+};
+
+// A start bin's three components in one word, kRayField bits each (biased
+// by half their range), where they fit.
+constexpr int kRayField = 21;
+constexpr unsigned kRayBias = 1u << (kRayField - 1);
+constexpr unsigned long long kRayMask = (1ull << kRayField) - 1ull;
+
+// march_band's source of the G-buffer point mode: each pixel's ray from
+// the ten buffers of PixelRays, which need not come from the view (the
+// origin's x is kept in s.texel as float bits, and y and z in s.y and s.z,
+// so any origin takes the list path); a key is the whole start bin, and a
+// pixel whose start bin does not fit the packed key marches on its own.
+// Its store writes the lit bit.
+struct BufferRays {
+  const PixelRays& rays;
+  int f;
+  int max_steps;
+  unsigned char* lit;
+
+  __device__ int3 light_bin(const par::Grid&) const {
+    return make_int3(rays.light_bin[3 * f], rays.light_bin[3 * f + 1],
+                     rays.light_bin[3 * f + 2]);
   }
-  if constexpr (kCount) {
-    // warp_n is not read after step 2: it holds each warp's sum.
-    tests = __reduce_add_sync(par::kFullWarp, tests);
-    if (lane == 0) s.warp_n[warp] = static_cast<int>(tests);
-    __syncthreads();
-    if (tid == 0) {
-      unsigned long long block = 0ull;
-      for (int w = 0; w < nt / 32; ++w)
-        block += static_cast<unsigned>(s.warp_n[w]);
-      atomicAdd(work + kWorkShadeTests, block);
+  __device__ void load(const par::ShadeSmem& s, const par::Grid& g, int q,
+                       int i, int j) const {
+    const size_t o = g.pixel(f, i, j);
+    s.texel[q] = __float_as_int(rays.ox[o]);
+    s.y[q] = __float_as_int(rays.oy[o]);
+    s.z[q] = __float_as_int(rays.oz[o]);
+    s.self[q] = rays.self[o];
+    s.ivx[q] = rays.ivx[o];
+    s.ivy[q] = rays.ivy[o];
+    s.ivz[q] = rays.ivz[o];
+  }
+  __device__ bool key(const par::ShadeSmem&, const par::Grid& g, int,
+                      int i, int j, unsigned long long& k) const {
+    const size_t o = g.pixel(f, i, j);
+    const unsigned u[3] = {static_cast<unsigned>(rays.rbx[o]) + kRayBias,
+                           static_cast<unsigned>(rays.rby[o]) + kRayBias,
+                           static_cast<unsigned>(rays.rbz[o]) + kRayBias};
+    k = 0ull;
+    bool fits = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      fits = fits && u[a] <= kRayMask;
+      k |= static_cast<unsigned long long>(u[a]) << (kRayField * a);
     }
+    return fits;
   }
+  __device__ static int3 start(unsigned long long k, const par::Band&) {
+    int v[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      v[a] = static_cast<int>(static_cast<unsigned>(
+                 (k >> (kRayField * a)) & kRayMask) - kRayBias);
+    return make_int3(v[0], v[1], v[2]);
+  }
+  __device__ static float3 origin(const par::ShadeSmem& s, int q, int) {
+    return make_float3(__int_as_float(s.texel[q]), __int_as_float(s.y[q]),
+                       __int_as_float(s.z[q]));
+  }
+  __device__ par::Ray direct(const par::ShadeSmem&, const par::Grid& g,
+                             const par::Band&, int, int i, int j) const {
+    const size_t o = g.pixel(f, i, j);
+    return par::Ray{rays.rbx[o], rays.rby[o], rays.rbz[o],
+                    rays.ox[o],  rays.oy[o],  rays.oz[o],
+                    rays.ivx[o], rays.ivy[o], rays.ivz[o],
+                    rays.self[o]};
+  }
+  __device__ void store(const par::ShadeSmem&, const par::Grid& g, int,
+                        int i, int j, bool occluded) const {
+    lit[g.pixel(f, i, j)] = occluded ? 0 : 1;
+  }
+};
+
+__device__ __forceinline__ WinnerRays source(
+    const WinnerPixels& px, const int* pos, const int* ext,
+    const int* players, int f, int, unsigned char* lit, unsigned char* rgb) {
+  return WinnerRays{{}, pos, ext, players, px, f,
+                    make_int3(px.lights[3 * f], px.lights[3 * f + 1],
+                              px.lights[3 * f + 2]),
+                    lit, rgb};
+}
+
+__device__ __forceinline__ BufferRays source(
+    const PixelRays& rays, const int*, const int*, const int*, int f,
+    int max_steps, unsigned char* lit, unsigned char*) {
+  return BufferRays{rays, f, max_steps, lit};
+}
+
+// The point modes: march_band over band blockIdx.z of bin-column tile
+// blockIdx.x of the Grid's window, frame blockIdx.y (par::Band::of_block),
+// from the winners (Px = WinnerPixels: the lit mask, or with rgb the
+// shaded frame; one of lit and rgb is null) or from the ray buffers
+// (Px = PixelRays: the lit mask under step cap max_steps).  Launch as
+// march_band asks.  With kCount the block adds its slab tests to
+// work[kWorkShadeTests]; without, work is not read.
+template <bool kCount, class Px>
+__global__ void __launch_bounds__(par::kMarchThreads,
+                                  par::kMarchBlocksPerSM)
+shadow_shade_kernel(
+    const int* __restrict__ pos, const int* __restrict__ ext,
+    const int* __restrict__ players, const int* __restrict__ bins_ent,
+    const int* __restrict__ counts, Px px, unsigned char* __restrict__ lit,
+    unsigned char* __restrict__ rgb, int* __restrict__ stats,
+    unsigned long long* __restrict__ work, par::Grid g, int max_steps,
+    int chunk) {
+  extern __shared__ __align__(16) int smem[];
+  const par::ShadeSmem s(smem, g, g.band_pixels(), chunk);
+  const int f = blockIdx.y;
+  const auto src = source(px, pos, ext, players, f, max_steps, lit, rgb);
+  par::march_band<kCount>(pos, ext, players, bins_ent, counts, f, g,
+                          par::Band::of_block(g), src.light_bin(g),
+                          src.max_steps, s, chunk, src, stats,
+                          kCount ? work + kWorkShadeTests : nullptr);
 }
 
 // The lit mask (Px = SurfacePixels: out is (F, H, W) 0/1) or the frame
@@ -1515,12 +1097,6 @@ shadow_dir_kernel(
   }
 }
 
-size_t shadow_smem(const par::Grid& g, int max_steps) {
-  return sizeof(int) * static_cast<size_t>(
-      par::MarchSmem<par::PointTable>::ints(g, g.bin_size * g.bin_size,
-                                            max_steps));
-}
-
 size_t dir_smem(const par::Grid& g, bool frames) {
   return DirSmem::bytes(g, g.bin_size * g.bin_size, frames);
 }
@@ -1542,7 +1118,7 @@ KeyFields key_fields(const void* fields, int bin_size) {
 }
 
 size_t shade_smem(const par::Grid& g, int chunk) {
-  return ShadeSmem::bytes(g, g.band_pixels(), chunk);
+  return par::ShadeSmem::bytes(g, g.band_pixels(), chunk);
 }
 
 // Let `kernel` take `smem` bytes of dynamic shared memory (an opt-in above
@@ -1581,7 +1157,8 @@ int occupancy(Kernel kernel, size_t smem, int threads, int* out) {
 // int32; light_bin (F, 3) int32; tables as for par_trace_winners; stats
 // (3,) int32 device counters (common.cuh MarchStat), added to; max_steps
 // the step cap, < 0 for none.  One block of `threads` per (frame, bin
-// column of the window).  Returns cudaGetLastError().
+// column of the window, band of the Grid's band_rows rows); chunk >=
+// kShadeKeys list entries staged at once.  Returns cudaGetLastError().
 extern "C" int par_shadow_lit(
     const void* pos, const void* ext, const void* players,
     const void* bins_ent, const void* counts, const void* rbx,
@@ -1590,27 +1167,27 @@ extern "C" int par_shadow_lit(
     const void* start_ent, const void* light_bin, void* lit, void* stats,
     int n_frames, int view_w, int view_h, int bin_size, int bin_cap,
     int hash_w, int hash_h, int hash_l, int row_bin0, int bin_rows,
-    int max_steps, int threads, void* stream) {
+    int max_steps, int chunk, int threads, void* stream) {
   const par::Grid g = par::Grid{view_w, view_h, bin_size, bin_cap, hash_w,
                                 hash_h, hash_l}.window(row_bin0, bin_rows);
-  const int cap = max_steps < 0 ? par::kNoStepCap : max_steps;
-  const size_t smem = shadow_smem(g, cap);
-  const int rc = allow_smem(shadow_lit_kernel, smem);
+  const size_t smem = shade_smem(g, chunk);
+  const auto kernel = shadow_shade_kernel<false, PixelRays>;
+  const int rc = allow_smem(kernel, smem);
   if (rc != 0) return rc;
   const PixelRays rays{
       static_cast<const int*>(rbx),   static_cast<const int*>(rby),
       static_cast<const int*>(rbz),   static_cast<const float*>(ox),
       static_cast<const float*>(oy),  static_cast<const float*>(oz),
       static_cast<const float*>(ivx), static_cast<const float*>(ivy),
-      static_cast<const float*>(ivz), static_cast<const int*>(start_ent)};
-  const dim3 grid(hash_w * bin_rows, n_frames);
-  shadow_lit_kernel<<<grid, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ivz), static_cast<const int*>(start_ent),
+      static_cast<const int*>(light_bin)};
+  const dim3 grid(hash_w * bin_rows, n_frames, g.bands);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos), static_cast<const int*>(ext),
       static_cast<const int*>(players), static_cast<const int*>(bins_ent),
-      static_cast<const int*>(counts), rays,
-      static_cast<const int*>(light_bin), static_cast<unsigned char*>(lit),
-      static_cast<int*>(stats), g, cap);
+      static_cast<const int*>(counts), rays, static_cast<unsigned char*>(lit),
+      nullptr, static_cast<int*>(stats), nullptr, g,
+      max_steps < 0 ? par::kNoStepCap : max_steps, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1622,7 +1199,8 @@ extern "C" int par_shadow_lit(
 // Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
 // else lit (F, H, W) uint8 (0/1).  work (3,) int64 (MarchWork), added to,
 // or null: with it the launch counts its slab tests (shadow_shade_kernel
-// <true>), without it it runs the kernel that does not count.  One block of
+// <true, WinnerPixels>), without it it runs the kernel that does not
+// count.  One block of
 // `threads` per (frame, bin column, band of the Grid's band_rows rows);
 // chunk >= kShadeKeys list entries staged at once.  Returns
 // cudaGetLastError().
@@ -1638,8 +1216,9 @@ extern "C" int par_shadow_shade(
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
   const size_t smem = shade_smem(g, chunk);
-  const auto kernel = work == nullptr ? shadow_shade_kernel<false>
-                                      : shadow_shade_kernel<true>;
+  const auto kernel = work == nullptr
+                          ? shadow_shade_kernel<false, WinnerPixels>
+                          : shadow_shade_kernel<true, WinnerPixels>;
   const int rc = allow_smem(kernel, smem);
   if (rc != 0) return rc;
   const WinnerPixels px{static_cast<const int*>(winner),
@@ -1661,7 +1240,7 @@ extern "C" int par_shadow_shade(
       static_cast<const int*>(players), static_cast<const int*>(bins_ent),
       static_cast<const int*>(counts), px, static_cast<unsigned char*>(lit),
       static_cast<unsigned char*>(rgb), static_cast<int*>(stats),
-      static_cast<unsigned long long*>(work), g, chunk);
+      static_cast<unsigned long long*>(work), g, par::kNoStepCap, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1756,26 +1335,28 @@ extern "C" int par_shadow_dir_shade(
 
 // Shared bytes of one block, the blocks one SM holds at `threads` threads,
 // registers a thread and local (stack and spill) bytes a thread, into
-// out[0..3].  Returns the CUDA error code.
+// out[0..3], of the G-buffer point mode with chunks of `chunk` list
+// entries.  Returns the CUDA error code.
 extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
                                     int bin_cap, int hash_w, int hash_h,
-                                    int hash_l, int threads, int* out) {
+                                    int hash_l, int threads, int chunk,
+                                    int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_lit_kernel, shadow_smem(g, par::kNoStepCap),
-                   threads, out);
+  return occupancy(shadow_shade_kernel<false, PixelRays>,
+                   shade_smem(g, chunk), threads, out);
 }
 
-// The same for the winner-input point mode with chunks of `chunk` list
-// entries (the kernel that does not count).
+// The same for the winner-input point mode (the kernel that does not
+// count).
 extern "C" int par_shadow_shade_occupancy(int view_w, int view_h,
                                           int bin_size, int bin_cap,
                                           int hash_w, int hash_h, int hash_l,
                                           int threads, int chunk, int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_shade_kernel<false>, shade_smem(g, chunk), threads,
-                   out);
+  return occupancy(shadow_shade_kernel<false, WinnerPixels>,
+                   shade_smem(g, chunk), threads, out);
 }
 
 // The same for the directional mode.
@@ -1801,12 +1382,12 @@ extern "C" int par_shadow_dir_shade_occupancy(int view_w, int view_h,
 }
 
 #ifdef PAR_SHADE_PHASES
-// Copies g_shade_phase (kShadePhases cycle sums, then the blocks) to `out`
-// and clears it.  Returns cudaGetLastError().
+// Copies this file's g_shade_phase (kShadePhases cycle sums, then the
+// blocks) to `out` and clears it.  Returns cudaGetLastError().
 extern "C" int par_shade_phases(void* out) {
-  unsigned long long zero[kShadePhases + 1] = {};
-  cudaMemcpyFromSymbol(out, g_shade_phase, sizeof zero);
-  cudaMemcpyToSymbol(g_shade_phase, zero, sizeof zero);
+  unsigned long long zero[par::kShadePhases + 1] = {};
+  cudaMemcpyFromSymbol(out, par::g_shade_phase, sizeof zero);
+  cudaMemcpyToSymbol(par::g_shade_phase, zero, sizeof zero);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

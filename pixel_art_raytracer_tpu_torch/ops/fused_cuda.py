@@ -4,41 +4,47 @@ launch.
 CPU tensors take the plain version, :func:`ops.fused.trace_shadow`; CUDA
 tensors launch the kernel, and anything else raises.  ``launches`` counts
 kernel launches; ``counters`` holds the kernel's device counters of its
-march (as ``shadow_cuda.counters``).
+march, the point march of ``shadow_cuda``'s point modes (as
+``shadow_cuda.counters``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..config import RenderConfig
 from ..runtime import kernels
-from . import fused
-from .shadow_cuda import MAX_SMEM, march_smem_bytes, march_threads
-from .trace_cuda import band_pixels, draw_bytes
+from . import fused, shadow_cuda
+from .shadow_cuda import MARCH_THREADS, MAX_SMEM
+from .trace_cuda import band_rows, draw_bytes
 
 launches = 0
 counters = kernels.MarchCounters()
 
 
-def block_threads(config: RenderConfig) -> int:
-    """Threads of a block, which walks and marches one band of the walk
-    (:func:`trace_cuda.band_pixels`): 320 for 1,600-pixel bands."""
-    return march_threads(config, band_pixels(config))
-
-
-def smem_bytes(config: RenderConfig) -> int:
+def smem_bytes(config: RenderConfig, chunk: int | None = None) -> int:
     """Shared memory of one block, which takes one band of a bin-column
-    tile (:func:`trace_cuda.band_rows`): the bin column's staged
-    candidates (hash_l * (1 + 8 * cap) ints), the surface point (y, z,
-    entity) of each pixel of the band, which holds the walk's per-pixel
-    state first, and one region for the march's visit lists and staged
-    boxes (:func:`shadow_cuda.march_smem_bytes`) that holds the walk's draw
-    list (:func:`trace_cuda.draw_bytes`) first."""
-    cap = config.bin_capacity
-    n_pix = band_pixels(config)
-    return (4 * (config.hash_length * (1 + 8 * cap) + 3 * n_pix)
-            + max(march_smem_bytes(config, pixels=n_pix), draw_bytes(config)))
+    tile (:func:`trace_cuda.band_rows`), at ``chunk`` list entries staged
+    at once (default: the most, up to ``shadow_cuda.SHADE_CHUNK``, at which
+    4 blocks fit an SM): the point march's block
+    (:func:`shadow_cuda.shade_smem_bytes`), whose head holds the walk's
+    draw list (:func:`trace_cuda.draw_bytes`) first and whose per-pixel
+    arrays the walk's state, rounded up to 4 bytes, then the bin column's
+    staged candidates (hash_l * (1 + 8 * cap) ints)."""
+    if chunk is None:
+        chunk = _chunk(config)
+    march = shadow_cuda.shade_smem_bytes(config, chunk,
+                                         reserve=draw_bytes(config))
+    return (-(-march // 4) * 4
+            + 4 * config.hash_length * (1 + 8 * config.bin_capacity))
+
+
+@functools.cache
+def _chunk(config: RenderConfig) -> int:
+    return shadow_cuda.shade_chunk(config,
+                                   lambda chunk: smem_bytes(config, chunk))
 
 
 def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
@@ -77,13 +83,15 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             (players, "players", torch.int32, (F, 3)),
             (lights, "lights", torch.int32, (F, 3))):
         kernels.require(t, name, dtype, shape, dev)
-    smem = smem_bytes(cfg)
+    chunk = _chunk(cfg)
+    smem = smem_bytes(cfg, chunk)
     if smem > MAX_SMEM:
-        raise ValueError(f"trace_shadow: a column of {cfg.hash_length} x "
-                         f"{cap} candidates, a band of {band_pixels(cfg)} "
-                         f"pixels and visit lists of a {V}-bin grid need "
-                         f"{smem} B of shared memory, over the {MAX_SMEM} B "
-                         f"a block may use")
+        raise ValueError(f"trace_shadow: the visit-list masks of a {V}-bin "
+                         f"grid, a band of {band_rows(cfg)} rows of "
+                         f"{cfg.bin_size} pixels and a column of "
+                         f"{cfg.hash_length} x {cap} candidates need {smem} B "
+                         f"of shared memory, over the {MAX_SMEM} B a block "
+                         f"may use")
 
     winner = torch.empty((F, H, W), dtype=torch.int32, device=dev)
     best = torch.empty_like(winner) if with_best else None
@@ -98,7 +106,7 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
             counters.tensor(dev).data_ptr(), F, W, H, cfg.bin_size, cap,
             cfg.hash_width, cfg.hash_height, cfg.hash_length,
             cfg.sprite_width, cfg.sprite_height, int(cfg.early_exit),
-            block_threads(cfg), kernels.stream_handle(dev))
+            chunk, MARCH_THREADS, kernels.stream_handle(dev))
     kernels.check(rc, "par_fused_trace_shadow")
     launches += 1
     return best, winner, lit
@@ -106,6 +114,7 @@ def trace_shadow(pos, ext, sprite_id, atlas_depth, bins_ent, counts,
 
 def occupancy(config: RenderConfig) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
-    local bytes per thread)`` of the kernel (needs the card)."""
-    return kernels.occupancy("par_fused_occupancy", config,
-                             block_threads(config))
+    local bytes per thread)`` of the kernel, at its chunk and threads
+    (needs the card)."""
+    return kernels.occupancy("par_fused_occupancy", config, MARCH_THREADS,
+                             _chunk(config))

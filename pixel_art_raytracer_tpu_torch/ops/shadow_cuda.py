@@ -3,7 +3,9 @@ point light (:func:`trace_light`, from a G-buffer's ray inputs) or a
 directional light (:func:`trace_light_directional`) per frame, and the
 shaded frames straight from the trace kernel's winners of a point light
 (:func:`shade_point`, or its lit mask) or a directional light
-(:func:`shade_directional`) per frame.
+(:func:`shade_directional`) per frame.  Both point modes, and the fused
+kernel (``fused_cuda``), run one march (``csrc/common.cuh`` march_band),
+whose block :func:`shade_smem_bytes` sizes.
 
 CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`,
 :func:`ops.shadow_dir.trace_light_directional`,
@@ -11,8 +13,9 @@ CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`,
 CUDA tensors launch the kernel, and anything else raises.  ``launches``,
 ``directional_launches``, ``shade_launches`` and ``dir_shade_launches``
 count the four modes' launches; ``counters`` holds the kernel's device
-counters of all four (pixels marched directly, the most keys in a tile,
-the longest visit list), of the two directional modes (union entries
+counters of all four (pixels marched directly, the most keys in a band
+of the point march or a tile of the directional one, the longest visit
+list), of the two directional modes (union entries
 staged, slab tests performed, and the pixels of their launches on the
 host) and, while the program is traced (``runtime/tracing.py``), of the
 winner-input point mode (slab tests performed, and the pixels of those
@@ -37,18 +40,16 @@ counters = kernels.MarchCounters()
 
 # Shared memory a block may use on Hopper (opt-in above 48 KB).
 MAX_SMEM = 227 * 1024
-# csrc/common.cuh: the start bins a point-mode tile's table holds
-# (PointTable); kChunkBins, the list entries staged at once; kMarchThreads,
-# the most threads a march block may have; kMarchBlocksPerSM, the blocks an
-# SM should hold (the march kernels' launch bound).
+# csrc/common.cuh: kShadeKeys, the start bins a band's table of the point
+# march holds; kMarchThreads, the most threads a march block may have (and
+# the threads of a point-march block); kMarchBlocksPerSM, the blocks an SM
+# should hold (the march kernels' launch bound).
 STARTS = 4
-CHUNK_BINS = 64
 MARCH_THREADS = 320
 MARCH_BLOCKS_PER_SM = 4
-# The most list entries csrc/shadow.cu's winner-input point mode stages at
-# once.
+# The most list entries the point march stages at once.
 SHADE_CHUNK = 32
-# csrc/shadow.cu ShadeKey: one key's DDA state, 16 ints.
+# csrc/common.cuh ShadeKey: one key's DDA state, 16 ints.
 SHADE_KEY_BYTES = 64
 # Shared memory of a Hopper SM, and what the runtime reserves a block.
 SM_SMEM = 228 * 1024
@@ -60,74 +61,54 @@ STYLES = ("reference", "dithered")
 NO_TEXEL = 0xFFFF
 
 
-def march_threads(config: RenderConfig, pixels: int | None = None) -> int:
-    """Threads of a march block of ``pixels`` pixels (default: one
-    bin-column tile of bin_size**2): the largest warp multiple up to
+def march_threads(config: RenderConfig) -> int:
+    """Threads of a directional march block, which takes one bin-column
+    tile of bin_size**2 pixels: the largest warp multiple up to
     MARCH_THREADS that divides the pixels (320 for 40x40 tiles), else
     256."""
-    n_pix = config.bin_size ** 2 if pixels is None else pixels
+    n_pix = config.bin_size ** 2
     return next((t for t in range(MARCH_THREADS, 31, -32)
                  if n_pix % t == 0), 256)
 
 
-def list_capacity(config: RenderConfig, max_steps: int | None) -> int:
-    """The entries a visit list can hold: its distinct bins, at most the
-    grid's volume V, and at most 7 a step under a step cap."""
-    V = config.hash_volume
-    return V if max_steps is None else min(V, 7 * max_steps)
-
-
-def march_smem_bytes(config: RenderConfig, max_steps: int | None = None,
-                     pixels: int | None = None) -> int:
-    """Shared memory of csrc/common.cuh ``MarchSmem`` of the point table
-    (STARTS keys of 3 ints) for ``pixels`` pixels (default: one tile of
-    bin_size**2): CHUNK_BINS staged list entries of ``cap`` candidates (two
-    float4: the corners and the raw id) and their live counts, the tile's
-    keys, list lengths and table counts, each warp's keys and their index
-    in the table, a V-bit mask and a visit list of :func:`list_capacity`
-    entries per key, and two bytes a pixel."""
-    V, cap = config.hash_volume, config.bin_capacity
-    n_pix = config.bin_size ** 2 if pixels is None else pixels
-    keys, key_ints = STARTS, 3
-    warps = MARCH_THREADS // 32
-    ints = (8 * CHUNK_BINS * cap + CHUNK_BINS + keys * key_ints + keys + 2
-            + warps * (keys * key_ints + 1 + keys) + keys * -(-V // 32)
-            + keys * list_capacity(config, max_steps) + (2 * n_pix + 3) // 4)
-    return 4 * ints
-
-
-def shade_smem_bytes(config: RenderConfig, chunk: int | None = None) -> int:
-    """Shared memory of csrc/shadow.cu ``ShadeSmem``, the winner-input
-    point mode's block, at ``chunk`` list entries staged at once (default
-    :func:`shade_chunk`): the staged entries' ``cap`` candidates (two
-    float4 each), live counts and bins, each warp's and the band's start
-    bins (8 B each), STARTS key states, the warps' counts and table
-    indices, 2 control ints, a V-bit mask of listed bins per key, and 29 B
-    a pixel of the band (y, z, entity, texel, the reciprocal direction, a
-    state byte).  A band is ``trace.cu``'s (:func:`trace_cuda.band_rows`
-    rows, at most 1,600 pixels), so only the masks grow with the grid's
-    volume V: at capacity 8 and 32 entries the block fits MAX_SMEM up to
-    V = 353,568 bins."""
+def shade_smem_bytes(config: RenderConfig, chunk: int | None = None,
+                     reserve: int = 0) -> int:
+    """Shared memory of csrc/common.cuh ``ShadeSmem``, the point march's
+    block (both point modes), at ``chunk`` list entries staged at once
+    (default :func:`shade_chunk`): a head of the staged entries' ``cap``
+    candidates (two float4 each), live counts and bins, each warp's and the
+    band's start bins (8 B each), STARTS key states, the warps' counts and
+    table indices, 2 control ints and a V-bit mask of listed bins per key,
+    or ``reserve`` bytes where that is more (``fused_cuda``'s draw list);
+    then 29 B a pixel of the band (the ray origin's y and z, entity, texel,
+    the reciprocal direction, a state byte).  A band is ``trace.cu``'s
+    (:func:`trace_cuda.band_rows` rows, at most 1,600 pixels), so only the
+    masks grow with the grid's volume V: at capacity 8 and 32 entries the
+    block fits MAX_SMEM up to V = 353,568 bins."""
     cfg = config
     V, cap = cfg.hash_volume, cfg.bin_capacity
     warps = MARCH_THREADS // 32
     n_pix = trace_cuda.band_pixels(cfg)
     if chunk is None:
         chunk = shade_chunk(cfg)
-    return (32 * chunk * cap + 8 * (warps + 1) * STARTS
+    head = (32 * chunk * cap + 8 * (warps + 1) * STARTS
             + SHADE_KEY_BYTES * STARTS
             + 4 * (2 * chunk + warps + warps * STARTS + 2)
-            + 4 * STARTS * -(-V // 32) + 29 * n_pix)
+            + 4 * STARTS * -(-V // 32))
+    return max(head, reserve) + 29 * n_pix
 
 
-def shade_chunk(config: RenderConfig) -> int:
-    """List entries the winner-input point mode stages at once: the most,
-    up to SHADE_CHUNK, at which MARCH_BLOCKS_PER_SM blocks fit an SM's
-    shared memory, else SHADE_CHUNK (graybox 32; config 5 28, where 32
-    would hold an SM to 3 blocks; the 52 x 52 x 8 grid 32, 3 blocks at
-    any chunk)."""
+def shade_chunk(config: RenderConfig, smem_bytes=None) -> int:
+    """List entries the point march stages at once: the most, up to
+    SHADE_CHUNK, at which MARCH_BLOCKS_PER_SM blocks of ``smem_bytes(chunk)``
+    bytes (default: :func:`shade_smem_bytes`) fit an SM's shared memory,
+    else SHADE_CHUNK (graybox 32; config 5 28, where 32 would hold an SM to
+    3 blocks; the 52 x 52 x 8 grid 32, 3 blocks at any chunk)."""
+    if smem_bytes is None:
+        def smem_bytes(chunk):
+            return shade_smem_bytes(config, chunk)
     for chunk in range(SHADE_CHUNK, STARTS - 1, -1):
-        if MARCH_BLOCKS_PER_SM * (shade_smem_bytes(config, chunk)
+        if MARCH_BLOCKS_PER_SM * (smem_bytes(chunk)
                                   + BLOCK_RESERVED_SMEM) <= SM_SMEM:
             return chunk
     return SHADE_CHUNK
@@ -144,7 +125,10 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
     phases (None: no cap, the render paths' exact march).
     ``rows=(row0, n_rows)``, a window of whole bin rows
     (``trace.row_window``), launches over that window only: the per-pixel
-    inputs and the mask are then (F, n_rows, W).
+    inputs and the mask are then (F, n_rows, W).  The kernel runs the
+    point march of :func:`shade_point` on the rays, whatever they are; it
+    raises ``ValueError`` where :func:`shade_point` would, past 353,568
+    bins at capacity 8.
     """
     global launches
     dev = bins_ent.device
@@ -183,12 +167,13 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
                for a, t in enumerate(inv_dir)]
     for t, name, dtype, shape in checks:
         kernels.require(t, name, dtype, shape, dev)
-    smem = march_smem_bytes(cfg, max_steps=max_steps)
+    chunk = shade_chunk(cfg)
+    smem = shade_smem_bytes(cfg, chunk)
     if smem > MAX_SMEM:
-        raise ValueError(f"trace_light: visit lists of a {V}-bin grid and "
-                         f"a tile of {cfg.bin_size}**2 pixels need {smem} B "
-                         f"of shared memory, over the {MAX_SMEM} B a block "
-                         f"may use")
+        raise ValueError(f"trace_light: the visit-list masks of a {V}-bin "
+                         f"grid and a band of {trace_cuda.band_rows(cfg)} rows "
+                         f"of {cfg.bin_size} pixels need {smem} B of shared "
+                         f"memory, over the {MAX_SMEM} B a block may use")
 
     lit = torch.empty(pixel, dtype=torch.bool, device=dev)
     lib = kernels.library()
@@ -204,7 +189,7 @@ def trace_light(pos, ext, bins_ent, counts, start_bin, end_bin, start_ent,
             F, W, H, cfg.bin_size, cap, cfg.hash_width, cfg.hash_height,
             cfg.hash_length, row0 // cfg.bin_size,
             -(-n_rows // cfg.bin_size),
-            -1 if max_steps is None else max_steps, march_threads(cfg),
+            -1 if max_steps is None else max_steps, chunk, MARCH_THREADS,
             kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_lit")
     launches += 1
@@ -263,7 +248,8 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
             (players, "players", torch.int32, (F, 3)),
             (lights, "lights", torch.int32, (F, 3))):
         kernels.require(t, name, dtype, shape, dev)
-    smem = shade_smem_bytes(cfg)
+    chunk = shade_chunk(cfg)
+    smem = shade_smem_bytes(cfg, chunk)
     if smem > MAX_SMEM:
         raise ValueError(f"shade_point: the visit-list masks of a {V}-bin "
                          f"grid and a band of {trace_cuda.band_rows(cfg)} rows "
@@ -291,7 +277,7 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
             work.data_ptr() if counting else None, F, W, H, cfg.bin_size,
             cap, cfg.hash_width, cfg.hash_height, cfg.hash_length,
             cfg.sprite_width, cfg.sprite_height, r, g, b, cfg.ambient,
-            shade_chunk(cfg), MARCH_THREADS, kernels.stream_handle(dev))
+            chunk, MARCH_THREADS, kernels.stream_handle(dev))
     kernels.check(rc, "par_shadow_shade")
     shade_launches += 1
     if counting:
@@ -467,9 +453,10 @@ def shade_directional(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
 
 def occupancy(config: RenderConfig) -> tuple[int, ...]:
     """``(shared bytes per block, blocks per SM, registers per thread,
-    local bytes per thread)`` of the point mode (needs the card)."""
+    local bytes per thread)`` of the G-buffer point mode, at its chunk and
+    threads (needs the card)."""
     return kernels.occupancy("par_shadow_occupancy", config,
-                             march_threads(config))
+                             MARCH_THREADS, shade_chunk(config))
 
 
 def shade_occupancy(config: RenderConfig) -> tuple[int, ...]:

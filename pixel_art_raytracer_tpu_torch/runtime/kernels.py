@@ -43,19 +43,19 @@ _F = ctypes.c_float
 # sizes as int, the ambient factor and a luminance as float.
 SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
-    "par_shadow_lit": [_P] * 18 + [_I] * 12 + [_P],
+    "par_shadow_lit": [_P] * 18 + [_I] * 13 + [_P],
     "par_shadow_shade": [_P] * 16 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_shadow_dir_shade": [_P] * 18 + [_I] * 16 + [_F] * 2
                             + [_P, _I, _P],
-    "par_fused_trace_shadow": [_P] * 12 + [_I] * 12 + [_P],
+    "par_fused_trace_shadow": [_P] * 12 + [_I] * 13 + [_P],
     "par_bin_tables": [_P] * 6 + [_I] * 15 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
-    "par_shadow_occupancy": [_I] * 8 + [_P],
+    "par_shadow_occupancy": [_I] * 9 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_shade_occupancy": [_I] * 8 + [_P],
     "par_shadow_shade_occupancy": [_I] * 9 + [_P],
-    "par_fused_occupancy": [_I] * 8 + [_P],
+    "par_fused_occupancy": [_I] * 9 + [_P],
 }
 
 
@@ -175,9 +175,10 @@ def occupancy(name: str, config, threads: int,
 class MarchCounters:
     """The march kernels' device counters, per device, that each launch
     adds to: a (3,) int32 tensor (csrc/common.cuh MarchStat) of pixels
-    marched directly, the most keys one tile held (``max_starts``: start
-    bins, or (start bin, light bin) pairs in the directional mode; the
-    table's size + 1 where some did not fit) and the longest visit list;
+    marched directly, the most keys one band of the point march held
+    (``max_starts``: start bins; in the directional mode, (start bin,
+    light bin) pairs of one tile; the table's size + 1 where some did not
+    fit) and the longest visit list;
     and a (3,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
     mode's union entries staged (``staged_entries``, summed over the tiles)
     and the slab tests it performed (``slab_tests``: its union lists and

@@ -3,11 +3,11 @@
     python -m pixel_art_raytracer_tpu_torch.shade_phases
 
 Builds the kernel library with ``-DPAR_SHADE_PHASES`` (a build directory
-of its own, named by the flags), which turns on ``shadow_shade_kernel``'s
-phase marks (``csrc/shadow.cu`` ``ShadePhaseClock``): thread 0 of every
-block reads ``clock64()`` at each mark and adds each phase's cycles to a
-device array, which the C entry ``par_shade_phases`` copies out and
-clears.  Runs ``shadow_cuda.shade_point`` once on graybox (the center
+of its own, named by the flags), which turns on the phase marks of the
+point march as ``shadow_shade_kernel`` runs it (``csrc/common.cuh``
+``march_band``'s ``ShadePhaseClock``): thread 0 of every block reads
+``clock64()`` at each mark and adds each phase's cycles to a device
+array, which the C entry ``par_shade_phases`` copies out and clears.  Runs ``shadow_cuda.shade_point`` once on graybox (the center
 orbit, F = 64) and on BASELINE config 5 at s = 4 (F = 2) and s = 2 (F =
 8), and prints a JSON line for each: the blocks, the mean cycles a block,
 and each phase's share of them.  The phases, in order: decode (each

@@ -24,13 +24,15 @@ from pixel_art_raytracer_tpu.ops import shadow as jshadow
 from pixel_art_raytracer_tpu.ops import shadow_fast
 from pixel_art_raytracer_tpu.ops import trace as jtrace
 from pixel_art_raytracer_tpu.ops.static_bins import StaticBins as JStaticBins
-from pixel_art_raytracer_tpu_torch import config, scene
+from pixel_art_raytracer_tpu_torch import bench_scale, config, scene
+from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
 from pixel_art_raytracer_tpu_torch.models.supersample import scaled_config
 from pixel_art_raytracer_tpu_torch.ops import (binning, fused, fused_cuda,
-                                               shadow_cuda)
+                                               shade, shadow, shadow_cuda,
+                                               trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops import trace
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.runtime import native
@@ -269,33 +271,39 @@ def test_wrapper_refuses_other_devices_and_sizes_shared_memory():
     with pytest.raises(ValueError, match="no kernel"):
         fused_cuda.trace_shadow(ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth,
                                 be, cnt, players, players, SMALL)
-    # graybox: an 8-bin column of 65 ints a bin, 3 ints for each of the
-    # 40 x 40 pixels, and the march: 64 staged list entries of 1 + 8 * 8
-    # ints, 4 start bins (3 ints each, a list length, a 768-bit mask and a
-    # 768-entry list), the table's count and overflow flag, 10 warps' 4
-    # start bins (3 ints and a table index each) and counts, and 2 bytes a
-    # pixel.  The walk's draw list (4 + 16 * 64 ints) fits the march's
-    # region, and its per-pixel state the surface point's ints, so they add
-    # nothing.
-    march = 4 * (64 * (1 + 8 * 8) + 4 * 3 + 4 + 4 * 24 + 4 * 768 + 2
-                 + 10 * (4 * 4 + 1) + 2 * 1600 // 4)
-    assert fused_cuda.smem_bytes(DEFAULT) == (4 * (8 * 65 + 3 * 1600)
-                                              + march)
-    assert fused_cuda.block_threads(DEFAULT) == 320
-    # 80- and 160-pixel tiles take the walk's bands of 1,600 pixels for the
-    # march too, so the block is graybox's on graybox's grid, and 131,104 B
-    # on config 5's 26 x 26 x 8 grid (a 5,408-bit mask and a 5,408-entry
-    # list per start bin) where a whole 160-pixel tile would need
-    # 467,104 B.
+    # The block is the point march's (shadow_cuda.shade_smem_bytes) at the
+    # most staged list entries, up to 32, at which 4 blocks fit an SM: a
+    # head of `chunk` staged entries of 8 boxes of 32 B, 11 x 4 start bins
+    # of 8 B (each warp's and the band's), 4 key states of 64 B, the
+    # entries' live counts and bins, 10 warps' counts and 4 table indices,
+    # 2 control ints and a mask of `words` words per start bin; then 29 B
+    # for each of the 1,600 pixels of a band, which hold the walk's
+    # per-pixel state first; then the column's 8 bins of 65 ints.  The
+    # walk's draw list (4 + 16 * 64 ints) fits the head.
+    def march_head(chunk, words):
+        return (32 * chunk * 8 + 8 * 11 * 4 + 64 * 4
+                + 4 * (2 * chunk + 10 + 10 * 4 + 2) + 4 * 4 * words)
+
+    column = 4 * 8 * 65
+    assert trace_cuda.draw_bytes(DEFAULT) == 4 * (4 + 16 * 64) \
+        < march_head(29, 24)
+    assert fused_cuda.smem_bytes(DEFAULT) == (march_head(29, 24)
+                                              + 29 * 1600 + column) == 57336
+    # 29 entries keep 4 blocks on an SM, 30 would not.
+    for chunk, fits in ((29, True), (30, False)):
+        assert (shadow_cuda.MARCH_BLOCKS_PER_SM
+                * (fused_cuda.smem_bytes(DEFAULT, chunk)
+                   + shadow_cuda.BLOCK_RESERVED_SMEM)
+                <= shadow_cuda.SM_SMEM) == fits
+    # 80- and 160-pixel tiles take bands of 1,600 pixels, so the block is
+    # graybox's on graybox's grid; on config 5's 26 x 26 x 8 grid the
+    # masks take 169 words, and 20 entries keep 4 blocks on an SM.
     for s in (2, 4):
-        assert fused_cuda.smem_bytes(scaled_config(DEFAULT, s)) == 54544
-        assert fused_cuda.block_threads(scaled_config(DEFAULT, s)) == 320
+        assert fused_cuda.smem_bytes(scaled_config(DEFAULT, s)) == 57336
     config5 = config.RenderConfig(1024, 1024, 320)
-    c5_march = 4 * (64 * (1 + 8 * 8) + 4 * 3 + 4 + 4 * 169 + 4 * 5408 + 2
-                    + 10 * (4 * 4 + 1) + 2 * 1600 // 4)
     for s in (1, 2, 4):
         assert fused_cuda.smem_bytes(scaled_config(config5, s)) == (
-            4 * (8 * 65 + 3 * 1600) + c5_march) == 131104
+            march_head(20, 169) + 29 * 1600 + column) == 57280
 
 
 def port_kernel_inputs(s, config, device, lights):
@@ -334,19 +342,38 @@ def test_cuda_kernel_matches_plain(cuda, light):
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_refuses_tables_past_shared_memory(cuda):
-    big = dataclasses.replace(SMALL, view_width=1200, view_height=1200,
-                              view_length=1200)
-    assert fused_cuda.smem_bytes(big) > fused_cuda.MAX_SMEM
-    s = shadow_scene(config=big)
-    V, cap = big.hash_volume, big.bin_capacity
-    ds = DeviceScene.from_scene(s, big, device=cuda)
-    be = torch.full((1, V, cap), -1, dtype=torch.int32, device=cuda)
-    cnt = torch.zeros((1, V), dtype=torch.int32, device=cuda)
-    p = ds.pos[:1]
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_cuda.trace_shadow(ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth,
-                                be, cnt, p, p, big)
+def test_cuda_kernels_render_a_21632_bin_grid(cuda):
+    """One frame of the config-5 scene generator on a 2048**2 view at bin
+    40 (52 x 52 x 8 bins, the grid of test_torch_shade_march's
+    test_cuda_shade_point_renders_a_21632_bin_grid, past the ~12,800 bins
+    the tile-sized march took): the fused kernel and the G-buffer point
+    mode of shadow.cu equal their plain versions."""
+    cfg = config.RenderConfig(view_width=2048, view_height=2048,
+                              view_length=320)
+    assert cfg.hash_volume == 21_632
+    assert fused_cuda.smem_bytes(cfg) <= fused_cuda.MAX_SMEM
+    s = bench_scale.config5_scene(config=cfg)
+    r = DeferredRenderer(cfg).configure_for(s)
+    ds = DeviceScene.from_scene(s, cfg, device=cuda)
+    cache = StaticBins(s.pos, s.ext, 1, cfg, r.spans, device=cuda)
+    players = torch.tensor(s.pos[:1], device=cuda)
+    lights = torch.tensor([[1024, 400, 160]], dtype=torch.int32, device=cuda)
+    be, cnt = batched.bin_stage(r, cache, ds, players)
+    # The plain versions run on the card's tensors: on the host they take
+    # minutes at 2048**2.
+    fargs = (ds.pos, ds.ext, ds.sprite_id, ds.atlas_depth, be, cnt, players,
+             lights, cfg)
+    got = fused_cuda.trace_shadow(*fargs, with_best=True)
+    for name, g, w in zip(("best", "winner", "lit"), got,
+                          fused.trace_shadow(*fargs)):
+        assert torch.equal(g, w), name
+    gbuf = batched.trace_stage(r, ds, be, cnt, players)
+    _, inv, origin, rb, lb = shade.light_geometry(gbuf, lights, cfg)
+    sargs = (ds.pos, ds.ext, be, cnt, rb, lb, gbuf.entity_index, origin,
+             inv, players, cfg)
+    lit = shadow_cuda.trace_light(*sargs)
+    assert bool(lit.any()) and bool((~lit).any())
+    assert torch.equal(lit, shadow.trace_light_dynamic(*sargs))
 
 
 # 10-pixel bins over a deep view: a bin column's pixels see surfaces in
@@ -366,8 +393,9 @@ def deep_scene(config=FINE, seed=3):
     return b.build()
 
 
-def start_bins_per_tile(args):
-    """The most distinct start bins of one bin-column tile, from the plain
+def start_bins_per_band(args):
+    """The most distinct start bins of one band of a bin-column tile (the
+    point march's block: ``trace_cuda.band_rows`` rows), from the plain
     version's surface points."""
     cfg = args[-1]
     bs = cfg.bin_size
@@ -378,13 +406,15 @@ def start_bins_per_tile(args):
     keys = torch.stack([torch.div(t, bs, rounding_mode="trunc")
                         for t in (i, cfg.view_height - y - z, z)], -1)
     tiles = keys.reshape(F, H // bs, bs, W // bs, bs, 3).permute(
-        0, 1, 3, 2, 4, 5).reshape(-1, bs * bs, 3)
-    return max(len(torch.unique(t, dim=0)) for t in tiles)
+        0, 1, 3, 2, 4, 5)
+    return max(len(torch.unique(b.reshape(-1, 3), dim=0))
+               for band in tiles.split(trace_cuda.band_rows(cfg), dim=3)
+               for b in band.reshape(-1, band.shape[3] * bs, 3))
 
 
 def test_deep_scene_tiles_overflow_the_start_table():
     args = port_kernel_inputs(deep_scene(), FINE, "cpu", LIGHTS["near"])
-    assert start_bins_per_tile(args) > shadow_cuda.STARTS
+    assert start_bins_per_band(args) > shadow_cuda.STARTS
 
 
 @pytest.mark.cuda
@@ -441,12 +471,13 @@ def test_cuda_kernel_matches_plain_on_walk_scenes(cuda, case):
 
 @pytest.mark.cuda
 def test_cuda_graybox_block_keeps_four_blocks_per_sm(cuda):
-    """The walk's state and draw list reuse the march's shared memory, so
-    the graybox block stays at 54,544 B and 4 blocks per SM."""
+    """The walk's state and draw list reuse the march's shared memory, and
+    the staged chunk is the most that leaves room for the column, so the
+    graybox block takes 57,336 B at 4 blocks per SM."""
     smem, blocks, _, _ = fused_cuda.occupancy(DEFAULT)
-    assert smem <= 54544
+    assert smem == 57336
     assert blocks >= 4
-    # Config 5 at s = 4: one band of 1,600 pixels a block.
+    # Config 5 at s = 4: one band of 1,600 pixels a block, 4 blocks per SM.
     smem, blocks, _, _ = fused_cuda.occupancy(
         scaled_config(config.RenderConfig(1024, 1024, 320), 4))
-    assert smem == 131104 and blocks >= 1
+    assert smem == 57280 and blocks >= 4

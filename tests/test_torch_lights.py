@@ -511,11 +511,11 @@ def test_cuda_modes_match_cpu(cuda, mode):
 
 @pytest.mark.cuda
 def test_cuda_march_occupancy(cuda):
-    """The point mode keeps its layout (33,264 B, 4 blocks per SM on
-    graybox); the directional mode's key masks and union list take a word
-    per grid bin each, whatever the step cap."""
+    """The G-buffer point mode takes the point march's block (56,048 B,
+    4 blocks per SM on graybox); the directional mode's key masks and
+    union list take a word per grid bin each, whatever the step cap."""
     graybox = RenderConfig()
-    assert shadow_cuda.occupancy(graybox)[:2] == (33264, 4)
+    assert shadow_cuda.occupancy(graybox)[:2] == (56048, 4)
     for cfg in (SMALL, FINE, CAP, graybox):
         smem, blocks, regs, _ = shadow_cuda.directional_occupancy(cfg)
         assert smem <= shadow_cuda.MAX_SMEM

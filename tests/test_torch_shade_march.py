@@ -1,7 +1,8 @@
-"""The march of ``csrc/shadow.cu``'s winner-input point mode: one block
-per (frame, bin-column tile, band of rows), each pixel decoded once into
-the band's shared memory, visit lists streamed a chunk at a time with a
-V-bit mask per key instead of a list of V entries.
+"""The point march (``csrc/common.cuh`` march_band) as ``csrc/shadow.cu``'s
+winner-input point mode runs it: one block per (frame, bin-column tile,
+band of rows), each pixel decoded once into the band's shared memory,
+visit lists streamed a chunk at a time with a V-bit mask per key instead
+of a list of V entries.
 
 On the CPU: the Python mirror of the kernel's shared memory
 (``shadow_cuda.shade_smem_bytes``) fits a block on graybox, on config 5 at
@@ -33,7 +34,7 @@ from pixel_art_raytracer_tpu_torch.runtime import native
 
 # The configurations the kernel runs: graybox, config 5 at s = 2 and 4
 # (26 x 26 x 8 bins of 80 and 160 pixels), and a 2048**2 view at bin 40
-# (52 x 52 x 8 = 21,632 bins; march_tile's lists needed 377,520 B there).
+# (52 x 52 x 8 = 21,632 bins).
 GRIDS = {
     "graybox": DEFAULT_CONFIG,
     "config5_s2": scaled_config(bench_scale.CONFIG, 2),
@@ -95,11 +96,6 @@ def test_shade_smem_fits_and_grows_with_the_masks_alone(name):
     # A staged entry takes cap boxes of 32 B, its live count and its bin.
     assert smem == fixed + mask_bytes(cfg) - (chunk - shadow_cuda.shade_chunk(
         cfg)) * (32 * cfg.bin_capacity + 8)
-    # march_tile's layout grew with the tile and the grid (the G-buffer
-    # mode still uses it): 119,424 B at s = 2, 157,824 at s = 4, 377,520
-    # on the 52 x 52 x 8 grid.
-    if name != "graybox":
-        assert smem < shadow_cuda.march_smem_bytes(cfg)
 
 
 @pytest.mark.parametrize("name,chunk,blocks", [
@@ -268,14 +264,14 @@ def test_cuda_shade_march_occupancy(cuda):
 
 
 def test_shade_phase_marks_match_the_phases():
-    """``shade_phases`` names each of the winner-input kernel's phase
-    marks: the kernel marks phases 0 .. 5 in order and ends the last, and
+    """``shade_phases`` names each of the point march's phase marks: the
+    march marks phases 0 .. 5 in order and ends the last, and
     ``kShadePhases`` is the count of names."""
     import re
     from pixel_art_raytracer_tpu_torch import shade_phases
     from pixel_art_raytracer_tpu_torch.runtime import kernels
-    source = (kernels.CSRC / "shadow.cu").read_text()
-    body = source[source.index("\nshadow_shade_kernel("):]
+    source = (kernels.CSRC / "common.cuh").read_text()
+    body = source[source.index(" march_band(\n"):]
     body = body[:body.index("\n}\n")]
     n = len(shade_phases.PHASES)
     assert [int(a) for a in re.findall(r"phases\.mark\((\d+)\)", body)] \

@@ -389,14 +389,14 @@ def test_cuda_kernel_matches_plain_on_random_rays(cuda, case):
         assert stats["max_starts"] == shadow_cuda.STARTS + 1
     if case == "few":
         # A list longer than one staged chunk: the chunk loop runs.
-        assert stats["max_list"] > shadow_cuda.CHUNK_BINS
+        assert stats["max_list"] > shadow_cuda.shade_chunk(FINE)
 
 
 @pytest.mark.cuda
 def test_cuda_shared_memory_matches_layout(cuda):
     for cfg in (SMALL, FINE, RenderConfig()):
         smem, blocks, regs, _ = shadow_cuda.occupancy(cfg)
-        assert smem == shadow_cuda.march_smem_bytes(cfg)
+        assert smem == shadow_cuda.shade_smem_bytes(cfg)
         assert blocks >= 1 and 0 < regs <= 255
 
 
