@@ -18,8 +18,9 @@ unless:
     card, on all 64 frames of every orbit (the main paths' shapes): the
     winner-input mode's frames equal ``shade.point_frames`` (and the
     G-buffer chain's frames), its lit mask the march's;
-  * the two-kernel run launched exactly trace 1 + the winner-input mode 1
-    a batch and called none of the G-buffer chain's functions
+  * the two-kernel run launched exactly the merge kernel 1, trace 1 + the
+    winner-input mode 1 a batch and called none of the G-buffer chain's
+    functions
     (``materialize_gbuffer``, ``light_geometry``, ``lambert_dot``,
     ``factor_from_dot``, ``shade_u8``), and the fused counter rose during
     the fused run;
@@ -45,7 +46,8 @@ unless:
     of its (start bin, light bin) keys' visit lists under the cap) equal
     the CPU's count (``ops/shadow_dir.tile_unions``), which is below the
     per-key lists' entries;
-  * each batch launches exactly: multi-light trace 1, shadow 3, fused 0 on
+  * each batch launches exactly the merge kernel once and: multi-light
+    trace 1, shadow 3, fused 0 on
     both settings of ``fuse_trace_shadow``; directional trace 1 and the
     directional mode 1, fused 0, on both; dithered with a point light the
     fused kernel once with ``fuse_trace_shadow`` and trace 1 + shadow 1
@@ -85,25 +87,31 @@ Then the binning kernel (``csrc/binning.cu``, the full rebin) on graybox
 (``binning.plain_tables`` on the card) and ``cpp_build_bins``', its
 static-cache layout the plain version's, and on graybox with ``players``
 as the live frame passes them (F = 1, and F = 4 distinct), with its time,
-the plain version's and its bound.
+the plain version's and its bound.  Then the merge kernel (the static
+cache's ``StaticBins.merge`` on the card) at F = 64 on graybox, config 4
+and config 5 at s = 2 (``merge_phase``): one launch a call, no host wait,
+its tables equal to ``StaticBins.plain_merge`` on the card and to the full
+rebin, with its time, a call's, the plain chain's and its bound.
 
 Then the port's run entry points, each driven with the launch counts set
 to 0 just before it and read just after (every ``StaticBins`` cache built
-there and every full rebin is the binning kernel's 2 launches):
+there and every full rebin is the binning kernel's 2 launches, every
+batch on a cache the merge kernel's 1):
 
   * ``bench.run`` (``python -m pixel_art_raytracer_tpu_torch.bench``) on
     graybox at F = 64, 3 repeats, no settle-wait: center frame 0 of both
     paths' timed output equal to ``cpp_render_frame``, and exactly trace 1
     + the winner-input mode 1 a batch on the two-kernel path and fused 1 on
-    the fused path, binning 2 for the cache; its JSON line printed;
+    the fused path, merge 1 a batch, binning 2 for the cache; its JSON
+    line printed;
   * ``bench_scale.run`` on config 5 with ``--nonramp``'s atlas (half the
     boxes with a depth map that varies along a row) at s = 2 and 4: frame 0
     of both paths equal to ``cpp_render_frame``, ``render`` to its box
     filter, exact launches (binning 2 for the cache and each single
-    frame), and the three kernels equal to their plain
+    frame, merge 1 a batch), and the three kernels equal to their plain
     versions on frame 0; its JSON lines printed;
-  * ``make_demo``'s 32-frame sweep (trace 1 + the winner-input mode 1,
-    binning 2 for its cache):
+  * ``make_demo``'s 32-frame sweep (merge 1, trace 1 + the winner-input
+    mode 1, binning 2 for its cache):
     the GIF and the PNG byte-equal to ``docs/graybox_sweep.gif`` and
     ``docs/graybox_frame.png``.
 
@@ -595,7 +603,8 @@ def shade_grid(tag: str, cfg, frames: int, card: str) -> None:
 def wide_grid_phase(card: str) -> list[dict]:
     """One frame of config 5's scene generator on WIDE_GRID through
     ``AnimationRenderer.render_states``, the launch counts set to 0 just
-    before and read just after (trace 1, winner-input mode 1): raises
+    before and read just after (merge 1, trace 1, winner-input mode 1):
+    raises
     unless the kernels equal their plain versions on it, frame 0 equals
     ``cpp_render_frame`` and the winner-input kernel's counters show its
     list path.  Returns the kernels' JSON rows."""
@@ -618,7 +627,8 @@ def wide_grid_phase(card: str) -> list[dict]:
     shade_grid(tag, cfg, 1, card)
     shadow_cuda.counters.reset()
     frames, launches = drive(f"{tag} two-kernel path", anim, ds, players,
-                             lights, {"trace": 1, "shadow_shade": 1})
+                             lights, {"trace": 1, "shadow_shade": 1,
+                                      "merge": 1})
     list_path(f"{tag} two-kernel path", "shadow kernel (winner inputs)",
               shadow_cuda.counters.read(), cfg.view_width * cfg.view_height)
     t0 = time.perf_counter()
@@ -757,10 +767,108 @@ def binning_phase(card: str) -> list[dict]:
     return rows
 
 
+MERGE_SOURCE = ("pixel_art_raytracer_tpu_torch/csrc/binning.cu "
+                "(bin_merge_kernel)",
+                "none: StaticBins.merge, XLA select chains in "
+                "pixel_art_raytracer_tpu/ops/static_bins.py")
+MERGE_KERNELS = ("bin_merge_kernel",)
+
+
+def merge_walk(pos0, config, frames: int, device) -> torch.Tensor:
+    """(frames, 3) int32 players from ``pos0``: frame 0 past the left face
+    of the view and frame 1 past its far end (culled), the rest a walk of
+    5 pixels a frame across x with a seeded sway in y and z."""
+    rng = np.random.default_rng(frames)
+    f = np.arange(frames)
+    off = np.stack([5 * f - 160, rng.integers(-10, 11, frames),
+                    rng.integers(-30, 31, frames)], axis=1)
+    off[0] = (-int(pos0[0]) - 400, 0, 0)
+    off[1] = (0, 0, config.view_length + 2 * config.bin_size)
+    return torch.as_tensor(np.asarray(pos0, np.int32) + off,
+                           dtype=torch.int32, device=device)
+
+
+def merge_phase(card: str, scene=None) -> list[dict]:
+    """The merge kernel (``StaticBins.merge`` on the card) at F = 64 on
+    graybox (``scene``, built when None), BASELINE config 4 and config 5
+    at s = 2, as ``batched.bin_stage`` calls it (the player's extents an
+    expanded view): raises unless it equals ``StaticBins.plain_merge`` on
+    the card and the full rebin (``binning.bin_tables``, the binning
+    kernel), launches once, launches no binning kernel and never makes the
+    host wait.  Prints its device time (profiler), a call's time back to
+    back by CUDA events (the host pays its launch there), the plain chain's
+    and the bound (the tables written once, the static-only rows, the
+    covered bins' stored entries and the players read once); returns its
+    JSON rows."""
+    cases = {
+        "graybox": (scene if scene is not None
+                    else graybox_world(DEFAULT_CONFIG), DEFAULT_CONFIG),
+        "config 4": (overlap_scene(CONFIG4, CONFIG4_SIDE), CONFIG4),
+        "config 5, s = 2": (scale_scene(config5_scene(), 2),
+                            scaled_config(bench_scale.CONFIG, 2)),
+    }
+    rows = []
+    for tag, (sc, cfg) in cases.items():
+        spans = binning.entity_span_bound(sc.ext.max(axis=0), cfg)
+        ds = DeviceScene.from_scene(sc, cfg)
+        cache = StaticBins(sc.pos, sc.ext, 1, cfg, spans)
+        players = merge_walk(sc.pos[0], cfg, FRAMES, ds.pos.device)
+        dyn = (players[:, None, :], ds.ext[:1].expand(FRAMES, 1, 3))
+        torch.cuda.synchronize()
+        before = (binning_cuda.launches, binning_cuda.merge_launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = cache.merge(*dyn)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = (binning_cuda.launches - before[0],
+                    binning_cuda.merge_launches - before[1])
+        if launched != (0, 1):
+            raise RuntimeError(f"{tag}: a merge launched binning "
+                               f"{launched[0]}, merge {launched[1]} times, "
+                               f"not 0 and 1")
+        for what, g, w in zip(("bins", "counts"), got,
+                              cache.plain_merge(*dyn)):
+            require_equal(tag, f"merge kernel {what} vs plain_merge", g, w)
+        for what, g, w in zip(("bins", "counts"), got, binning.bin_tables(
+                ds.pos, ds.ext, players, cfg, spans, cfg.bin_capacity,
+                ring=True)):
+            require_equal(tag, f"merge kernel {what} vs the full rebin", g,
+                          w)
+        _, valid = binning.covered_bins(*(t.cpu() for t in dyn), cfg,
+                                        spans)
+        covered = int(valid.sum())
+        culled = int((~valid.any(-1)).sum())
+        ms = kernel_device_ms(lambda: cache.merge(*dyn), BINNING_REPS,
+                              MERGE_KERNELS)
+        call_ms = cuda_ms(lambda: cache.merge(*dyn), BINNING_REPS)
+        plain_ms = cuda_ms(lambda: cache.plain_merge(*dyn), TIMED_REPS)
+        n_bytes = (nbytes(*got, cache.bins_static, cache.counts_static,
+                          players, ds.ext[:1])
+                   + covered * 4 * (cache.window + 1))
+        bound_ms, bound_by = bound(n_bytes, 0)
+        print(f"{tag} merge kernel: == plain_merge and the full rebin, no "
+              f"host wait; F={FRAMES}, {cfg.hash_volume} bins, {covered} "
+              f"(frame, bin) pairs covered, {culled} frames culled; "
+              f"{ms:.4f} ms on the card (a call back to back {call_ms:.4f} "
+              f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}: {n_bytes} B, {ms / bound_ms:.1f}x) per call, "
+              f"1 launch  [{card}]")
+        rows.append({"name": f"merge {tag}", "route": "cuda",
+                     "source": MERGE_SOURCE[0], "replaces": MERGE_SOURCE[1],
+                     "launches": 1, "max_abs_err": 0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+        del ds, cache, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def reset_launches() -> None:
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
     shadow_cuda.directional_launches = shadow_cuda.shade_launches = 0
     shadow_cuda.dir_shade_launches = binning_cuda.launches = 0
+    binning_cuda.merge_launches = 0
 
 
 read_launches = bench.launch_counts
@@ -841,8 +949,9 @@ def config4_phase(card: str) -> list[dict]:
     directly, its union entries those ``shadow_dir.tile_unions`` counts
     (no more, where a tile holds more keys than the table) and its
     ``dir_pixels`` its F * H * W; the dithered directional batch
-    through ``render_states`` launches trace 1 + the winner-input
-    directional mode 1 (binning, fused and the lit-mask mode 0), adds its
+    through ``render_states`` launches the merge 1, trace 1 + the
+    winner-input directional mode 1 (binning, fused and the lit-mask mode
+    0), adds its
     F * H * W to ``dir_shade_pixels``, holds palette colours only, equals
     the G-buffer route (``gbuffer_and_frames``) on all 64 frames, and its
     frames 0 and 32 equal the CPU's plain versions.  Prints the
@@ -920,7 +1029,8 @@ def config4_phase(card: str) -> list[dict]:
     shadow_cuda.counters.reset()
     frames, launches = drive(f"{label}, dithered directional", anim, ds,
                              home, dirs,
-                             {**none, "trace": 1, "shadow_dir_shade": 1},
+                             {**none, "merge": 1, "trace": 1,
+                              "shadow_dir_shade": 1},
                              directional=True)
     shaded = shadow_cuda.counters.read()["dir_shade_pixels"]
     if shaded != n_pix:
@@ -1059,9 +1169,9 @@ def config5_phase(card: str) -> list[dict]:
         # The main path, both settings of fuse_trace_shadow.
         none = dict.fromkeys(read_launches(), 0)
         frames, launches = {}, {}
-        for fuse, want in ((False,
-                            {**none, "trace": 1, "shadow_shade": 1}),
-                           (True, {**none, "fused": 1})):
+        for fuse, want in ((False, {**none, "merge": 1, "trace": 1,
+                                    "shadow_shade": 1}),
+                           (True, {**none, "merge": 1, "fused": 1})):
             r.fuse_trace_shadow = fuse
             label = "fused" if fuse else "two-kernel"
             counters = fused_cuda.counters if fuse else shadow_cuda.counters
@@ -1146,17 +1256,20 @@ def path_launches_are(tag: str, tally: dict, got: dict[str, int],
                       rebins: int = 0) -> None:
     """Raise unless each path of a bench's launch ``tally`` (path ->
     batches and launches, ``bench.on_path``) launched exactly trace 1 +
-    shadow 1 (two-kernel) or fused 1 (fused) a batch, the two-kernel path
-    the binning kernel's 2 for each of its ``rebins`` full rebins (single
-    frames), and the launch counts ``got`` of the whole run are the paths'
+    shadow 1 (two-kernel) or fused 1 (fused) a batch, the merge kernel 1
+    for each batch on the cache, the two-kernel path the binning kernel's
+    2 for each of its ``rebins`` full rebins (single frames, which do not
+    merge), and the launch counts ``got`` of the whole run are the paths'
     sum and the 2 binning launches of the run's ``StaticBins`` cache."""
     for path, kinds in (("two_kernel", ("trace", "shadow_shade")),
                         ("fused", ("fused",))):
         counts = {k: n for k, n in tally[path].items() if k != "batches"}
         want = {k: tally[path]["batches"] if k in kinds else 0
                 for k in counts}
+        want["merge"] = tally[path]["batches"]
         if path == "two_kernel":
             want["binning"] = 2 * rebins
+            want["merge"] -= rebins
         print(f"{tag}, {path} path: {tally[path]['batches']} batches, "
               f"launches {counts}")
         if counts != want:
@@ -1234,15 +1347,16 @@ def bench_scale_phase(card: str) -> list[dict]:
 
 
 def make_demo_phase(card: str, scene) -> None:
-    """``make_demo``'s 32-frame graybox sweep (one batch: trace 1 + the
-    winner-input mode of shadow.cu 1), written into a temporary directory;
+    """``make_demo``'s 32-frame graybox sweep (one batch: merge 1, trace 1 +
+    the winner-input mode of shadow.cu 1), written into a temporary
+    directory;
     raises unless the GIF and the PNG are ``docs/``'s byte for byte."""
     t0 = time.perf_counter()
     reset_launches()
     frames = make_demo.render_sweep(scene, DEFAULT_CONFIG, make_demo.FRAMES,
                                     "cuda")
     launches_are("make_demo", {"trace": 1, "shadow_shade": 1,
-                               "binning": 2})
+                               "binning": 2, "merge": 1})
     with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as tmp:
         encoder = make_demo.write_demo(tmp, frames)
         for name in ("graybox_sweep.gif", "graybox_frame.png"):
@@ -2114,10 +2228,11 @@ def parallel_phase(card: str, scene, ds, renderer, anim,
     launched = {}
     for path in results[0]:
         note = ""
-        # The frame x row render bins on the StaticBins cache; the train
+        # The frame x row render merges on the StaticBins cache; the train
         # step and the entity-sharded render rebin on the binning kernel.
         want = {"trace": 1, "shadow": 1,
-                **({} if path.startswith("render") else {"binning": 2})}
+                **({"merge": 1} if path.startswith("render")
+                   else {"binning": 2})}
         for rank, res in enumerate(results):
             got, launches, _ = res[path]
             launches = {k: v for k, v in launches.items() if v}
@@ -2428,7 +2543,7 @@ def main() -> int:
         frames = {name: anim.render_states(ds, players, lights)
                   for name, (players, lights) in sweeps.items()}
     launches = launches_are("two-kernel path, 3 batches",
-                            {"trace": len(sweeps),
+                            {"merge": len(sweeps), "trace": len(sweeps),
                              "shadow_shade": len(sweeps)})
     print(f"two-kernel path: G-buffer and light-geometry calls {glue}")
     if any(glue.values()):
@@ -2575,7 +2690,8 @@ def main() -> int:
                                                  "edge_z")], dim=1)
     dithered = DeferredRenderer(cfg, style="dithered").configure_for(scene)
     anim_dithered = AnimationRenderer(dithered, cfg, static_bins=cache)
-    none = dict.fromkeys(read_launches(), 0)
+    # Every batch merges the player into the cache's tables once.
+    none = {**dict.fromkeys(read_launches(), 0), "merge": 1}
     two_kernel = {**none, "trace": 1, "shadow": 1}
     directional_only = {**none, "trace": 1, "shadow_dir_shade": 1}
     paths = {}  # label -> (anim, players, lights, directional, frames)
@@ -2751,6 +2867,7 @@ def main() -> int:
     rows += config5_phase(card)
     rows += wide_grid_phase(card)
     rows += binning_phase(card)
+    rows += merge_phase(card, scene)
 
     # -- 15. the run entry points: bench, bench_scale --nonramp, make_demo --
     renderer.fuse_trace_shadow = False

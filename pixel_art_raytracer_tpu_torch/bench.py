@@ -146,7 +146,8 @@ def launch_counts() -> dict[str, int]:
             "shadow_shade": shadow_cuda.shade_launches,
             "shadow_directional": shadow_cuda.directional_launches,
             "shadow_dir_shade": shadow_cuda.dir_shade_launches,
-            "fused": fused_cuda.launches, "binning": binning_cuda.launches}
+            "fused": fused_cuda.launches, "binning": binning_cuda.launches,
+            "merge": binning_cuda.merge_launches}
 
 
 def launch_tally() -> dict[str, dict[str, int]]:

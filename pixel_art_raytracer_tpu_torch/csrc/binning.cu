@@ -1,14 +1,16 @@
-// The full rebin of the spatial hash: every entity's covered bins, ranked
-// within each bin in insertion order, without a sort.
+// The spatial hash's tables on the card, with no sort and no host wait: the
+// full rebin of every entity, and the per-frame merge of the few dynamic
+// entities into the static cache.
 //
-// Replaces no TPU kernel: the JAX package bins with XLA's sort
-// (pixel_art_raytracer_tpu/ops/binning.py), and the port's plain version
-// (ops/binning.py `ranked_pairs`, `plain_tables`) enumerates (entity, bin)
-// pairs over a static offset grid, stable-sorts them, ranks them with a
-// scan and sizes the totals with `bincount`, which makes the host wait.
-// On the card that chain ran ~7.6 ms a frame on graybox (162,308 boxes,
-// 1.95 M pairs; the scan on one SM), while the work is bound by reading
-// each box once: 162,308 x 24 B = 3.9 MB, 1.2 us at 3.35 TB/s.
+// The full rebin replaces no TPU kernel: the JAX package bins with XLA's
+// sort (pixel_art_raytracer_tpu/ops/binning.py), and the port's plain
+// version (ops/binning.py `ranked_pairs`, `plain_tables`) enumerates
+// (entity, bin) pairs over a static offset grid, stable-sorts them, ranks
+// them with a scan and sizes the totals with `bincount`, which makes the
+// host wait.  On the card that chain ran ~7.6 ms a frame on graybox
+// (162,308 boxes, 1.95 M pairs; the scan on one SM), while the work is
+// bound by reading each box once: 162,308 x 24 B = 3.9 MB, 1.2 us at
+// 3.35 TB/s.
 //
 // Semantics, those of `covered_bins` + `ranked_pairs`: the cull
 // (alternative.cpp:212-219); each axis's covered range with C-truncating
@@ -38,6 +40,20 @@
 // total & (window - 1);
 // 0 is the static cache's: the kept ranks left-aligned, count the total.
 // Empty slots are -1 in both.
+//
+// The merge (`bin_merge_kernel`, ops/static_bins.py `StaticBins.merge`)
+// replaces no TPU kernel either: the JAX package merges with XLA select
+// chains, and the port's plain version is a chain of ~50 tensor ops (~115
+// launches a call on the card, and an upload of the offset grid that makes
+// the host wait for the stream).  Its work is its writes: each frame's
+// (V, cap) table and (V,) counts, F * V * (cap + 1) * 4 B (1.77 MB on
+// graybox at F = 64, 0.53 us at 3.35 TB/s).  One launch, one thread per
+// (frame, bin): the block's frame puts its dynamic entities' covered
+// ranges (`cover_box`, the count pass's) in shared memory; a bin no
+// dynamic entity covers copies the cache's static-only row in 16-byte
+// stores; a covered bin applies the rank arithmetic of the wrap to its
+// stored static entries (ranks shifted by the dynamic entries in front of
+// them) and then its dynamic entries (rank k for the k-th covering one).
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,6 +65,9 @@ constexpr int kChunk = 1024;
 constexpr int kTileBins = 8192;
 constexpr int kCountThreads = 256;
 constexpr int kPlaceWarps = 8;
+constexpr int kMergeThreads = 256;
+// Dynamic entities a merge takes: one bit each in a bin's mask word.
+constexpr int kMaxDynamic = 32;
 
 struct BinGrid {
   int view_w, view_h, view_l, bin_size;
@@ -66,18 +85,12 @@ struct Cover {
   }
 };
 
-// ops/binning.py covered_bins, for entity e of frame f: entity 0 takes
-// players[f] where players is given.
-__device__ Cover cover(const int* pos, const int* ext, const int* players,
-                       int f, int e, const BinGrid& g) {
-  const int* p = (e == 0 && players != nullptr)
-                     ? players + 3 * f
-                     : pos + 3 * static_cast<size_t>(e);
-  const int* x = ext + 3 * static_cast<size_t>(e);
+// ops/binning.py covered_bins of one box at (px, py, pz) with extents
+// (ex, ey, ez).
+__device__ Cover cover_box(int px, int py, int pz, int ex, int ey, int ez,
+                           const BinGrid& g) {
   const int bs = g.bin_size, vh = g.view_h;
-  const int px = p[0], py = p[1], pz = p[2];
-  const int ez = x[2];
-  const int qx = px + x[0], qy = py + x[1], qz = pz + ez;
+  const int qx = px + ex, qy = py + ey, qz = pz + ez;
   const bool culled = qx < 0 || px >= g.view_w || qy < -qz ||
                       py >= vh - pz + bs || qz < -ez - bs ||
                       pz > g.view_l + bs;
@@ -90,6 +103,16 @@ __device__ Cover cover(const int* pos, const int* ext, const int* players,
   c.z1 = min(min((qz + bs - 1) / bs, g.hash_l), c.z0 + g.span_z);
   if (culled) c.x1 = c.x0;
   return c;
+}
+
+// Entity e of frame f: entity 0 takes players[f] where players is given.
+__device__ Cover cover(const int* pos, const int* ext, const int* players,
+                       int f, int e, const BinGrid& g) {
+  const int* p = (e == 0 && players != nullptr)
+                     ? players + 3 * f
+                     : pos + 3 * static_cast<size_t>(e);
+  const int* x = ext + 3 * static_cast<size_t>(e);
+  return cover_box(p[0], p[1], p[2], x[0], x[1], x[2], g);
 }
 
 __global__ void __launch_bounds__(kCountThreads)
@@ -208,6 +231,97 @@ bin_place_kernel(const int* __restrict__ pos, const int* __restrict__ ext,
   }
 }
 
+// Element strides of a (frames, dynamic entities, 3) int32 view.
+struct Strides {
+  int frame, entity, axis;
+};
+
+// A row of n ints: 16-byte stores where n and both rows allow them.
+__device__ void copy_row(int* __restrict__ dst, const int* __restrict__ src,
+                         int n) {
+  if ((n & 3) == 0 &&
+      ((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
+       15) == 0) {
+    for (int i = 0; i < n; i += 4)
+      *reinterpret_cast<int4*>(dst + i) =
+          *reinterpret_cast<const int4*>(src + i);
+  } else {
+    for (int i = 0; i < n; ++i) dst[i] = src[i];
+  }
+}
+
+__device__ void fill_row(int* dst, int value, int n) {
+  if ((n & 3) == 0 && (reinterpret_cast<size_t>(dst) & 15) == 0) {
+    for (int i = 0; i < n; i += 4)
+      *reinterpret_cast<int4*>(dst + i) = make_int4(value, value, value,
+                                                    value);
+  } else {
+    for (int i = 0; i < n; ++i) dst[i] = value;
+  }
+}
+
+// ops/static_bins.py StaticBins.plain_merge: one thread per (frame, bin),
+// blocks of kMergeThreads bins of one frame (blockIdx.x = frame * tiles +
+// tile).  static_ids holds a bin's last cap + n_dynamic static entries
+// left-aligned (-1 past them), bins_static and counts_static the merge
+// where no dynamic entity covers the bin.
+__global__ void __launch_bounds__(kMergeThreads)
+bin_merge_kernel(const int* __restrict__ dyn_pos, Strides ps,
+                 const int* __restrict__ dyn_ext, Strides es, int n_dynamic,
+                 BinGrid g, int cap, const int* __restrict__ static_total,
+                 const int* __restrict__ static_ids,
+                 const int* __restrict__ bins_static,
+                 const int* __restrict__ counts_static,
+                 int* __restrict__ bins_ent, int* __restrict__ counts) {
+  __shared__ Cover covers[kMaxDynamic];
+  const int V = g.volume();
+  const int tiles = (V + kMergeThreads - 1) / kMergeThreads;
+  const int f = blockIdx.x / tiles;
+  const int v = (blockIdx.x % tiles) * kMergeThreads + threadIdx.x;
+  if (threadIdx.x < n_dynamic) {
+    const int d = threadIdx.x;
+    const int* p = dyn_pos + static_cast<size_t>(f) * ps.frame +
+                   static_cast<size_t>(d) * ps.entity;
+    const int* x = dyn_ext + static_cast<size_t>(f) * es.frame +
+                   static_cast<size_t>(d) * es.entity;
+    covers[d] = cover_box(p[0], p[ps.axis], p[2 * ps.axis], x[0],
+                          x[es.axis], x[2 * es.axis], g);
+  }
+  __syncthreads();
+  if (v >= V) return;
+  const int bx = v / (g.hash_h * g.hash_l);
+  const int by = (v / g.hash_l) % g.hash_h;
+  const int bz = v % g.hash_l;
+  unsigned mask = 0u;  // bit d: dynamic entity d covers this bin
+  for (int d = 0; d < n_dynamic; ++d)
+    if (covers[d].holds(bx, by, bz)) mask |= 1u << d;
+  const size_t row = static_cast<size_t>(f) * V + v;
+  int* out = bins_ent + row * cap;
+  if (mask == 0u) {
+    copy_row(out, bins_static + static_cast<size_t>(v) * cap, cap);
+    counts[row] = counts_static[v];
+    return;
+  }
+  // The dynamic entries come first in the bin's insertion order: a stored
+  // static entry's rank is its static rank plus the n_dyn in front of it.
+  const int n_dyn = __popc(mask);
+  const int window = cap + n_dynamic;
+  const int* stored = static_ids + static_cast<size_t>(v) * window;
+  int stored_len = 0;
+  for (int i = 0; i < window; ++i) stored_len += stored[i] >= 0;
+  const int total = static_total[v] + n_dyn;
+  const int first = total - cap;  // the lowest rank the wrap keeps
+  const int base = static_total[v] - stored_len + n_dyn;
+  fill_row(out, -1, cap);
+  for (int i = 0; i < window; ++i)
+    if (stored[i] >= 0 && base + i >= first)
+      out[(base + i) & (cap - 1)] = stored[i];
+  int rank = 0;
+  for (unsigned m = mask; m != 0u; m &= m - 1u, ++rank)
+    if (rank >= first) out[rank & (cap - 1)] = __ffs(m) - 1;
+  counts[row] = total & (cap - 1);
+}
+
 }  // namespace
 
 // Bin tables of n entities (pos, ext (n, 3) int32) in n_frames frames:
@@ -247,5 +361,40 @@ extern "C" int par_bin_tables(
                      kPlaceWarps * 32, 0, s>>>(
       p, x, pl, n, n_chunks, g, cc, cg, window, ring, id_offset,
       static_cast<int*>(ids), static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Each frame's tables of the static cache with its n_dynamic (1 to 32)
+// dynamic entities merged in: ops/static_bins.py StaticBins.plain_merge.
+// dyn_pos, dyn_ext are (n_frames, n_dynamic, 3) int32 at the given element
+// strides (an expanded view reads as it is); static_total (V,),
+// static_ids (V, cap + n_dynamic), bins_static (V, cap), counts_static
+// (V,) int32 the cache's.  bins_ent (F, V, cap) and counts (F, V) int32
+// are written whole.  One launch on `stream`; returns cudaGetLastError().
+extern "C" int par_bin_merge(
+    const void* dyn_pos, const void* dyn_ext, const void* static_total,
+    const void* static_ids, const void* bins_static,
+    const void* counts_static, void* bins_ent, void* counts, int n_frames,
+    int n_dynamic, int pos_frame, int pos_entity, int pos_axis,
+    int ext_frame, int ext_entity, int ext_axis, int view_w, int view_h,
+    int view_l, int bin_size, int hash_w, int hash_h, int hash_l,
+    int span_x, int span_y, int span_z, int cap, void* stream) {
+  if (n_dynamic < 1 || n_dynamic > kMaxDynamic)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BinGrid g{view_w, view_h, view_l, bin_size, hash_w, hash_h, hash_l,
+                  span_x, span_y, span_z};
+  const int V = hash_w * hash_h * hash_l;
+  const int tiles = (V + kMergeThreads - 1) / kMergeThreads;
+  bin_merge_kernel<<<n_frames * tiles, kMergeThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(dyn_pos),
+      Strides{pos_frame, pos_entity, pos_axis},
+      static_cast<const int*>(dyn_ext),
+      Strides{ext_frame, ext_entity, ext_axis}, n_dynamic, g, cap,
+      static_cast<const int*>(static_total),
+      static_cast<const int*>(static_ids),
+      static_cast<const int*>(bins_static),
+      static_cast<const int*>(counts_static), static_cast<int*>(bins_ent),
+      static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }

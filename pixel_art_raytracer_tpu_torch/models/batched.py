@@ -5,7 +5,8 @@ render_states_batched``.  A point light per frame in ``style="reference"``
 (the main path) runs
 
   1. bins     — ``StaticBins.merge`` of the player into every frame's
-                tables (or a full rebuild per frame without a cache),
+                tables (on the card one launch of the merge kernel), or
+                a full rebuild per frame without a cache,
   2. trace    — kernel 1 → per-pixel winners (F, H, W),
   3. shade    — kernel 2's winner-input point mode: each pixel's surface
                 point and shadow ray derived from its winner, the march,

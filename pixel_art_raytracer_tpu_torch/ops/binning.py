@@ -71,7 +71,9 @@ def covered_bins(pos: torch.Tensor, ext: torch.Tensor, config: RenderConfig,
     max_zi = c_div(z1 + bs - 1, bs).clamp(max=cfg.hash_length)
 
     oa, ob, oc = np.meshgrid(*(np.arange(s) for s in spans), indexing="ij")
-    # Copies from pageable memory: on the card each waits for the stream.
+    # Copies from pageable memory, each of which would wait for the stream
+    # on the card.  Only the plain versions come here, which CPU tensors
+    # run: the card merges and rebins in csrc/binning.cu.
     with tracing.span("sync.upload"):
         oa, ob, oc = (torch.as_tensor(o.reshape(-1), dtype=torch.int32,
                                       device=pos.device)

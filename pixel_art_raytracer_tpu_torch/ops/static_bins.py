@@ -17,7 +17,10 @@ slot ``rank & (capacity-1)`` with visible count ``total & (capacity-1)``
 ``capacity + n_dynamic`` static entries.
 
 The JAX package writes the merged rows with select chains because scatters
-are slow on the TPU; here they are plain scatters.
+are slow on the TPU; here the plain version (:meth:`StaticBins.plain_merge`,
+which CPU tensors run) is plain scatters, and on the card the merge is one
+launch of ``csrc/binning.cu``'s merge kernel (``binning_cuda.merge_tables``)
+with no host wait.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from ..config import RenderConfig
 from ..device import resolve
-from . import binning
+from . import binning, binning_cuda
 
 
 class StaticBins:
@@ -87,7 +90,7 @@ class StaticBins:
         # covers a bin.
         self.bins_static = _static_rows(static_ids, static_total,
                                         torch.zeros_like(static_total),
-                                        self.config.bin_capacity)
+                                        self.config.bin_capacity).contiguous()
         self.counts_static = static_total & (self.config.bin_capacity - 1)
 
     @property
@@ -99,8 +102,21 @@ class StaticBins:
 
         dyn_pos, dyn_ext: (F, n_dynamic, 3) int32.  Returns ``bins_ent``
         (F, V, capacity) and ``counts`` (F, V) int32, each frame
-        bit-identical to ``binning.build_bins`` on the full scene.
+        bit-identical to ``binning.build_bins`` on the full scene: on the
+        card by the merge kernel (one launch, no host wait; at most
+        ``binning_cuda.MAX_DYNAMIC`` dynamic entities), on the CPU by
+        :meth:`plain_merge`.
         """
+        if dyn_pos.device.type == "cuda":
+            return binning_cuda.merge_tables(
+                self.static_total, self.static_ids, self.bins_static,
+                self.counts_static, dyn_pos, dyn_ext, self.config,
+                self.spans)
+        return self.plain_merge(dyn_pos, dyn_ext)
+
+    def plain_merge(self, dyn_pos: torch.Tensor, dyn_ext: torch.Tensor):
+        """:meth:`merge`'s tables as a chain of tensor ops, on any device:
+        the plain version of the merge kernel."""
         cfg = self.config
         cap = cfg.bin_capacity
         V = cfg.hash_volume

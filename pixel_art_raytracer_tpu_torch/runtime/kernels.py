@@ -50,6 +50,7 @@ SIGNATURES = {
                             + [_P, _I, _P],
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 13 + [_P],
     "par_bin_tables": [_P] * 6 + [_I] * 15 + [_P],
+    "par_bin_merge": [_P] * 8 + [_I] * 19 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 9 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
@@ -235,9 +236,11 @@ class MarchCounters:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
-            shape: tuple, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
-    whose shape matches ``shape`` (``None`` matches any size)."""
+            shape: tuple, device: torch.device,
+            contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor on ``device`` whose shape
+    matches ``shape`` (``None`` matches any size), contiguous unless
+    ``contiguous`` is False (for a kernel that reads its strides)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -245,5 +248,5 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     if t.dim() != len(shape) or any(
             s is not None and s != n for s, n in zip(shape, t.shape)):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")

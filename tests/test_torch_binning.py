@@ -2,12 +2,16 @@
 package and the C++ oracle.  Tables must be bit-identical, including bins
 that overflow the capacity of 8 and wrap (quirk Q3).
 
-The binning kernel (``csrc/binning.cu``): on the CPU, its wrapper's sizing
-and refusals and the plain route of ``binning.bin_tables``; on the card
-(skipped without one), its tables against the plain version and the
-oracle on every scene below, the static cache built on the card, and a
-session frame that bins on the kernel alone.
+The binning kernels (``csrc/binning.cu``): on the CPU, the wrappers'
+sizing and refusals, the plain route of ``binning.bin_tables`` and the
+plain merge against the full rebin; on the card (skipped without one), the
+full rebin's tables against the plain version and the oracle on every
+scene below, the static cache built on the card, a session frame that bins
+on the kernel alone, and the merge kernel against the plain merge and the
+full rebin on the graybox, config 4 and config 5 grids.
 """
+
+import functools
 
 import types
 
@@ -25,6 +29,7 @@ from pixel_art_raytracer_tpu.scene import SceneBuilder, demo_world
 from pixel_art_raytracer_tpu_torch import config as pconfig
 from pixel_art_raytracer_tpu_torch import scene as pscene
 from pixel_art_raytracer_tpu_torch.bench_scale import config5_scene
+from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.supersample import (scale_scene,
                                                               scaled_config)
 from pixel_art_raytracer_tpu_torch.ops import binning, binning_cuda
@@ -484,3 +489,263 @@ def test_cuda_session_frame_bins_on_the_kernel_alone(cuda):
     np.testing.assert_array_equal(got.image, want.image)
     assert (got.mouse_pixel_y, got.mouse_pixel_z) == (
         want.mouse_pixel_y, want.mouse_pixel_z)
+
+
+# -- the merge kernel (csrc/binning.cu bin_merge_kernel) ---------------------
+
+# BASELINE config 4's grid: 13 x 13 x 8 bins, the edge tiles partial.
+CONFIG4 = pconfig.RenderConfig(view_width=512, view_height=512,
+                               view_length=320)
+
+
+def overlap_scene(config, n, seed=3):
+    """Config 3's overlap scene: the player and ``n`` seeded 20-cubes."""
+    rng = np.random.default_rng(seed)
+    b = pscene.SceneBuilder(config=config)
+    b.insert((config.view_width // 2, 36, config.view_length // 4),
+             (20, 20, 20))
+    for _ in range(n):
+        b.insert((int(rng.integers(0, config.view_width - 4)),
+                  int(rng.integers(0, 60)),
+                  int(rng.integers(0, config.view_length - 4))),
+                 (20, 20, 20))
+    return b.build()
+
+
+@functools.cache
+def merge_scene(name):
+    """``(scene, config)`` of a merge case's grid."""
+    if name == "graybox":
+        return pscene.graybox_world(), GRAYBOX
+    if name == "config4":
+        return overlap_scene(CONFIG4, 1024), CONFIG4
+    if name == "config5":
+        return scale_scene(config5_scene(), 2), CONFIG5_S2
+    return overflow_scene(), SMALL
+
+
+def culled_offsets(scene, config):
+    """One offset a face of the cull (alternative.cpp:212-219) that moves
+    the player past it."""
+    x, y, z = (int(v) for v in scene.pos[0])
+    ex, ey, ez = (int(v) for v in scene.ext[0])
+    bs, vh = config.bin_size, config.view_height
+    return [(-ex - 1 - x, 0, 0), (config.view_width - x, 0, 0),
+            (0, -(z + ez) - ey - 1 - y, 0), (0, vh - z + bs - y, 0),
+            (0, 0, -2 * ez - bs - 1 - z), (0, 0, config.view_length + bs + 1
+                                           - z)]
+
+
+def merge_walk(scene, config, frames, n_dynamic):
+    """(F, D, 3) int32 positions of entities [0, D), moved by one offset a
+    frame: past each face of the cull, onto the static entities of the
+    bins that hold ``capacity`` or more static entries (so the wrap drops
+    entries there), then seeded steps around the player's home."""
+    pos = torch.from_numpy(np.ascontiguousarray(scene.pos, np.int32))
+    ext = torch.from_numpy(np.ascontiguousarray(scene.ext, np.int32))
+    V, cap = config.hash_volume, config.bin_capacity
+    spans = spans_of(scene, config)
+
+    def full_bins(p, e):
+        """Per entity whether it covers a bin of ``capacity`` or more
+        static entries."""
+        flat, valid = binning.covered_bins(p, e, config, spans)
+        return (valid & (totals[flat.clamp(0, V - 1).long()] >= cap)).any(-1)
+
+    flat, valid = binning.covered_bins(pos[n_dynamic:], ext[n_dynamic:],
+                                       config, spans)
+    totals = torch.bincount(flat[valid].long(), minlength=V)
+    onto = pos[n_dynamic:][full_bins(pos[n_dynamic:], ext[n_dynamic:])]
+    onto = onto[full_bins(onto, ext[:1].expand_as(onto))][:8] - pos[0]
+    rng = np.random.default_rng(frames)
+    offsets = (culled_offsets(scene, config) + onto.tolist()
+               + rng.integers(-120, 121, (frames, 3)).tolist())[:frames]
+    if frames == 1:
+        offsets = onto[:1].tolist()
+    off = torch.tensor(offsets, dtype=torch.int32)
+    return pos[:n_dynamic][None] + off[:, None, :]
+
+
+def merge_inputs(name, frames, n_dynamic, layout, device):
+    """The cache, the walk, its extents as ``layout`` (``"expanded"``:
+    ``bin_stage``'s stride-0 view; ``"contiguous"``: a copy) and the full
+    scene's arrays, on ``device``."""
+    scene, cfg = merge_scene(name)
+    spans = spans_of(scene, cfg)
+    cache = StaticBins(scene.pos, scene.ext, n_dynamic, cfg, spans,
+                       device=device)
+    dyn_pos = merge_walk(scene, cfg, frames, n_dynamic).to(device)
+    ext = torch.from_numpy(np.ascontiguousarray(scene.ext, np.int32))
+    ext = ext.to(device)
+    dyn_ext = ext[:n_dynamic].expand(frames, n_dynamic, 3)
+    if layout == "contiguous":
+        dyn_ext = dyn_ext.contiguous()
+    pos = torch.from_numpy(np.ascontiguousarray(scene.pos, np.int32))
+    return cache, dyn_pos, dyn_ext, pos.to(device), ext
+
+
+def full_rebin(pos, ext, dyn_pos, config, spans):
+    """``binning.bin_tables(ring=True)`` of each frame's whole scene."""
+    tables = []
+    for f in range(dyn_pos.shape[0]):
+        p = pos.clone()
+        p[:dyn_pos.shape[1]] = dyn_pos[f]
+        tables.append(binning.bin_tables(p, ext, None, config, spans,
+                                         config.bin_capacity, ring=True))
+    return (torch.cat([be for be, _ in tables]),
+            torch.cat([cnt for _, cnt in tables]))
+
+
+def walk_reaches(cache, dyn_pos, dyn_ext):
+    """``(culled, wraps)``: per frame whether the player (entity 0)
+    covers no bin, and the (frame, bin) pairs a dynamic entity covers
+    whose static and dynamic entries pass the capacity."""
+    cfg = cache.config
+    flat, valid = binning.covered_bins(dyn_pos.cpu(), dyn_ext.cpu(), cfg,
+                                       cache.spans)
+    culled = ~valid[:, 0].any(-1)
+    st = cache.static_total.cpu()[flat.clamp(0, cfg.hash_volume - 1).long()]
+    wraps = int((valid & (st + 1 > cfg.bin_capacity)).sum())
+    return culled, wraps
+
+
+# name -> (grid, frames, dynamic entities, layout of the extents)
+MERGE_CASES = {
+    "graybox_f64": ("graybox", 64, 1, "expanded"),
+    "graybox_f64_d3": ("graybox", 64, 3, "expanded"),
+    "graybox_f1": ("graybox", 1, 1, "expanded"),
+    "config4_f64": ("config4", 64, 1, "expanded"),
+    "config4_f1_d3": ("config4", 1, 3, "contiguous"),
+    "config5_f64": ("config5", 64, 1, "expanded"),
+    "config5_f64_d3": ("config5", 64, 3, "contiguous"),
+    "overflow_f16_d3": ("overflow", 16, 3, "expanded"),
+}
+# Cases small enough for the plain merge and the plain full rebin on the
+# CPU.
+CPU_MERGE_CASES = {
+    "overflow_f16": ("overflow", 16, 1, "expanded"),
+    "overflow_f16_d3": ("overflow", 16, 3, "expanded"),
+    "overflow_f1_d3": ("overflow", 1, 3, "contiguous"),
+    "overflow_f8_contiguous": ("overflow", 8, 1, "contiguous"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CPU_MERGE_CASES))
+def test_cpu_merge_is_the_plain_chain_and_the_full_rebin(name,
+                                                         monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU route launched the merge's wrapper")
+
+    monkeypatch.setattr(binning_cuda, "merge_tables", refuse)
+    grid, frames, n_dynamic, layout = CPU_MERGE_CASES[name]
+    cache, dyn_pos, dyn_ext, pos, ext = merge_inputs(grid, frames,
+                                                     n_dynamic, layout,
+                                                     "cpu")
+    culled, wraps = walk_reaches(cache, dyn_pos, dyn_ext)
+    assert wraps > 0 and bool(culled[:6].all() if frames > 6 else True)
+    got = cache.merge(dyn_pos, dyn_ext)
+    for g, w in zip(got, cache.plain_merge(dyn_pos, dyn_ext)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, full_rebin(pos, ext, dyn_pos, cache.config,
+                                    cache.spans)):
+        assert torch.equal(g, w)
+
+
+def merge_args(n_dynamic=1, **change):
+    V, cap = SMALL.hash_volume, SMALL.bin_capacity
+    i32 = dict(dtype=torch.int32)
+    args = dict(static_total=torch.zeros(V, **i32),
+                static_ids=torch.full((V, cap + n_dynamic), -1, **i32),
+                bins_static=torch.full((V, cap), -1, **i32),
+                counts_static=torch.zeros(V, **i32),
+                dyn_pos=torch.zeros((2, n_dynamic, 3), **i32),
+                dyn_ext=torch.ones((1, n_dynamic, 3), **i32).expand(
+                    2, n_dynamic, 3),
+                config=SMALL, spans=(2, 3, 2))
+    args.update(change)
+    return args
+
+
+MERGE_REFUSED = {
+    "past the limit": (merge_args(33), "33 dynamic entities, the kernel "
+                                       "takes 1 to 32"),
+    "no dynamic": (merge_args(0), "0 dynamic entities"),
+    "static_ids window": (merge_args(static_ids=torch.zeros(
+        (SMALL.hash_volume, 8), dtype=torch.int32)),
+        r"static_ids: shape \(8, 8\)"),
+    "bins_static strides": (merge_args(bins_static=torch.zeros(
+        (8, SMALL.hash_volume), dtype=torch.int32).t()),
+        "bins_static: not contiguous"),
+    "dyn_pos dtype": (merge_args(dyn_pos=torch.zeros((2, 1, 3))),
+                      "dyn_pos: dtype torch.float32"),
+    "dyn_ext frames": (merge_args(dyn_ext=torch.ones((3, 1, 3),
+                                                     dtype=torch.int32)),
+                       r"dyn_ext: shape \(3, 1, 3\)"),
+    "dyn_pos device": (merge_args(dyn_pos=torch.zeros(
+        (2, 1, 3), dtype=torch.int32, device="meta")), "dyn_pos: on meta"),
+    "cpu": (merge_args(), "no kernel for device cpu"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_REFUSED))
+def test_merge_wrapper_refuses_what_it_does_not_take(case, monkeypatch):
+    """CPU tensors: each refusal comes before the device's, so no case
+    reaches the kernel library."""
+    def no_library():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(binning_cuda.kernels, "library", no_library)
+    args, message = MERGE_REFUSED[case]
+    before = binning_cuda.merge_launches
+    with pytest.raises(ValueError, match=message):
+        binning_cuda.merge_tables(**args)
+    assert binning_cuda.merge_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MERGE_CASES))
+def test_cuda_merge_kernel_matches_plain_and_full_rebin(cuda, name):
+    grid, frames, n_dynamic, layout = MERGE_CASES[name]
+    cache, dyn_pos, dyn_ext, pos, ext = merge_inputs(grid, frames,
+                                                     n_dynamic, layout, cuda)
+    culled, wraps = walk_reaches(cache, dyn_pos, dyn_ext)
+    assert wraps > 0 and bool(culled[:6].all() if frames > 6 else True)
+    if layout == "expanded" and frames > 1:
+        assert dyn_ext.stride(0) == 0
+    before = (binning_cuda.launches, binning_cuda.merge_launches)
+    got = cache.merge(dyn_pos, dyn_ext)
+    assert (binning_cuda.launches, binning_cuda.merge_launches) == (
+        before[0], before[1] + 1)
+    for g, w in zip(got, cache.plain_merge(dyn_pos, dyn_ext)):
+        assert torch.equal(g, w), name
+    for g, w in zip(got, full_rebin(pos, ext, dyn_pos, cache.config,
+                                    cache.spans)):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_cuda_bin_stage_merges_in_one_launch_with_no_host_wait(cuda):
+    """``bin_stage`` as the batch cells call it: the expanded extents, one
+    kernel launch (no ATen kernel, no copy) and no synchronisation."""
+    scene, cfg = merge_scene("graybox")
+    r = types.SimpleNamespace(config=cfg, spans=spans_of(scene, cfg))
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, r.spans, device=cuda)
+    ds = types.SimpleNamespace(
+        pos=torch.from_numpy(scene.pos).to(cuda),
+        ext=torch.from_numpy(scene.ext).to(cuda))
+    players = merge_walk(scene, cfg, 64, 1)[:, 0].contiguous().to(cuda)
+    want = batched.bin_stage(r, cache, ds, players)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = batched.bin_stage(r, cache, ds, players)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    kernels_run = [ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels_run == [n for n in kernels_run if "bin_merge_kernel" in n]
+    assert len(kernels_run) == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

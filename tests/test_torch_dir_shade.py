@@ -29,8 +29,9 @@ from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
-from pixel_art_raytracer_tpu_torch.ops import (dither, shade, shadow_cuda,
-                                               shadow_dir, trace, trace_cuda)
+from pixel_art_raytracer_tpu_torch.ops import (binning_cuda, dither, shade,
+                                               shadow_cuda, shadow_dir, trace,
+                                               trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from port_bench import program, spec
 from test_torch_tracing import SMALL, small_scene, span_tree
@@ -253,7 +254,7 @@ def test_cuda_batch_launches_trace_and_the_mode_once(cuda):
     anim.render_states(ds, players, directions, directional=True)
     counts = (trace_cuda.launches, shadow_cuda.directional_launches,
               shadow_cuda.dir_shade_launches, shadow_cuda.shade_launches,
-              shadow_cuda.launches)
+              shadow_cuda.launches, binning_cuda.merge_launches)
     shadow_cuda.counters.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = anim.render_states(ds, players, directions, directional=True)
@@ -262,13 +263,15 @@ def test_cuda_batch_launches_trace_and_the_mode_once(cuda):
             shadow_cuda.directional_launches - counts[1],
             shadow_cuda.dir_shade_launches - counts[2],
             shadow_cuda.shade_launches - counts[3],
-            shadow_cuda.launches - counts[4]) == (1, 0, 1, 0, 0)
+            shadow_cuda.launches - counts[4],
+            binning_cuda.merge_launches - counts[5]) == (1, 0, 1, 0, 0, 1)
     assert shadow_cuda.counters.read()["dir_shade_pixels"] == got.shape[0] \
         * SMALL.view_height * SMALL.view_width
-    # No G-buffer, dither or upload of the background colour.
+    # No G-buffer, dither, upload of the background colour, or upload of
+    # the merge's offsets (the merge kernel has none).
     assert span_tree(prof) == [
-        ("batch", [("batch.bins", [("sync.upload", [])]),
-                   ("batch.trace", []), ("batch.shade", [])])]
+        ("batch", [("batch.bins", []), ("batch.trace", []),
+                   ("batch.shade", [])])]
     assert torch.equal(got, want)
 
 

@@ -3,7 +3,9 @@ import, the kernel build flags, entry points that default to the card, the
 lighting modes rendering on both paths, and the requests the port refuses
 instead of rendering another path."""
 
+import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 import textwrap
@@ -161,6 +163,30 @@ def test_nvcc_command_targets_hopper_with_ieee_math():
     assert link[link.index("-o") + 1] == str(lib)
     assert sum(a.endswith(".o") for a in link) == len(units)
     assert kernels.build_dir().parent == REPO / "build"
+
+
+def c_entries() -> dict[str, list[str]]:
+    """Each ``extern "C"`` entry point of ``csrc/*.cu``: name -> its
+    parameters' declarations."""
+    entries = {}
+    for src in sorted((PACKAGE / "csrc").glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" (?:const )?\w+\*? (\w+)\(([^)]*)\)',
+                src.read_text()):
+            entries[name] = [p.strip() for p in params.split(",")]
+    return entries
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SIGNATURES))
+def test_signatures_match_the_c_entry_points(name):
+    """ctypes passes each argument as its entry in SIGNATURES declares it:
+    a pointer as void* (a plain int would be cut to 32 bits), an int as
+    int, a float as float."""
+    kind = {ctypes.c_void_p: "*", ctypes.c_int: "int", ctypes.c_float:
+            "float"}
+    params = c_entries()[name]
+    got = ["*" if "*" in p else p.split()[0] for p in params]
+    assert got == [kind[t] for t in kernels.SIGNATURES[name]]
 
 
 def test_build_dir_hash_follows_sources(tmp_path, monkeypatch):

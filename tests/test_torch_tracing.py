@@ -8,9 +8,9 @@ counter read their numbers from hand-made records, and nothing from a
 record without them; the viewer's ``--profile`` writes them into a Chrome
 trace.  The CUDA cases (skipped without a card) hold the
 counting kernel's slab tests to the plain march's count, check that an
-untraced launch passes no counter, and run the batch path and the
-session's request with every synchronisation outside a ``sync.*`` span
-turned into an error.
+untraced launch passes no counter, run the batch path and the session's
+request with every synchronisation outside a ``sync.*`` span turned into
+an error, and the batch path on a bin cache with every one an error.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from pixel_art_raytracer_tpu_torch.models import batched
 from pixel_art_raytracer_tpu_torch.models.animation import AnimationRenderer
 from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
-from pixel_art_raytracer_tpu_torch.ops import shade, shadow_cuda, trace_cuda
+from pixel_art_raytracer_tpu_torch.ops import (binning_cuda, shade,
+                                               shadow_cuda, trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
 from pixel_art_raytracer_tpu_torch.runtime import kernels, tracing
 from pixel_art_raytracer_tpu_torch.runtime.session import Session
@@ -329,8 +330,16 @@ def test_cuda_untraced_launch_passes_no_counter(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["render_states_batched", "session_feed"])
-def test_cuda_paths_sync_only_inside_sync_spans(cuda, path, monkeypatch):
+@pytest.mark.parametrize("path,exempt", [
+    ("render_states_batched", True), ("session_feed", True),
+    ("render_states_batched", False)],
+    ids=["render_states_batched", "session_feed",
+         "render_states_batched-no_sync_span"])
+def test_cuda_paths_sync_only_inside_sync_spans(cuda, path, exempt,
+                                                monkeypatch):
+    """Every synchronisation outside a ``sync.*`` span is an error; with
+    ``exempt`` False, inside one too: the batch path on a ``StaticBins``
+    cache merges in one launch of the merge kernel and never waits."""
     go = run_path(path, cuda)
     go()
     torch.cuda.synchronize()
@@ -347,13 +356,18 @@ def test_cuda_paths_sync_only_inside_sync_spans(cuda, path, monkeypatch):
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
-    monkeypatch.setattr(tracing, "span", allow_sync)
+    if exempt:
+        monkeypatch.setattr(tracing, "span", allow_sync)
+    before = (binning_cuda.launches, binning_cuda.merge_launches)
     torch.cuda.set_sync_debug_mode("error")
     try:
         go()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    if not exempt:
+        assert (binning_cuda.launches, binning_cuda.merge_launches) == (
+            before[0], before[1] + 1)
 
 
 def test_viewer_profile_flag_writes_the_spans_into_a_chrome_trace(
