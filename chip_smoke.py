@@ -92,6 +92,12 @@ cache's ``StaticBins.merge`` on the card) at F = 64 on graybox, config 4
 and config 5 at s = 2 (``merge_phase``): one launch a call, no host wait,
 its tables equal to ``StaticBins.plain_merge`` on the card and to the full
 rebin, with its time, a call's, the plain chain's and its bound.
+Then the box filter kernel (``supersample.box_filter`` on the card) at
+the main path's shape, BASELINE config 5 as published (``filter_phase``):
+the F = 64 batch traced at 2048**2 on a cache, and its frame 0, each equal
+to ``plain_box_filter`` of the same tensor in one launch with no host
+wait; ``SupersampledRenderer.render_states`` of the batch launches it
+exactly once, a still once; its time, the plain chain's and its bound.
 
 Then the port's run entry points, each driven with the launch counts set
 to 0 just before it and read just after (every ``StaticBins`` cache built
@@ -241,11 +247,12 @@ from pixel_art_raytracer_tpu_torch.models.deferred import (DeferredRenderer,
                                                            DeviceScene)
 from pixel_art_raytracer_tpu_torch.models.inverse import InverseLightFitter
 from pixel_art_raytracer_tpu_torch.models.supersample import (
-    SupersampledRenderer, box_filter, scale_scene, scaled_config)
-from pixel_art_raytracer_tpu_torch.ops import (binning, binning_cuda, fused,
-                                               fused_cuda, shade, shadow,
-                                               shadow_cuda, shadow_dir, trace,
-                                               trace_cuda)
+    SupersampledRenderer, box_filter, plain_box_filter, scale_scene,
+    scaled_config)
+from pixel_art_raytracer_tpu_torch.ops import (binning, binning_cuda,
+                                               filter_cuda, fused, fused_cuda,
+                                               shade, shadow, shadow_cuda,
+                                               shadow_dir, trace, trace_cuda)
 from pixel_art_raytracer_tpu_torch.ops.cstyle import normal_to_debug_color
 from pixel_art_raytracer_tpu_torch.ops.overlay import draw_line_host
 from pixel_art_raytracer_tpu_torch.ops.static_bins import StaticBins
@@ -860,6 +867,95 @@ def merge_phase(card: str, scene=None) -> list[dict]:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
         del ds, cache, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+# BASELINE config 5 as published (port_bench/configs/config5_1024.json):
+# F = 64 frames a batch traced at 2048**2 (s = 2) and box-filtered to the
+# 1024**2 base, the light on config5_1024.filtered64's orbit.
+FILTER_FACTOR = 2
+FILTER_FRAMES = 64
+FILTER_SOURCE = ("pixel_art_raytracer_tpu_torch/csrc/filter.cu "
+                 "(box_filter_kernel)",
+                 "none: supersample.plain_box_filter, XLA's reduce in "
+                 "pixel_art_raytracer_tpu/models/supersample.py")
+
+
+def filter_phase(card: str) -> list[dict]:
+    """The box filter kernel at the main path's shape: BASELINE config 5
+    as published, ``render_states_batched``'s F = 64 batch at s = 2 on a
+    ``StaticBins`` cache, (64, 2048, 2048, 3) on the card, and its frame 0
+    (the still's shape).  Raises unless ``box_filter`` of each equals
+    ``plain_box_filter`` of the same card tensor in one launch with no
+    host wait, ``SupersampledRenderer.render_states`` of the batch
+    launches the filter exactly once and returns those frames, and a
+    still (``render``) launches it once.  Prints and returns its rows:
+    CUDA-event ms a call back to back, the plain chain's, and the bound
+    (each traced byte read once, each filtered byte written once)."""
+    s, F = FILTER_FACTOR, FILTER_FRAMES
+    ss = SupersampledRenderer(CONFIG5, s)
+    cfg, r = ss.config, ss.renderer
+    scene = config5_scene()
+    ds = ss.prepare(scene)
+    scaled = scale_scene(scene, s)
+    cache = StaticBins(scaled.pos, scaled.ext, 1, cfg, r.spans)
+    anim = AnimationRenderer(r, cfg, static_bins=cache)
+    players, lights = anim.light_sweep_states(
+        F, scaled.pos[0], center=tuple(c * s for c in CONFIG5_LIGHT),
+        radius=40 * s)
+    traced = batched.render_states_batched(r, cache, ds, players, lights)
+    tag = f"config 5 as published, s={s}"
+    rows = []
+    for n in (F, 1):
+        frames = traced[:n]
+        torch.cuda.synchronize()
+        before = filter_cuda.filter_launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = box_filter(frames, s)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if filter_cuda.filter_launches - before != 1:
+            raise RuntimeError(f"{tag}: the filter of F={n} launched "
+                               f"{filter_cuda.filter_launches - before} "
+                               f"times, not 1")
+        require_equal(tag, f"filter kernel vs plain_box_filter, F={n}",
+                      got, plain_box_filter(frames, s))
+        ms = cuda_ms(lambda: box_filter(frames, s), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: plain_box_filter(frames, s), PLAIN_REPS,
+                           warm_up=False)
+        n_bytes = nbytes(frames, got)
+        bound_ms, bound_by = bound(n_bytes, 0)
+        print(f"{tag} filter kernel: == plain_box_filter, no host wait; "
+              f"F={n} {cfg.view_width}x{cfg.view_height} -> "
+              f"{CONFIG5.view_width}x{CONFIG5.view_height}; {ms:.4f} ms a "
+              f"call back to back, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} B, "
+              f"{ms / bound_ms:.2f}x), 1 launch  [{card}]")
+        rows.append({"name": f"filter {tag}, F={n}", "route": "cuda",
+                     "source": FILTER_SOURCE[0],
+                     "replaces": FILTER_SOURCE[1], "launches": 1,
+                     "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
+        del got
+    filter_cuda.filter_launches = 0
+    frames = ss.render_states(ds, players, lights, cache)
+    if filter_cuda.filter_launches != 1:
+        raise RuntimeError(f"{tag}: render_states launched the filter "
+                           f"{filter_cuda.filter_launches} times, not 1")
+    require_equal(tag, "render_states vs the filtered batch", frames,
+                  box_filter(traced, s))
+    filter_cuda.filter_launches = 0
+    still = ss.render(ds, lights[0].cpu().numpy() // s)
+    if filter_cuda.filter_launches != 1:
+        raise RuntimeError(f"{tag}: a still launched the filter "
+                           f"{filter_cuda.filter_launches} times, not 1")
+    print(f"{tag}: render_states launched the filter once a batch of "
+          f"F={F} and equals the filtered batch; a still "
+          f"{tuple(still.shape)} launched it once  [{card}]")
+    del ds, cache, anim, traced, frames
     torch.cuda.empty_cache()
     return rows
 
@@ -2868,6 +2964,7 @@ def main() -> int:
     rows += wide_grid_phase(card)
     rows += binning_phase(card)
     rows += merge_phase(card, scene)
+    rows += filter_phase(card)
 
     # -- 15. the run entry points: bench, bench_scale --nonramp, make_demo --
     renderer.fuse_trace_shadow = False

@@ -3,8 +3,10 @@
 Counterpart of ``pixel_art_raytracer_tpu/models/supersample.py``.  The
 renderer's geometry is integer world units == pixels, so supersampling
 scales the *world* by an integer factor s (positions, extents, bin size,
-sprite maps, light), renders an s-times larger frame through the batched
-path, and box-filters it down to the base size.
+sprite maps, light), renders s-times larger frames through the batched
+path, and box-filters them down to the base size: on the card one launch
+of ``csrc/filter.cu`` a call (``ops/filter_cuda.py``), on the CPU the
+plain chain.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import torch
 
 from ..assets import SpriteAtlas
 from ..config import RenderConfig
+from ..ops import filter_cuda
+from ..runtime import tracing
 from ..scene import Light, Scene
+from . import batched
 from .deferred import DeferredRenderer, DeviceScene
 
 
@@ -87,20 +92,56 @@ def scale_scene(scene: Scene, s: int) -> Scene:
                                atlas=scale_atlas(scene.atlas, s))
 
 
-def box_filter(frame: torch.Tensor, s: int) -> torch.Tensor:
-    """The mean of each s x s block of an (H * s, W * s, 3) uint8 frame,
-    truncated to uint8: (H, W, 3).
+def box_filter(frames: torch.Tensor, s: int) -> torch.Tensor:
+    """The mean of each s x s block of (H * s, W * s, 3) or (F, H * s,
+    W * s, 3) uint8 frames, truncated to uint8: (H, W, 3) or (F, H, W, 3).
+
+    CUDA tensors take one launch of the kernel (``ops/filter_cuda.py``),
+    with no host wait; CPU tensors take :func:`plain_box_filter`.  Both
+    give the same bytes.
+    """
+    if frames.is_cuda:
+        return filter_cuda.box_filter(frames.contiguous(), s)
+    return plain_box_filter(frames, s)
+
+
+def plain_box_filter(frames: torch.Tensor, s: int) -> torch.Tensor:
+    """:func:`box_filter` as a chain of tensor ops, on any device.
 
     The float32 sum of s * s u8 values is exact, and it is divided by a
     tensor (IEEE division on the card too, where dividing by a Python
     scalar multiplies by its reciprocal), so the result is the JAX
-    package's ``mean(axis=(1, 3))`` for any s.
+    package's ``mean(axis=(1, 3))`` for any s; truncated, it is the
+    integer sum // (s * s) that the kernel computes.
     """
-    h, w = frame.shape[0] // s, frame.shape[1] // s
-    total = frame.to(torch.float32).reshape(h, s, w, s, 3).sum(dim=(1, 3))
+    h, w = frames.shape[-3] // s, frames.shape[-2] // s
+    total = frames.to(torch.float32).reshape(
+        *frames.shape[:-3], h, s, w, s, 3).sum(dim=(-4, -2))
     count = torch.tensor(float(s * s), dtype=torch.float32,
-                         device=frame.device)
+                         device=frames.device)
     return (total / count).to(torch.uint8)
+
+
+def filtered_states(renderer: DeferredRenderer, s: int,
+                    dscene_scaled: DeviceScene, players, lights,
+                    static_bins=None) -> torch.Tensor:
+    """F base-size frames (F, H, W, 3) uint8, one per (player, light) row:
+    ``render_states_batched`` of ``renderer`` (configured for the scene
+    scaled by s) on the scaled scene, then the box filter, in one
+    ``batch`` span (the filter in ``batch.filter``).
+
+    players and lights: (F, 3) int32 on the scene's device, in traced-world
+    units (base units times s), as ``AnimationRenderer.render_states``
+    takes them; (F, L, 3) lights for additive multi-light frames.
+    ``static_bins``: a ``StaticBins`` cache of the scaled scene with
+    ``n_dynamic=1``, or None for a full rebin of every frame.
+    """
+    with tracing.span("batch"):
+        # render_states_batched's body: one batch span a request.
+        frames = batched.render_states_batched.__wrapped__(
+            renderer, static_bins, dscene_scaled, players, lights)
+        with tracing.span("batch.filter"):
+            return box_filter(frames, s)
 
 
 class SupersampledRenderer:
@@ -132,13 +173,21 @@ class SupersampledRenderer:
         self.renderer.configure_for(scaled)
         return DeviceScene.from_scene(scaled, self.config, device=device)
 
+    def render_states(self, dscene_scaled: DeviceScene, players, lights,
+                      static_bins=None) -> torch.Tensor:
+        """:func:`filtered_states` on this renderer and factor."""
+        return filtered_states(self.renderer, self.factor, dscene_scaled,
+                               players, lights, static_bins)
+
     def render(self, dscene_scaled: DeviceScene, light) -> torch.Tensor:
         """One base-size frame (H, W, 3) uint8 under point light ``light``
-        (base-world x, y, z), the player where the scaled scene puts it."""
-        s = self.factor
-        light = torch.as_tensor(light, dtype=torch.int32,
-                                device=dscene_scaled.device) * s
-        return box_filter(self.renderer.render(dscene_scaled, light), s)
+        (base-world x, y, z), the player where the scaled scene puts it:
+        :meth:`render_states` at F = 1 with a full rebin."""
+        with tracing.span("sync.upload"):
+            light = torch.as_tensor(light, dtype=torch.int32,
+                                    device=dscene_scaled.device)
+        return self.render_states(dscene_scaled, dscene_scaled.pos[:1],
+                                  light[None] * self.factor)[0]
 
     def render_numpy(self, scene: Scene, light, *,
                      device=None) -> np.ndarray:

@@ -51,6 +51,7 @@ SIGNATURES = {
     "par_fused_trace_shadow": [_P] * 12 + [_I] * 13 + [_P],
     "par_bin_tables": [_P] * 6 + [_I] * 15 + [_P],
     "par_bin_merge": [_P] * 8 + [_I] * 19 + [_P],
+    "par_box_filter": [_P] * 2 + [_I] * 3 + [_P],
     "par_trace_occupancy": [_I] * 8 + [_P],
     "par_shadow_occupancy": [_I] * 9 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],

@@ -11,13 +11,15 @@ launched.  There is no other store.
 The spans, from the requests down:
 
 * ``batch``: one request to the batched path
-  (``models/batched.render_states_batched`` or ``gbuffer_and_frames``);
+  (``models/batched.render_states_batched`` or ``gbuffer_and_frames``, or
+  ``models/supersample.SupersampledRenderer.render_states``, whose span
+  holds the batched path's and the box filter's);
 * ``batch.<stage>``: each stage function of ``models/batched.py``
   (``bins``, ``trace``, ``shade``, ``geometry``, ``shadow``, ``fused``,
   ``lights``, ``directional``), and inside them ``batch.gbuffer`` (the
   G-buffer of the winners, in ``batch.trace`` or ``batch.fused``) and
   ``batch.dither`` (the G-buffer route's ordered dither, in
-  ``batch.shade``);
+  ``batch.shade``); ``batch.filter``, the supersampled frames' box filter;
 * ``frame``: one live request (``runtime.session.Session.feed``, the
   viewer's frame), with ``frame.overlay`` (the host copy and its debug
   line) and ``frame.keep`` (the session's record of the frame);

@@ -224,3 +224,223 @@ def test_cuda_render_matches_cpu(cuda, s, fuse):
     ds = ss.prepare(base, device=cuda)
     got = ss.render(ds, torch.tensor(LIGHT, device=cuda))
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# -- batches at the base size: render_states and the box filter kernel -------
+
+# A 64x48 base view, F = 3, a seeded scene of 60 boxes (the player first),
+# against the benchmark's plain reference (port_bench/reference).
+REF_CONFIG = {"view_width": 64, "view_height": 48, "view_length": 64,
+              "bin_size": 40, "bin_capacity": 8, "sprite_width": 20,
+              "sprite_height": 40, "ambient": 0.25,
+              "background": [127, 127, 127, 0],
+              "palette": [[100, 100, 100, 0], [140, 140, 140, 0],
+                          [200, 200, 200, 0], [240, 240, 240, 0]],
+              "early_exit": True}
+
+
+def ref_cell(s: int):
+    """``(config dict, scene arrays, players, lights)``: the states of 3
+    frames in traced-world units, the player and the light moving."""
+    from port_bench import inputs
+    cfg = dict(REF_CONFIG, supersample=s)
+    r = np.random.default_rng(60 + s)
+    boxes = [((20, 10, 20), (20, 20, 20))] + [
+        ((int(r.integers(-10, 64)), int(r.integers(0, 30)),
+          int(r.integers(0, 60))),
+         tuple(int(v) for v in r.integers(4, 21, 3))) for _ in range(59)]
+    arrays = inputs.scene_arrays(boxes, cfg)
+    players = np.stack([r.integers(0, 40, 3), r.integers(0, 30, 3),
+                        r.integers(0, 40, 3)], 1) * s
+    lights = np.stack([r.integers(-20, 90, 3), r.integers(10, 80, 3),
+                       r.integers(-10, 70, 3)], 1) * s
+    return cfg, arrays, players.astype(np.int32), lights.astype(np.int32)
+
+
+@pytest.mark.parametrize("cache", [False, True])
+@pytest.mark.parametrize("s", [2, 3])
+def test_render_states_matches_the_plain_reference(s, cache):
+    """F base-size frames: the batched path on the scaled scene and the
+    filter, with and without a ``StaticBins`` cache, pixel for pixel the
+    reference's box-filtered frames; frame by frame ``render_states`` at
+    F = 1 and the per-frame filter of the traced batch."""
+    from port_bench import harness, program, reference
+    cfg, arrays, players, lights = ref_cell(s)
+    ss = supersample.SupersampledRenderer(program.render_config(cfg), s)
+    base = program.scene(arrays)
+    ds = ss.prepare(base, device="cpu")
+    scaled = supersample.scale_scene(base, s)
+    bins = (StaticBins(scaled.pos, scaled.ext, 1, ss.config,
+                       ss.renderer.spans, device="cpu") if cache else None)
+    p, l = torch.from_numpy(players), torch.from_numpy(lights)
+    got = ss.render_states(ds, p, l, bins)
+    assert got.shape == (3, 48, 64, 3) and got.dtype == torch.uint8
+    traced = harness.reference_frames(
+        harness.reference_scene(arrays, cfg, torch.device("cpu")), players,
+        lights, harness.view(cfg), torch.float32)
+    want = torch.stack([reference.box_filter(f, s) for f in traced])
+    assert torch.equal(got, want)
+    assert (want != want[:1]).any()  # the frames differ from each other
+    for f in range(3):
+        one = ss.render_states(ds, p[f:f + 1], l[f:f + 1], bins)
+        assert torch.equal(one[0], got[f])
+        assert torch.equal(supersample.box_filter(traced[f], s), got[f])
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+def test_batched_box_filter_equals_the_per_frame_one(s):
+    frames = torch.from_numpy(np.random.default_rng(s).integers(
+        0, 256, (3, 5 * s, 7 * s, 3)).astype(np.uint8))
+    got = supersample.box_filter(frames, s)
+    assert got.shape == (3, 5, 7, 3)
+    for f in range(3):
+        assert torch.equal(got[f], supersample.box_filter(frames[f], s))
+    want = frames.numpy().astype(np.int64).reshape(3, 5, s, 7, s, 3).sum(
+        axis=(2, 4)) // (s * s)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+def test_truncated_float_quotient_is_the_integer_one(s):
+    """Every sum of s * s bytes: the plain chain's truncated float32
+    quotient by a float32 tensor is sum // (s * s), which the kernel
+    computes."""
+    sums = torch.arange(255 * s * s + 1, dtype=torch.int64)
+    count = torch.tensor(float(s * s), dtype=torch.float32)
+    got = torch.trunc(sums.to(torch.float32) / count).to(torch.int64)
+    assert torch.equal(got, sums // (s * s))
+
+
+@pytest.mark.parametrize("case", ["one axis", "five axes", "int16",
+                                  "four channels", "factor 0",
+                                  "factor 3 of 8x8", "cpu tensor"])
+def test_filter_wrapper_refuses_what_it_does_not_take(case):
+    """``filter_cuda.box_filter`` raises ``ValueError`` before any launch:
+    for a tensor it does not take, a factor that does not divide the
+    frame, and a tensor off the card (the CPU takes the plain chain)."""
+    from pixel_art_raytracer_tpu_torch.ops import filter_cuda
+    frames, s = {
+        "one axis": (torch.zeros(48, dtype=torch.uint8), 2),
+        "five axes": (torch.zeros(1, 1, 8, 8, 3, dtype=torch.uint8), 2),
+        "int16": (torch.zeros(8, 8, 3, dtype=torch.int16), 2),
+        "four channels": (torch.zeros(8, 8, 4, dtype=torch.uint8), 2),
+        "factor 0": (torch.zeros(8, 8, 3, dtype=torch.uint8), 0),
+        "factor 3 of 8x8": (torch.zeros(2, 8, 8, 3, dtype=torch.uint8), 3),
+        "cpu tensor": (torch.zeros(2, 8, 8, 3, dtype=torch.uint8), 2),
+    }[case]
+    before = filter_cuda.filter_launches
+    with pytest.raises(ValueError):
+        filter_cuda.box_filter(frames, s)
+    assert filter_cuda.filter_launches == before
+
+
+def test_render_states_spans_the_filter_inside_its_batch():
+    """One ``batch`` span a call, the filter in ``batch.filter`` inside
+    it; a still also uploads its light in ``sync.upload``."""
+    from port_bench import program
+    cfg, arrays, players, lights = ref_cell(2)
+    ss = supersample.SupersampledRenderer(program.render_config(cfg), 2)
+    ds = ss.prepare(program.scene(arrays), device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ss.render_states(ds, torch.from_numpy(players[:1]),
+                         torch.from_numpy(lights[:1]))
+        ss.render(ds, lights[0] // 2)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.name in ("batch", "batch.filter", "sync.upload")]
+    names = [n for n, _, _ in spans]
+    assert names.count("batch") == 2 and names.count("batch.filter") == 2
+    batches = [(a, b) for n, a, b in spans if n == "batch"]
+    outside = [n for n, a, b in spans
+               if not any(a0 <= a and b <= b0 for a0, b0 in batches)]
+    # The CPU's plain binning uploads inside the batch; the light outside.
+    assert outside == ["sync.upload"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,s", [
+    *((c, s) for c in ("odd", "config5_f1") for s in (1, 2, 3, 4)),
+    ("config5_f64", 2)])
+def test_cuda_filter_kernel_is_bit_exact(cuda, case, s):
+    """The kernel against the plain chain on the card: odd widths and
+    heights from an unaligned start (F = 3), and config 5's 1024x1024
+    base at F = 1 and, at its s = 2, F = 64 (805 MB traced)."""
+    from pixel_art_raytracer_tpu_torch.ops import filter_cuda
+    F, H, W = {"odd": (3, 23, 37), "config5_f64": (64, 1024, 1024),
+               "config5_f1": (1, 1024, 1024)}[case]
+    n = F * H * s * W * s * 3
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    buf = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device=cuda,
+                        generator=gen)
+    start = 5 if case == "odd" else 0
+    frames = buf[start:start + n].view(F, H * s, W * s, 3)
+    before = filter_cuda.filter_launches
+    got = supersample.box_filter(frames, s)
+    assert filter_cuda.filter_launches == before + 1
+    assert got.shape == (F, H, W, 3)
+    assert torch.equal(got, supersample.plain_box_filter(frames, s))
+    one = supersample.box_filter(frames[F - 1], s)
+    assert filter_cuda.filter_launches == before + 2
+    assert torch.equal(one, got[F - 1])
+
+
+@pytest.mark.cuda
+def test_cuda_render_states_filters_in_one_launch_with_no_host_wait(cuda):
+    """A batch on a ``StaticBins`` cache syncs nowhere (every sync an
+    error), launches the filter once and equals the CPU's frames; a
+    still launches it once a request."""
+    from pixel_art_raytracer_tpu_torch.ops import filter_cuda
+    from port_bench import program
+    cfg, arrays, players, lights = ref_cell(2)
+    frames = {}
+    for dev in ("cpu", cuda):
+        ss = supersample.SupersampledRenderer(program.render_config(cfg), 2)
+        base = program.scene(arrays)
+        ds = ss.prepare(base, device=dev)
+        scaled = supersample.scale_scene(base, 2)
+        bins = StaticBins(scaled.pos, scaled.ext, 1, ss.config,
+                          ss.renderer.spans, device=dev)
+        p = torch.from_numpy(players).to(dev)
+        l = torch.from_numpy(lights).to(dev)
+        if dev == "cpu":
+            frames[dev] = ss.render_states(ds, p, l, bins)
+            still = ss.render(ds, lights[0] // 2)
+            continue
+        ss.render_states(ds, p, l, bins)  # builds and loads the kernels
+        torch.cuda.synchronize()
+        before = filter_cuda.filter_launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ss.render_states(ds, p, l, bins)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert filter_cuda.filter_launches == before + 1
+        frames[dev] = got.cpu()
+        for _ in range(2):
+            one = ss.render(ds, lights[0] // 2)
+        assert filter_cuda.filter_launches == before + 3
+        assert torch.equal(one.cpu(), still)
+    assert torch.equal(frames["cpu"], frames[cuda])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [62, 63])
+def test_cuda_filter_takes_factors_whose_tile_fits_shared_memory(cuda, s):
+    """62 is the largest factor whose tile fits the 48 KB of shared memory
+    a block gets: it filters as the plain chain does; 63 is refused by the
+    C entry (a CUDA error raised, no launch counted)."""
+    from pixel_art_raytracer_tpu_torch.ops import filter_cuda
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    frames = torch.randint(0, 256, (2 * s, 3 * s, 3), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    before = filter_cuda.filter_launches
+    if s == 63:
+        with pytest.raises(RuntimeError, match="par_box_filter"):
+            supersample.box_filter(frames, s)
+        assert filter_cuda.filter_launches == before
+        return
+    got = supersample.box_filter(frames, s)
+    assert filter_cuda.filter_launches == before + 1
+    assert torch.equal(got, supersample.plain_box_filter(frames, s))
