@@ -26,7 +26,11 @@ unless:
     the fused run;
   * the shadow and fused kernels' list path (one DDA per start bin of a
     band, csrc/common.cuh march_band) took pixels on every orbit and on
-    both main paths, beside the pixels they marched directly;
+    both main paths, beside the pixels they marched directly; the
+    lit-mask marches listed each key's whole visit list, and the
+    winner-input frames march (which marches only the pixels whose colour
+    a shadow can change) no more, its counted pixels marched and slab
+    tests those of the plain version;
   * the fused path's frames equal the two-kernel path's bit for bit;
   * both paths' frames equal ``runtime.native.cpp_render_frame`` pixel for
     pixel (frame 0 of every orbit and one mid-sweep frame of ``edge_z``).
@@ -181,8 +185,10 @@ Last, the inverse fitter and the sharded paths (``inverse_phase``,
     ranks' inputs; ms per call (a functional check on one card, not a
     scaling measurement).
 
-It prints the card, the build times, the three kernels' shared memory per
-block and blocks per SM, per orbit each march kernel's counters (pixels
+It prints the card, the build times, ``ptxas -v``'s registers, stack and
+spills of every point-march instantiation, the three kernels' shared
+memory per block and blocks per SM, per orbit each march kernel's
+counters and the winner-input frames' marched share (pixels
 marched directly, the most start bins one band held, the longest visit
 list), ms/frame, Mrays/s and the per-stage split of both paths, the
 kernels' times beside their plain versions and their bounds, the same
@@ -223,6 +229,8 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -515,11 +523,13 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def list_path(name: str, what: str, c: dict, n_pix: int,
-              longest: int | None = None, keys: str = "start bins") -> None:
+              longest: int | None = None, keys: str = "start bins",
+              most: int | None = None) -> None:
     """Print a march kernel's counters ``c`` (``MarchCounters.read()``);
     raise unless its list path took some of the ``n_pix`` pixels it
     marched and, where ``longest`` is given, its longest visit list has
-    that length.  ``keys`` names what its table holds."""
+    that length, or where ``most`` is, at most that length.  ``keys``
+    names what its table holds."""
     print(f"{name} {what}: {n_pix - c['direct_pixels']} pixels on the list "
           f"path, {c['direct_pixels']} marched directly, at most "
           f"{c['max_starts']} {keys} in a table, longest visit list "
@@ -530,6 +540,82 @@ def list_path(name: str, what: str, c: dict, n_pix: int,
         raise RuntimeError(f"{name}: the {what}'s longest visit list has "
                            f"{c['max_list']} bins, dda_visit_lists "
                            f"{longest}")
+    if most is not None and c["max_list"] > most:
+        raise RuntimeError(f"{name}: the {what} listed {c['max_list']} "
+                           f"bins for a key, dda_visit_lists at most {most}")
+
+
+def counted_shade(name: str, wargs, want: torch.Tensor, work: dict) -> dict:
+    """One launch of the winner-input mode's kernel that counts its work
+    (``shade_point`` under a profiler, as a traced run launches it) on
+    ``wargs``; raise unless its frames are ``want`` and its pixels marched
+    and slab tests those of the plain version (``work``, from
+    ``shade.point_frames``; the direct march's repeated probes also test,
+    so where it took pixels the tests lie between the first-probe and the
+    every-probe counts).  Prints and returns the counters."""
+    shadow_cuda.counters.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = shadow_cuda.shade_point(*wargs)
+    torch.cuda.synchronize()
+    c = shadow_cuda.counters.read()
+    require_equal(name, "counting winner-input kernel frames", got, want)
+    pixels, marched = c["shade_pixels"], c["shade_marched_pixels"]
+    tests = c["shade_slab_tests"]
+    lo, hi = int(work["slab_tests"]), int(work["slab_tests_every_probe"])
+    if c["direct_pixels"] == 0:
+        hi = lo
+    print(f"{name}: winner-input frames marched {marched} of {pixels} "
+          f"pixels ({marched / pixels:.4f}; plain "
+          f"{int(work['marched_pixels'])}), {tests} slab tests "
+          f"({tests / pixels:.4f} a pixel; plain {lo}), "
+          f"{c['direct_pixels']} marched directly")
+    if marched != int(work["marched_pixels"]) or not lo <= tests <= hi:
+        raise RuntimeError(f"{name}: the counting kernel marched {marched} "
+                           f"pixels with {tests} slab tests, the plain "
+                           f"version {int(work['marched_pixels'])} with "
+                           f"{lo}")
+    return c
+
+
+def point_entry(mangled: str) -> str | None:
+    """The point-march instantiation a mangled kernel name denotes, or None
+    for another kernel."""
+    if "fused_trace_shadow_kernel" in mangled:
+        return "fused_trace_shadow_kernel"
+    if "shadow_shade_kernel" not in mangled:
+        return None
+    count = "true" if "shadow_shade_kernelILb1E" in mangled else "false"
+    px = "WinnerPixels" if "WinnerPixels" in mangled else "PixelRays"
+    return f"shadow_shade_kernel<{count}, {px}>"
+
+
+def point_ptxas(card: str) -> dict[str, str]:
+    """``ptxas -v``'s lines (registers, stack, spills) of every point-march
+    instantiation: ``csrc/shadow.cu``'s point modes and ``csrc/fused.cu``,
+    compiled with the library's flags.  Prints and returns them."""
+    out_dir = kernels.BUILD_ROOT / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lines = {}
+    for src in ("shadow.cu", "fused.cu"):
+        proc = subprocess.run(
+            [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+             "-c", str(kernels.CSRC / src), "-o", str(out_dir / "x.o")],
+            capture_output=True, text=True, check=True)
+        entry = None
+        for line in (proc.stdout + proc.stderr).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = point_entry(m.group(1))
+            elif entry is not None and "spill" in line:
+                lines[entry] = line.strip()
+            elif entry is not None and "registers" in line:
+                lines[entry] = (line.split(":", 1)[1].strip() + "; "
+                                + lines.get(entry, ""))
+                entry = None
+    for entry, line in sorted(lines.items()):
+        print(f"ptxas {entry}: {line}  [{card}]")
+    return lines
 
 
 def longest_visit_list(start_bin, light_bin, config) -> int:
@@ -1543,6 +1629,9 @@ def path_kernels(tag: str, ds, be, cnt, players, lights, cfg, card: str,
         shadow_cuda.counters.reset()
         frames_k = shadow_cuda.shade_point(*wargs)
         stats["shadow_shade"] = shadow_cuda.counters.read()
+        shade_work = {}
+        shade.point_frames(*wargs, work=shade_work)
+        counted_shade(tag, wargs, frames_p, shade_work)
         lit_w = shadow_cuda.shade_point(*wargs, frames=False)
         require_equal(tag, "winner-input kernel frames", frames_k, frames_p)
         require_equal(tag, "winner-input kernel lit", lit_w, lit_p)
@@ -2487,10 +2576,14 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: {scene.n_entities} entities, spans {renderer.spans}, "
           f"{time.perf_counter() - t0:.2f} s")
+    point_ptxas(card)
     for k, occ, threads in (
             ("trace", trace_cuda.occupancy(cfg),
              trace_cuda.block_threads(cfg)),
             ("shadow", shadow_cuda.occupancy(cfg),
+             shadow_cuda.MARCH_THREADS),
+            ("shadow_shade counting",
+             shadow_cuda.shade_occupancy(cfg, counting=True),
              shadow_cuda.MARCH_THREADS),
             ("fused", fused_cuda.occupancy(cfg),
              shadow_cuda.MARCH_THREADS)):
@@ -2599,17 +2692,22 @@ def main() -> int:
                  players, lights, cfg)
         shadow_cuda.counters.reset()
         frames_k = shadow_cuda.shade_point(*wargs)
-        list_path(name, "shadow kernel (winner inputs)",
-                  shadow_cuda.counters.read(), n_pix, longest)
-        frames_p = shade.point_frames(*wargs)
+        list_path(name, "shadow kernel (winner-input frames)",
+                  shadow_cuda.counters.read(), n_pix, most=longest)
+        shade_work = {}
+        frames_p = shade.point_frames(*wargs, work=shade_work)
         require_equal(name, "winner-input kernel frames", frames_k, frames_p)
+        counted_shade(name, wargs, frames_p, shade_work)
         require_equal(name, "point_frames vs the G-buffer chain's frames",
                       frames_p, batched.shade_stage(
                           renderer, ds, gbuf, shade.factor_from_dot(
                               batched.geometry_stage(renderer, gbuf,
                                                      lights)[0],
                               lit_s, cfg)))
+        shadow_cuda.counters.reset()
         lit_w = shadow_cuda.shade_point(*wargs, frames=False)
+        list_path(name, "shadow kernel (winner-input lit mask)",
+                  shadow_cuda.counters.read(), n_pix, longest)
         require_equal(name, "winner-input kernel lit", lit_w, lit_s)
         errs["shadow_shade"] = max(errs["shadow_shade"],
                                    max_abs_err(frames_k, frames_p),

@@ -614,8 +614,10 @@ constexpr int kShadeKeys = 4;
 // 1,600 pixels is one round of 320 threads.
 constexpr int kShadePixels = 5;
 // A pixel's state byte: its key's index in the band's table, kShadeDirect
-// (its key did not fit: it marches on its own) or kShadeNone (outside the
-// view), with kShadeOccluded set once a staged box hits it.
+// (its key did not fit: it marches on its own), kShadeSettled (its colour
+// is the same lit or occluded: it takes no key and no march) or kShadeNone
+// (outside the view), with kShadeOccluded set once a staged box hits it.
+constexpr unsigned char kShadeSettled = 0x7D;
 constexpr unsigned char kShadeDirect = 0x7E;
 constexpr unsigned char kShadeNone = 0x7F;
 constexpr unsigned char kShadeOccluded = 0x80;
@@ -673,7 +675,9 @@ struct ShadeKey {
   int skip;             // lanes of round k0 already listed
   int len;              // entries listed in this chunk
   int total;            // entries listed so far: the visit list's length
-  int pad0, pad1;
+  int left_at;          // the last chunk after whose march a pixel of the
+                        // key was left unoccluded (a source that settles)
+  int pad1;
 };
 
 // The shared memory march_band works in for a band of n_pix pixels and
@@ -777,8 +781,10 @@ __device__ __forceinline__ int3 light_bin(int3 l, const Grid& g) {
 // winners (shadow.cu) and from the walk (fused.cu) load them: s.y and s.z
 // hold pixel (i, j)'s surface point, the ray starts at (i, y, z) in bin
 // (i / bs, (view_h - y - z) / bs, z / bs), and i / bs is the band's bin
-// column, so a key is the start bin's y and z (pack_start).
+// column, so a key is the start bin's y and z (pack_start).  Their stores
+// write the lit bit, so no pixel settles.
 struct SurfaceRays {
+  static constexpr bool kSettles = false;
   __device__ static bool key(const ShadeSmem& s, const Grid& g, int q, int,
                              int, unsigned long long& k) {
     const int y = s.y[q];
@@ -887,21 +893,28 @@ __device__ inline void list_next(ShadeKey& K, const Grid& g, unsigned* seen,
 // band's shared memory and says how its ray starts:
 //   load(s, g, q, i, j)   pixel q at view column i, row j: its ray's
 //                         origin y and z, entity and reciprocal direction
-//                         (and what its store reads) into s's arrays;
+//                         (and what its store reads) into s's arrays; a
+//                         source that settles returns whether pixel q
+//                         settles: its store writes the same whether its
+//                         ray is occluded or not;
 //   key(s, g, q, i, j, k) its start bin's key; false where it has none
 //                         that fits (the pixel marches on its own);
 //   start(k, b)           the start bin of key k;
 //   origin(s, q, i)       the ray's origin;
 //   direct(s, g, b, q, i, j)  the Ray of a pixel that marches on its own;
-//   store(s, g, q, i, j, occluded).
+//   store(s, g, q, i, j, occluded);
+//   kSettles              whether the source settles pixels; then
+//   settles()             whether it may in this launch.
 // All threads of the block call it; blockDim.x is a multiple of 32, at
 // least 32 * kShadeKeys and at most kMarchThreads, and chunk >= kShadeKeys.
-// With kCount the block adds its slab tests to *tests_out; without,
-// tests_out is not read.
+// With kCount the block adds its slab tests to work_out[0] and the pixels
+// it marched (on a key's list or on their own) to work_out[1]; without,
+// work_out is not read.
 //
 // 1. Each pixel is loaded once, kShadePixels a thread at a time so that
-//    their gathers overlap; then its key goes into its warp's list of
-//    distinct keys (a key missing from the list is added by the lowest
+//    their gathers overlap; then, unless it is settled (kShadeSettled: no
+//    key, no march, stored as occluded), its key goes into its warp's list
+//    of distinct keys (a key missing from the list is added by the lowest
 //    lane that has it), or the pixel takes kShadeDirect past kShadeKeys.
 // 2. Warp 0 merges the warps' lists into the band's table.
 // 3. Each pixel takes its index in the table, and each key's DDA is set up
@@ -911,20 +924,24 @@ __device__ inline void list_next(ShadeKey& K, const Grid& g, unsigned* seen,
 //    warp lists the key's next distinct bins, in first-visit order, into
 //    its share of `chunk` entries; the staged entries' boxes are tested by
 //    every pixel of the key not yet occluded, in that order (a ray meets
-//    its occluder sooner among the bins near its start).
+//    its occluder sooner among the bins near its start).  Where pixels
+//    settle, a key whose pixels are all occluded after a chunk retires
+//    from the next, whatever steps its DDA has left.
 // 5. The pixels whose key did not fit march on their own (march_occluded),
 //    and every pixel is stored.
 //
 // Exact: a ray's probed bins depend only on (start bin, light bin, step
 // cap), which its key and the launch fix, and its occlusion is an OR over
 // them of a test of the ray and a box, which ignores order and repeats.
-// So any set of pixels marches exactly, a band as well as a tile.
+// So any set of pixels marches exactly, a band as well as a tile.  A
+// settled pixel's store is the same either way, and a retired key has no
+// pixel whose answer could still change.
 template <bool kCount, class Src>
 __device__ __forceinline__ void march_band(
     const int* pos, const int* ext, const int* players, const int* bins_ent,
     const int* counts, int f, const Grid& g, const Band& b, int3 lb,
     int max_steps, const ShadeSmem& s, int chunk, const Src& src,
-    int* stats, unsigned long long* tests_out) {
+    int* stats, unsigned long long* work_out) {
   ShadePhaseClock phases;
   const int bs = g.bin_size;
   const int cap = g.bin_cap;
@@ -937,6 +954,9 @@ __device__ __forceinline__ void march_band(
   const int j0 = b.j0(g);
   const int words = ShadeSmem::words(g);
   unsigned tests = 0u;  // this thread's slab tests (kCount)
+  // Whether pixels settle and keys retire in this launch.
+  bool settling = false;
+  if constexpr (Src::kSettles) settling = src.settles();
 
   for (int w = tid; w < kShadeKeys * words; w += nt) s.seen[w] = 0u;
 
@@ -945,15 +965,19 @@ __device__ __forceinline__ void march_band(
   int wn = 0;  // entries of wkey, the same in every lane
   TilePixel tp(bs);
   for (int r0 = 0; r0 < n_pix; r0 += nt * kShadePixels) {
-    unsigned live = 0u;  // bit p: the round's pixel p is in the view
+    unsigned in_view = 0u;  // bit p: the round's pixel p is in the view
+    unsigned settled = 0u;  // bit p: it is settled
     TilePixel dp = tp;
 #pragma unroll
     for (int p = 0; p < kShadePixels; ++p) {
       const int i = i0 + dp.col;
       const int j = j0 + dp.row;
       if (dp.q < n_pix && i < g.view_w && j < g.view_h) {
-        src.load(s, g, dp.q, i, j);
-        live |= 1u << p;
+        if constexpr (Src::kSettles)
+          settled |= src.load(s, g, dp.q, i, j) ? 1u << p : 0u;
+        else
+          src.load(s, g, dp.q, i, j);
+        in_view |= 1u << p;
       }
       dp.next();
     }
@@ -962,7 +986,9 @@ __device__ __forceinline__ void march_band(
       const int q = tp.q;
       unsigned long long key = 0ull;
       int slot = kShadeNone;
-      if ((live >> p) & 1u) {
+      if ((settled >> p) & 1u) {
+        slot = kShadeSettled;
+      } else if ((in_view >> p) & 1u) {
         slot = kShadeDirect;
         if (src.key(s, g, q, i0 + tp.col, j0 + tp.row, key)) {
           slot = -1;
@@ -1060,6 +1086,7 @@ __device__ __forceinline__ void march_band(
     K.skip = 0;
     K.len = 0;
     K.total = 0;
+    K.left_at = -1;
   }
   __syncthreads();
   phases.mark(2);
@@ -1069,13 +1096,14 @@ __device__ __forceinline__ void march_band(
   //    (key k's from off[k]), have their first min(count, cap) slots staged
   //    as boxes (entity 0 at players[f]); every pixel of a key, not yet
   //    occluded, tests its key's entries in order, skipping its own entity
-  //    and stopping at its first hit.
+  //    and stopping at its first hit.  Where pixels settle, a key none of
+  //    whose pixels is left unoccluded (K.left_at not this chunk's) retires.
   const size_t fbase = static_cast<size_t>(f) * g.volume();
   // Keys whose DDA has steps left: at first those with any (n_steps, which
   // no warp writes again, unlike k0).
   unsigned active = 0u;
   for (int k = 0; k < n; ++k) active |= s.key[k].n_steps > 0 ? 1u << k : 0u;
-  while (active != 0u) {
+  for (int round = 0; active != 0u; ++round) {
     const int share = chunk / __popc(active);
     if (warp < n && ((active >> warp) & 1u))
       list_next(s.key[warp], g, s.seen + warp * words,
@@ -1138,15 +1166,25 @@ __device__ __forceinline__ void march_band(
       }
       if (hit)
         s.state[p.q] = static_cast<unsigned char>(st | kShadeOccluded);
+      else if constexpr (Src::kSettles)
+        s.key[st].left_at = round;
     }
-    active = next;
     __syncthreads();
     phases.mark(5);
+    if constexpr (Src::kSettles) {
+      if (settling) {
+#pragma unroll
+        for (int k = 0; k < kShadeKeys; ++k)
+          if (s.key[k].left_at != round) next &= ~(1u << k);
+      }
+    }
+    active = next;
   }
 
   // 5. Pixels whose key did not fit march on their own; every pixel is
-  //    stored.
+  //    stored, a settled one as occluded.
   int direct = 0;
+  unsigned marched = 0u;  // this thread's pixels marched (kCount)
   for (TilePixel p(bs); p.q < n_pix; p.next()) {
     const int st = s.state[p.q];
     if (st == kShadeNone) continue;
@@ -1159,6 +1197,8 @@ __device__ __forceinline__ void march_band(
                                         lb, max_steps, &tests);
       ++direct;
     }
+    if constexpr (Src::kSettles) occluded = occluded || st == kShadeSettled;
+    if constexpr (kCount) marched += st != kShadeSettled ? 1u : 0u;
     src.store(s, g, p.q, i, j, occluded);
   }
   phases.end();
@@ -1170,15 +1210,23 @@ __device__ __forceinline__ void march_band(
     atomicMax(stats + kStatList, longest);
   }
   if constexpr (kCount) {
-    // warp_n is not read after step 2: it holds each warp's sum.
+    // warp_n and warp_slot are not read after step 3: they hold each
+    // warp's sums.
     tests = __reduce_add_sync(kFullWarp, tests);
-    if (lane == 0) s.warp_n[warp] = static_cast<int>(tests);
+    marched = __reduce_add_sync(kFullWarp, marched);
+    if (lane == 0) {
+      s.warp_n[warp] = static_cast<int>(tests);
+      s.warp_slot[warp] = static_cast<int>(marched);
+    }
     __syncthreads();
     if (tid == 0) {
-      unsigned long long block = 0ull;
-      for (int w = 0; w < nt / 32; ++w)
-        block += static_cast<unsigned>(s.warp_n[w]);
-      atomicAdd(tests_out, block);
+      unsigned long long block_tests = 0ull, block_marched = 0ull;
+      for (int w = 0; w < nt / 32; ++w) {
+        block_tests += static_cast<unsigned>(s.warp_n[w]);
+        block_marched += static_cast<unsigned>(s.warp_slot[w]);
+      }
+      atomicAdd(work_out, block_tests);
+      atomicAdd(work_out + 1, block_marched);
     }
   }
 }

@@ -12,7 +12,10 @@
 // slots, skipping the pixel's own entity, with the slab test in the
 // reference's std::min/std::max order; out-of-range flat bins are skipped
 // and in-range aliased bins are used as they are.  Every pixel is marched,
-// background included.
+// background included, but where the winner-input point mode stores frames:
+// there a pixel whose lit factor is the ambient one (background, a face
+// turned from the light) has the same colour lit or not, and is stored
+// without a march.
 //
 // G-buffer point mode (par_shadow_lit): ten per-pixel ray buffers, the
 // light bin is the frame's, and the march is exact for any light and any
@@ -104,17 +107,25 @@
 //    meets its occluder sooner among the bins near its start);
 // 5. the pixels whose key did not fit march on their own, and every
 //    pixel's lit bit or colour is stored from its loaded state.
+// Where the winner-input mode stores frames, only the pixels whose colour
+// the march can change are marched: at step 2 a pixel whose factor lit
+// (the store's own operations) equals the ambient factor is settled, takes
+// no key and no direct march, and is stored as occluded, which writes the
+// same bytes; and at step 4 a key none of whose pixels is left unoccluded
+// after a chunk lists no more, so a band of settled pixels goes from the
+// decode straight to the store.  The lit-mask stores march every pixel.
 // Shared memory is then fixed but for the V / 8 B of each key's mask
 // (ShadeSmem::bytes), and the wrapper takes the longest chunk, up to 32
 // entries, at which 4 blocks fit an SM (shadow_cuda.shade_chunk).
 // shadow_shade_kernel<false, WinnerPixels> is the render path's kernel,
 // and shadow_shade_kernel<true, WinnerPixels>, which the wrapper launches
 // only while the program is traced (runtime/tracing.py), also counts its
-// slab tests into work[kWorkShadeTests]: each thread in a register, one
-// warp reduce, one atomicAdd a block.  The count is each pixel's tests up
-// to its first hit, over its key's distinct bins in first-visit order
-// (ops/shadow.py's work["slab_tests"]), plus those of the pixels that
-// march on their own, repeats included.
+// slab tests into work[kWorkShadeTests] and the pixels it marched (not
+// settled) into work[kWorkShadeMarched]: each thread in a register, one
+// warp reduce, one atomicAdd a block.  The count is each marched pixel's
+// tests up to its first hit, over its key's distinct bins in first-visit
+// order (ops/shadow.py's work["slab_tests"]), plus those of the pixels
+// that march on their own, repeats included.
 //
 // Directional mode (shadow_dir_kernel): each pixel has its own virtual far
 // light, so a key is a (start bin, light bin) pair, ~4.8 of them a graybox
@@ -343,12 +354,20 @@ constexpr unsigned long long kNoKey = ~0ull;
 // bytes spilled), which measured faster than 3 blocks without spills.
 constexpr int kDirBlocksPerSM = 4;
 
-// 64-bit counters, one (3,) int64 array per launch's caller (added to):
+// 64-bit counters, one (4,) int64 array per launch's caller (added to):
 // the directional mode's union entries staged, summed over the tiles, and
 // the slab tests it performed, on its union lists and in its direct march;
 // and the winner-input mode's slab tests, on its lists and in its direct
-// march, in the launches that count (shadow_shade_kernel<true>).
-enum MarchWork { kWorkStaged = 0, kWorkTests = 1, kWorkShadeTests = 2 };
+// march, and its pixels marched (those not settled), in the launches that
+// count (shadow_shade_kernel<true>).
+enum MarchWork {
+  kWorkStaged = 0,
+  kWorkTests = 1,
+  kWorkShadeTests = 2,
+  kWorkShadeMarched = 3
+};
+// march_band adds its slab tests and its pixels marched side by side.
+static_assert(kWorkShadeMarched == kWorkShadeTests + 1, "march_band's work");
 
 // The fields of a packed key, in order: the start bin's y and z, and the
 // light bin minus the start bin in x, y and z (the start bin's x is the
@@ -530,7 +549,10 @@ __device__ inline int insert_key(const DirSmem& s, unsigned long long key) {
 // 1 / (d / length) toward the frame's light; its store writes the lit bit,
 // or with rgb the pixel's colour: ops/shade.py's lambert_dot,
 // factor_from_dot (std::min/std::max as ternaries, so a NaN dot gives a
-// diffuse of 0) and shade_u8.
+// diffuse of 0) and shade_u8.  With rgb a pixel whose factor lit is the
+// ambient factor settles (ops/shade.py's point_frames marks the same
+// pixels): with ambient <= 1 every background pixel and every face with
+// a dot <= 0 or NaN; none with ambient > 1, every one with ambient 1.
 struct WinnerRays : par::SurfaceRays {
   const int* pos;
   const int* ext;
@@ -541,21 +563,50 @@ struct WinnerRays : par::SurfaceRays {
   unsigned char* lit;
   unsigned char* rgb;
   static constexpr int max_steps = par::kNoStepCap;
+  static constexpr bool kSettles = true;
 
   __device__ int3 light_bin(const par::Grid& g) const {
     return par::light_bin(light, g);
   }
-  __device__ void load(const par::ShadeSmem& s, const par::Grid& g, int q,
+  __device__ bool settles() const { return rgb != nullptr; }
+  // The factor where lit of a pixel of atlas texel `texel` (-1 for
+  // background) whose direction toward the light is tl: the Lambert dot
+  // of the texel's normal (0 for background) and tl, then
+  // min(1, max(0, dot) + ambient).
+  __device__ float lit_factor(int texel, float3 tl) const {
+    float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
+    if (texel >= 0) {
+      const float* nv = px.atlas_normal + 3 * static_cast<size_t>(texel);
+      n0 = nv[0];
+      n1 = nv[1];
+      n2 = nv[2];
+    }
+    const float dot = n0 * tl.x + n1 * tl.y + n2 * tl.z;
+    const float diffuse = 0.0f < dot ? dot : 0.0f;
+    const float bright = diffuse + px.ambient;
+    return bright < 1.0f ? bright : 1.0f;
+  }
+  // Loads the pixel; returns whether it settles: with rgb, where its factor
+  // lit is the ambient factor.  A settled pixel's direction is neither
+  // marched nor stored, so it is not computed; a background pixel's
+  // factor lit does not depend on it (its dot is 0 or NaN, its diffuse 0).
+  __device__ bool load(const par::ShadeSmem& s, const par::Grid& g, int q,
                        int i, int j) const {
     const Surface u = decode_winner(pos, ext, players, px, g, f, i, j);
-    const float3 tl = par::towards_light(i, u.y, u.z, light);
+    const int texel = u.hit ? u.texel : -1;
     s.y[q] = u.y;
     s.z[q] = u.z;
     s.self[q] = u.ent;
-    s.texel[q] = u.hit ? u.texel : -1;
+    s.texel[q] = texel;
+    if (rgb != nullptr && !u.hit
+        && lit_factor(-1, make_float3(0.0f, 0.0f, 0.0f)) == px.ambient)
+      return true;
+    const float3 tl = par::towards_light(i, u.y, u.z, light);
+    if (rgb != nullptr && lit_factor(texel, tl) == px.ambient) return true;
     s.ivx[q] = 1.0f / tl.x;
     s.ivy[q] = 1.0f / tl.y;
     s.ivz[q] = 1.0f / tl.z;
+    return false;
   }
   __device__ void store(const par::ShadeSmem& s, const par::Grid& g, int q,
                         int i, int j, bool occluded) const {
@@ -564,25 +615,18 @@ struct WinnerRays : par::SurfaceRays {
       lit[o] = occluded ? 0 : 1;
       return;
     }
-    const float3 tl = par::towards_light(i, s.y[q], s.z[q], light);
     const int texel = s.texel[q];
-    float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
     int col[3] = {px.bg_r, px.bg_g, px.bg_b};
     if (texel >= 0) {
-      const float* nv = px.atlas_normal + 3 * static_cast<size_t>(texel);
-      n0 = nv[0];
-      n1 = nv[1];
-      n2 = nv[2];
       const unsigned char* c = px.palette + 4 * px.atlas_color[texel];
       col[0] = c[0];
       col[1] = c[1];
       col[2] = c[2];
     }
-    const float dot = n0 * tl.x + n1 * tl.y + n2 * tl.z;
-    const float diffuse = 0.0f < dot ? dot : 0.0f;
-    const float bright = diffuse + px.ambient;
-    const float factor = occluded ? px.ambient
-                                  : (bright < 1.0f ? bright : 1.0f);
+    const float factor =
+        occluded ? px.ambient
+                 : lit_factor(texel, par::towards_light(i, s.y[q], s.z[q],
+                                                        light));
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       rgb[3 * o + a] = static_cast<unsigned char>(
@@ -601,12 +645,13 @@ constexpr unsigned long long kRayMask = (1ull << kRayField) - 1ull;
 // origin's x is kept in s.texel as float bits, and y and z in s.y and s.z,
 // so any origin takes the list path); a key is the whole start bin, and a
 // pixel whose start bin does not fit the packed key marches on its own.
-// Its store writes the lit bit.
+// Its store writes the lit bit, so no pixel settles.
 struct BufferRays {
   const PixelRays& rays;
   int f;
   int max_steps;
   unsigned char* lit;
+  static constexpr bool kSettles = false;
 
   __device__ int3 light_bin(const par::Grid&) const {
     return make_int3(rays.light_bin[3 * f], rays.light_bin[3 * f + 1],
@@ -685,7 +730,8 @@ __device__ __forceinline__ BufferRays source(
 // shaded frame; one of lit and rgb is null) or from the ray buffers
 // (Px = PixelRays: the lit mask under step cap max_steps).  Launch as
 // march_band asks.  With kCount the block adds its slab tests to
-// work[kWorkShadeTests]; without, work is not read.
+// work[kWorkShadeTests] and its pixels marched to work[kWorkShadeMarched];
+// without, work is not read.
 template <bool kCount, class Px>
 __global__ void __launch_bounds__(par::kMarchThreads,
                                   par::kMarchBlocksPerSM)
@@ -1197,10 +1243,10 @@ extern "C" int par_shadow_lit(
 // palette (P, 4) uint8, lights (F, 3) int32; the tables, players and stats
 // as for par_shadow_lit; background bg_* and ambient as in RenderConfig.
 // Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
-// else lit (F, H, W) uint8 (0/1).  work (3,) int64 (MarchWork), added to,
-// or null: with it the launch counts its slab tests (shadow_shade_kernel
-// <true, WinnerPixels>), without it it runs the kernel that does not
-// count.  One block of
+// else lit (F, H, W) uint8 (0/1).  work (4,) int64 (MarchWork), added to,
+// or null: with it the launch counts its slab tests and pixels marched
+// (shadow_shade_kernel<true, WinnerPixels>), without it it runs the kernel
+// that does not count.  One block of
 // `threads` per (frame, bin column, band of the Grid's band_rows rows);
 // chunk >= kShadeKeys list entries staged at once.  Returns
 // cudaGetLastError().
@@ -1248,7 +1294,7 @@ extern "C" int par_shadow_shade(
 // (F, H, W) int32 (the G-buffer's surface point and entity); inv (F, 3)
 // float32 the reciprocal direction and offsets (F, 3) int32 the far-light
 // offsets K of each frame (ops/shadow_dir.direction_constants); stats as
-// for par_shadow_lit and work (3,) int64 (MarchWork), added to; max_steps
+// for par_shadow_lit and work (4,) int64 (MarchWork), added to; max_steps
 // >= 0 the step cap; fields (10,) int32 on the host, each key field's lo
 // then its bits (ops/shadow_dir.key_fields); the rest as for
 // par_shadow_lit.  Returns cudaGetLastError().
@@ -1347,15 +1393,17 @@ extern "C" int par_shadow_occupancy(int view_w, int view_h, int bin_size,
                    shade_smem(g, chunk), threads, out);
 }
 
-// The same for the winner-input point mode (the kernel that does not
-// count).
+// The same for the winner-input point mode: the kernel that counts its
+// work where `count` is not 0, else the one that does not.
 extern "C" int par_shadow_shade_occupancy(int view_w, int view_h,
                                           int bin_size, int bin_cap,
                                           int hash_w, int hash_h, int hash_l,
-                                          int threads, int chunk, int* out) {
+                                          int threads, int chunk, int count,
+                                          int* out) {
   const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
                     hash_l};
-  return occupancy(shadow_shade_kernel<false, WinnerPixels>,
+  return occupancy(count != 0 ? shadow_shade_kernel<true, WinnerPixels>
+                              : shadow_shade_kernel<false, WinnerPixels>,
                    shade_smem(g, chunk), threads, out);
 }
 

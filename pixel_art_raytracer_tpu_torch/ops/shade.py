@@ -125,22 +125,48 @@ def point_frames(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     scene's arrays as ``models/deferred.DeviceScene`` holds them; bins_ent
     (F, V, cap) and counts (F, V) int32; players and lights (F, 3) int32.
     Returns (F, H, W, 3) uint8 frames, or with ``frames=False`` the lit
-    mask (F, H, W) bool.  ``work`` receives the march's counts
-    (``shadow.trace_light_dynamic``).
+    mask (F, H, W) bool.
+
+    With frames, only the pixels whose colour the march can change are
+    marched (:func:`march_live`), as the kernel does; the frames are the
+    full chain's.  ``work`` receives the march's counts
+    (``shadow.trace_light_dynamic``) over the pixels marched, and their
+    number as ``work["marched_pixels"]`` (a 0-d int64 tensor).
     """
     y, z, ent, texel = trace.decode_winner(winner, pos, ext, sprite_id,
                                            atlas_depth, players, config)
     surface = GBufferArrays(normal=None, color=None, y=y, z=z,
                             entity_index=ent)
     tl, inv, origin, rb, lb = light_geometry(surface, lights, config)
-    lit = shadow.trace_light_dynamic(pos, ext, bins_ent, counts, rb, lb, ent,
-                                     origin, inv, players, config, work=work)
-    if not frames:
-        return lit
     color, normal = trace.texel_attributes(winner >= 0, texel, atlas_color,
                                            atlas_normal, palette, config)
-    return shade_u8(color, factor_from_dot(lambert_dot(normal, tl), lit,
-                                           config))
+    dot = lambert_dot(normal, tl)
+    live = march_live(dot, config) if frames else None
+    lit = shadow.trace_light_dynamic(pos, ext, bins_ent, counts, rb, lb, ent,
+                                     origin, inv, players, config, work=work,
+                                     live=live)
+    if work is not None:
+        work["marched_pixels"] = (
+            torch.tensor(lit.numel(), dtype=torch.int64, device=lit.device)
+            if live is None else live.sum())
+    if not frames:
+        return lit
+    return shade_u8(color, factor_from_dot(dot, lit, config))
+
+
+def march_live(dot: torch.Tensor, config: RenderConfig) -> torch.Tensor:
+    """Where a point frame's colour depends on its shadow ray: the pixels
+    whose factor lit (:func:`factor_from_dot`) differs from their factor
+    occluded.  The others (with ambient <= 1 every background pixel, whose
+    dot is 0 or NaN, and every face with a dot <= 0 or NaN; none with
+    ambient > 1) have the same colour either way, so neither the
+    winner-input point mode's kernel nor :func:`point_frames` marches
+    them."""
+    lit = factor_from_dot(dot, torch.ones_like(dot, dtype=torch.bool),
+                          config)
+    occluded = factor_from_dot(dot, torch.zeros_like(dot, dtype=torch.bool),
+                               config)
+    return lit != occluded
 
 
 def directional_frames(winner, pos, ext, sprite_id, atlas_color,

@@ -145,7 +145,8 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
                         start_ent, origin, inv_dir, players,
                         config: RenderConfig,
                         work: dict | None = None,
-                        max_steps: int | None = None) -> torch.Tensor:
+                        max_steps: int | None = None,
+                        live: torch.Tensor | None = None) -> torch.Tensor:
     """March every shadow ray; True where the light is reachable.
 
     Args:
@@ -170,6 +171,8 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
         ``None`` for no cap.  The JAX package's ``shadow.trace_light`` with
         its static ``max_steps`` (a scan of ``7 * max_steps`` phases, rays
         active while ``t < 7 * n_steps``) is this function with the cap.
+      live: (F, H, W) bool, the rays to march, or ``None`` for all: a ray
+        outside it tests nothing, counts no test and reads False.
     """
     cfg = config
     cap = cfg.bin_capacity
@@ -204,7 +207,8 @@ def trace_light_dynamic(pos, ext, bins_ent, counts, start_bin, end_bin,
 
     first = (_first_probes(start_bin, end_bin, rbx.shape, cfg, max_steps)
              if work is not None else None)
-    occluded = torch.zeros(rbx.shape, dtype=torch.bool, device=dev)
+    occluded = (torch.zeros(rbx.shape, dtype=torch.bool, device=dev)
+                if live is None else ~live)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     every_probe = torch.zeros((), dtype=torch.int64, device=dev)
     finite_tests = torch.zeros((), dtype=torch.int64, device=dev)

@@ -459,11 +459,14 @@ def occupancy(config: RenderConfig) -> tuple[int, ...]:
                              MARCH_THREADS, shade_chunk(config))
 
 
-def shade_occupancy(config: RenderConfig) -> tuple[int, ...]:
+def shade_occupancy(config: RenderConfig,
+                    counting: bool = False) -> tuple[int, ...]:
     """The same for the winner-input point mode, at its chunk and
-    threads."""
+    threads; with ``counting``, of the kernel that counts its work (the
+    one :func:`shade_point` launches while the program is traced)."""
     return kernels.occupancy("par_shadow_shade_occupancy", config,
-                             MARCH_THREADS, shade_chunk(config))
+                             MARCH_THREADS, shade_chunk(config),
+                             int(counting))
 
 
 def directional_occupancy(config: RenderConfig) -> tuple[int, ...]:

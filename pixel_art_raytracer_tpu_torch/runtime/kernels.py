@@ -56,7 +56,7 @@ SIGNATURES = {
     "par_shadow_occupancy": [_I] * 9 + [_P],
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_shade_occupancy": [_I] * 8 + [_P],
-    "par_shadow_shade_occupancy": [_I] * 9 + [_P],
+    "par_shadow_shade_occupancy": [_I] * 10 + [_P],
     "par_fused_occupancy": [_I] * 9 + [_P],
 }
 
@@ -181,12 +181,14 @@ class MarchCounters:
     (``max_starts``: start bins; in the directional mode, (start bin,
     light bin) pairs of one tile; the table's size + 1 where some did not
     fit) and the longest visit list;
-    and a (3,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
+    and a (4,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
     mode's union entries staged (``staged_entries``, summed over the tiles)
     and the slab tests it performed (``slab_tests``: its union lists and
     its direct march), and the slab tests of the winner-input mode's
     launches that count (``shade_slab_tests``: its lists and its direct
-    march).  Those launches run only while the program is traced
+    march) and their pixels marched (``shade_marched_pixels``: those not
+    settled; where a launch stores frames, the pixels whose colour the
+    march can change).  Those launches run only while the program is traced
     (``runtime/tracing.active``); their pixels, F * H * W a launch, add to
     the host count ``shade_pixels`` beside the tensor, every directional
     launch's (lit mask or frames) to ``dir_pixels``, and those of the
@@ -207,10 +209,10 @@ class MarchCounters:
         return self._stats[device]
 
     def work(self, device: torch.device) -> torch.Tensor:
-        """The (3,) int64 counters a directional or counting winner-input
+        """The (4,) int64 counters a directional or counting winner-input
         launch on ``device`` adds to."""
         if device not in self._work:
-            self._work[device] = torch.zeros(3, dtype=torch.int64,
+            self._work[device] = torch.zeros(4, dtype=torch.int64,
                                              device=device)
         return self._work[device]
 
@@ -224,13 +226,14 @@ class MarchCounters:
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
         vals = [t.tolist() for t in self._stats.values()] or [[0, 0, 0]]
-        work = [t.tolist() for t in self._work.values()] or [[0, 0, 0]]
+        work = [t.tolist() for t in self._work.values()] or [[0, 0, 0, 0]]
         return {"direct_pixels": sum(v[0] for v in vals),
                 "max_starts": max(v[1] for v in vals),
                 "max_list": max(v[2] for v in vals),
                 "staged_entries": sum(w[0] for w in work),
                 "slab_tests": sum(w[1] for w in work),
                 "shade_slab_tests": sum(w[2] for w in work),
+                "shade_marched_pixels": sum(w[3] for w in work),
                 "shade_pixels": self.shade_pixels,
                 "dir_pixels": self.dir_pixels,
                 "dir_shade_pixels": self.dir_shade_pixels}

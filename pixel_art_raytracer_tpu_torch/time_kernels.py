@@ -9,8 +9,9 @@ of 50 calls of ``trace_cuda.trace_winners`` and three means of 20 calls of
 center light orbit (F = 64), three means of 20 calls of
 ``shadow_cuda.trace_light`` (point mode) on that orbit's G-buffer and
 lights, three means of 20 calls of ``shadow_cuda.shade_point`` (the
-winner-input point mode, frames out) on that orbit's winners and lights
-where the tree has it, three means of 5 batches of that orbit through
+winner-input point mode, frames out, and then its lit mask) on that
+orbit's winners and lights where the tree has it, three means of 5
+batches of that orbit through
 ``AnimationRenderer.render_states`` (the main path, ms per batch of 64
 frames), three means of 20 calls of
 ``shadow_cuda.trace_light_directional`` on chip_smoke.py's directional
@@ -23,7 +24,9 @@ winner-input directional mode, dithered frames out) on that sweep's
 winners.  Where the tree has
 ``shade_point`` it also times three means of 5 of its calls on BASELINE
 config 5 at s = 4 (``bench_scale``'s scene and light orbit, F = 2, 4096**2
-pixels in bins of 160).  With ``--shade-sweep`` (trees whose winner-input
+pixels in bins of 160) and at s = 2 (F = 8, and three means of 3 calls
+at F = 64: 2048**2 pixels in bins of 80, the benchmark's config 5
+batches).  With ``--shade-sweep`` (trees whose winner-input
 mode streams its lists, ``shadow_cuda.shade_chunk``) it times that mode on
 both scenes at several chunk lengths, each with its shared memory and
 blocks per SM.  Apart from ``shade_point`` and ``shade_directional``,
@@ -166,6 +169,8 @@ def main(label: str, sweep: bool = False) -> dict:
                  players, lights, cfg)
         out["shade_ms"] = [ms(lambda: shadow_cuda.shade_point(*wargs), 20)
                            for _ in range(3)]
+        out["shade_lit_ms"] = [ms(lambda: shadow_cuda.shade_point(
+            *wargs, frames=False), 20) for _ in range(3)]
         c5args = config5_winners()
         out["shade_config5_s4_ms"] = [
             ms(lambda: shadow_cuda.shade_point(*c5args), 5) for _ in range(3)]
@@ -173,6 +178,12 @@ def main(label: str, sweep: bool = False) -> dict:
             out["shade_sweep"] = shade_sweep({"graybox": wargs,
                                               "config5_s4": c5args})
         del c5args
+        for frames, reps in ((8, 5), (64, 3)):
+            c5args = config5_winners(2, frames)
+            out[f"shade_config5_s2_f{frames}_ms"] = [
+                ms(lambda: shadow_cuda.shade_point(*c5args), reps)
+                for _ in range(3)]
+            del c5args
     if hasattr(shadow_cuda, "shade_directional"):
         dsargs = (win, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
                   ds.atlas_depth, ds.atlas_normal, ds.palette,

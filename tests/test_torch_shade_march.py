@@ -258,9 +258,11 @@ def test_cuda_shade_march_occupancy(cuda):
     for name, want in (("graybox", 4), ("config5_s2", 4), ("config5_s4", 4),
                        ("wide_52x52x8", 3)):
         cfg = GRIDS[name]
-        smem, blocks, regs, _ = shadow_cuda.shade_occupancy(cfg)
-        assert smem == shadow_cuda.shade_smem_bytes(cfg)
-        assert blocks == want and regs > 0, name
+        for counting in (False, True):
+            smem, blocks, regs, _ = shadow_cuda.shade_occupancy(cfg,
+                                                                counting)
+            assert smem == shadow_cuda.shade_smem_bytes(cfg)
+            assert blocks == want and regs > 0, (name, counting)
 
 
 def test_shade_phase_marks_match_the_phases():
