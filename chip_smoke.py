@@ -51,8 +51,8 @@ unless:
     the CPU's count (``ops/shadow_dir.tile_unions``), which is below the
     per-key lists' entries;
   * each batch launches exactly the merge kernel once and: multi-light
-    trace 1, shadow 3, fused 0 on
-    both settings of ``fuse_trace_shadow``; directional trace 1 and the
+    trace 1 and the multi-light mode 1 without ``fuse_trace_shadow``,
+    trace 1, shadow 3, fused 0 with it; directional trace 1 and the
     directional mode 1, fused 0, on both; dithered with a point light the
     fused kernel once with ``fuse_trace_shadow`` and trace 1 + shadow 1
     without;
@@ -102,6 +102,14 @@ the F = 64 batch traced at 2048**2 on a cache, and its frame 0, each equal
 to ``plain_box_filter`` of the same tensor in one launch with no host
 wait; ``SupersampledRenderer.render_states`` of the batch launches it
 exactly once, a still once; its time, the plain chain's and its bound.
+Then the multi-light mode of the shadow kernel on the first batch of the
+benchmark's ``graybox_lights3.orbit3x64`` cell (``lights3_phase``: F =
+64, three orbiting lights a frame): equal to its plain version, to the
+G-buffer route's frames and, at one light, to the winner-input point
+mode; its counting kernel's pixel-lights and slab tests the plain
+version's; ``render_states`` one launch of it a batch with no G-buffer
+or ``sync.*`` span; ``ptxas -v`` of it and the single-light kernel, and
+its time beside the G-buffer route's.
 
 Then the port's run entry points, each driven with the launch counts set
 to 0 just before it and read just after (every ``StaticBins`` cache built
@@ -586,7 +594,8 @@ def point_entry(mangled: str) -> str | None:
     if "shadow_shade_kernel" not in mangled:
         return None
     count = "true" if "shadow_shade_kernelILb1E" in mangled else "false"
-    px = "WinnerPixels" if "WinnerPixels" in mangled else "PixelRays"
+    px = next((p for p in ("WinnerPixels", "LightPixels")
+               if p in mangled), "PixelRays")
     return f"shadow_shade_kernel<{count}, {px}>"
 
 
@@ -1046,11 +1055,169 @@ def filter_phase(card: str) -> list[dict]:
     return rows
 
 
+LIGHTS_CELL = "graybox_lights3.orbit3x64"
+LIGHTS_SEED = 2 ** 31 + 2525
+LIGHTS_SOURCE = ("pixel_art_raytracer_tpu_torch/csrc/shadow.cu "
+                 "multi-light mode",
+                 "none: the JAX package's multi-light frames run its "
+                 "_shadow_kernel once a light (models/batched.py:896-905)")
+# Spans that would mean a G-buffer or a host wait on the batch path.
+GBUFFER_SPANS = ("batch.gbuffer", "batch.geometry", "batch.lights",
+                 "batch.shadow", "batch.fused")
+
+
+def lights3_phase(card: str, scene=None) -> list[dict]:
+    """The multi-light mode of ``shadow.cu`` (``shadow_cuda.shade_lights``)
+    on the first batch of the benchmark's ``graybox_lights3.orbit3x64``
+    cell: graybox at F = 64 with the mix's three orbiting lights a frame
+    and the player's walk, as ``port_bench``'s generator draws them at
+    LIGHTS_SEED.  Raises unless the kernel's frames equal its plain
+    version (``shade.light_frames``, on the card's tensors) and the
+    G-buffer route's (``gbuffer_and_frames``: ``multi_light_stage``, three
+    launches of the G-buffer point mode); its L = 1 frames equal the
+    winner-input point mode's; the counting kernel (under a profiler)
+    gives the same frames and marches the plain version's pixel-lights
+    with its slab tests; and ``render_states`` of the batch launches the
+    merge, trace and the multi-light mode once each, opens no G-buffer
+    span and no ``sync.*`` span inside its ``batch`` span, and equals the
+    plain frames.  Prints ``ptxas -v`` of the multi-light and single-light
+    winner-input instantiations, their occupancy, the launch counts and
+    the per-call ms of the kernel, the batch and the G-buffer route.
+    Alone on the card: ``python3 -c "import chip_smoke as cs; from
+    pixel_art_raytracer_tpu_torch.runtime import kernels;
+    kernels.library(); cs.lights3_phase(cs.require_card())"``."""
+    from port_bench import spec, traffic
+    cfg = DEFAULT_CONFIG
+    tag = LIGHTS_CELL
+    cell = spec.load_cell(LIGHTS_CELL)
+    mix = dict(cell.traffic, prestaged_batches=1)
+    if scene is None:
+        scene = graybox_world(cfg)
+    r = DeferredRenderer(cfg).configure_for(scene)
+    cache = StaticBins(scene.pos, scene.ext, 1, cfg, r.spans)
+    anim = AnimationRenderer(r, cfg, static_bins=cache)
+    ds = DeviceScene.from_scene(scene, cfg)
+    players, _ = traffic.batch_states(mix, cell.config, LIGHTS_SEED,
+                                      np.asarray(scene.pos[0]))
+    lights = spec.load_module(spec.ROOT / "entries" / "lights.py") \
+        .orbit_lights(mix, cell.config, LIGHTS_SEED)
+    players = torch.as_tensor(players[0], device="cuda")
+    lights = torch.as_tensor(lights[0], device="cuda")
+    F, L = lights.shape[:2]
+    H, W = cfg.view_height, cfg.view_width
+
+    ptx = point_ptxas(card)
+    for counting in (False, True):
+        smem, blocks, regs, local = shadow_cuda.lights_occupancy(
+            cfg, counting=counting)
+        print(f"{tag}: multi-light kernel{' (counting)' if counting else ''}"
+              f": {smem} B of shared memory per block, {blocks} blocks per "
+              f"SM at {shadow_cuda.MARCH_THREADS} threads, {regs} registers "
+              f"and {local} B of local memory a thread  [{card}]")
+    for k in ("shadow_shade_kernel<false, LightPixels>",
+              "shadow_shade_kernel<false, WinnerPixels>"):
+        if k not in ptx:
+            raise RuntimeError(f"{tag}: no ptxas line for {k}")
+
+    be, cnt = batched.bin_stage(r, cache, ds, players)
+    win = batched.winner_stage(r, ds, be, cnt, players)
+    head = (win, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
+            ds.atlas_depth, ds.atlas_normal, ds.palette, be, cnt, players)
+    frames_k = shadow_cuda.shade_lights(*head, lights, cfg)
+    work = {}
+    frames_p, plain_ms = timed(lambda: shade.light_frames(*head, lights, cfg,
+                                                          work=work))
+    require_equal(tag, "multi-light kernel vs shade.light_frames", frames_k,
+                  frames_p)
+    gbuffer_route = batched.gbuffer_and_frames(r, cache, ds, players,
+                                               lights)[1]
+    require_equal(tag, "multi-light kernel vs the G-buffer route", frames_k,
+                  gbuffer_route)
+    require_equal(tag, "multi-light kernel at L = 1 vs the winner-input "
+                  "point mode",
+                  shadow_cuda.shade_lights(*head, lights[:, :1].contiguous(),
+                                           cfg),
+                  shadow_cuda.shade_point(*head, lights[:, 0].contiguous(),
+                                          cfg))
+    print(f"{tag}: F={F}, L={L}: multi-light kernel == shade.light_frames "
+          f"== the G-buffer route, bit-exact; at L = 1 == shade_point")
+
+    shadow_cuda.counters.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        counted = shadow_cuda.shade_lights(*head, lights, cfg)
+    torch.cuda.synchronize()
+    c = shadow_cuda.counters.read()
+    require_equal(tag, "counting multi-light kernel frames", counted,
+                  frames_p)
+    marched, tests = c["light_marched_pixels"], c["light_slab_tests"]
+    lo, hi = int(work["slab_tests"]), int(work["slab_tests_every_probe"])
+    if c["direct_pixels"] == 0:
+        hi = lo
+    print(f"{tag}: multi-light kernel marched {marched} of "
+          f"{c['light_pixels']} pixel-lights "
+          f"({marched / c['light_pixels']:.4f}; plain "
+          f"{int(work['marched_pixels'])}), {tests} slab tests "
+          f"({tests / c['light_pixels']:.4f} a pixel-light; plain {lo}), "
+          f"{c['direct_pixels']} marched directly, at most "
+          f"{c['max_starts']} start bins a band")
+    if c["light_pixels"] != F * H * W * L or \
+            marched != int(work["marched_pixels"]) or not lo <= tests <= hi:
+        raise RuntimeError(f"{tag}: the counting kernel marched {marched} "
+                           f"pixel-lights with {tests} slab tests, the "
+                           f"plain version {int(work['marched_pixels'])} "
+                           f"with {lo}")
+
+    reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        frames = anim.render_states(ds, players, lights)
+    got = launches_are(f"{tag}, render_states per batch",
+                       {"merge": 1, "trace": 1, "shadow_lights": 1})
+    spans = {e.name for e in prof.events()
+             if e.name.startswith(("batch", "sync."))}
+    bad = sorted(n for n in spans
+                 if n in GBUFFER_SPANS or n.startswith("sync."))
+    print(f"{tag}: render_states spans {sorted(spans)}")
+    if bad or "batch.shade" not in spans:
+        raise RuntimeError(f"{tag}: render_states opened {bad}")
+    require_equal(tag, "render_states vs shade.light_frames", frames,
+                  frames_p)
+
+    ms = cuda_ms(lambda: shadow_cuda.shade_lights(*head, lights, cfg),
+                 KERNEL_REPS)
+    one_ms = cuda_ms(lambda: shadow_cuda.shade_point(
+        *head, lights[:, 0].contiguous(), cfg), KERNEL_REPS)
+    batch_ms = cuda_ms(lambda: anim.render_states(ds, players, lights),
+                       TIMED_REPS)
+    gbuffer_ms = cuda_ms(lambda: batched.gbuffer_and_frames(
+        r, cache, ds, players, lights), TIMED_REPS)
+    pixels = F * H * W
+    n_bytes = (nbytes(win, players, lights, frames_k)
+               + entity_bytes(be, cnt, ds.pos, ds.ext))
+    n_ops = (26 + 26 * L + 8) * pixels
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"{tag}: multi-light kernel {ms:.4f} ms a call (single-light "
+          f"{one_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {ms / bound_ms:.1f}x); batch "
+          f"(render_states) {batch_ms:.4f} ms, G-buffer route "
+          f"{gbuffer_ms:.4f} ms, {(1 + L) * pixels / (batch_ms * 1e3):.2f} "
+          f"Mrays/s ({1 + L} rays a pixel) at F={F}  [{card}]")
+    row = {"name": "shadow_lights", "route": "cuda",
+           "source": LIGHTS_SOURCE[0], "replaces": LIGHTS_SOURCE[1],
+           "launches": got["shadow_lights"], "max_abs_err":
+           max_abs_err(frames_k, frames_p), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    del ds, cache, anim, frames_k, frames_p, gbuffer_route, counted, frames
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def reset_launches() -> None:
     trace_cuda.launches = shadow_cuda.launches = fused_cuda.launches = 0
     shadow_cuda.directional_launches = shadow_cuda.shade_launches = 0
     shadow_cuda.dir_shade_launches = binning_cuda.launches = 0
-    binning_cuda.merge_launches = 0
+    binning_cuda.merge_launches = shadow_cuda.light_launches = 0
 
 
 read_launches = bench.launch_counts
@@ -2895,7 +3062,8 @@ def main() -> int:
         tag = "fused setting" if fuse else "two-kernel setting"
         for label, a, players, lights, directional, want in (
                 ("multi-light", anim, home, multi, False,
-                 {**none, "trace": 1, "shadow": 3}),
+                 {**none, "trace": 1, "shadow": 3} if fuse
+                 else {**none, "trace": 1, "shadow_lights": 1}),
                 ("directional", anim, home, dirs, True, directional_only),
                 ("dithered point", anim_dithered, center_players,
                  center_lights, False,
@@ -2914,9 +3082,10 @@ def main() -> int:
                           shadow_cuda.counters.read(), n_pix,
                           keys=DIRECTIONAL_KEY_LABEL)
     mode_launches = counts["directional, two-kernel setting"]
-    # The G-buffer point mode's launches: the multi-light path's, one a
-    # light (the main path takes the winner-input mode).
-    launches["shadow"] = counts["multi-light, two-kernel setting"]["shadow"]
+    # The G-buffer point mode's launches: the multi-light path's with the
+    # fused opt-in, one a light (the main paths take the winner-input and
+    # multi-light modes).
+    launches["shadow"] = counts["multi-light, fused setting"]["shadow"]
     for label in ("multi-light", "directional", "dithered point",
                   "dithered directional"):
         require_equal(label, "fused-setting frames vs two-kernel frames",
@@ -3063,6 +3232,7 @@ def main() -> int:
     rows += binning_phase(card)
     rows += merge_phase(card, scene)
     rows += filter_phase(card)
+    rows += lights3_phase(card, scene)
 
     # -- 15. the run entry points: bench, bench_scale --nonramp, make_demo --
     renderer.fuse_trace_shadow = False

@@ -144,6 +144,7 @@ def launch_counts() -> dict[str, int]:
     ``ops/*_cuda``)."""
     return {"trace": trace_cuda.launches, "shadow": shadow_cuda.launches,
             "shadow_shade": shadow_cuda.shade_launches,
+            "shadow_lights": shadow_cuda.light_launches,
             "shadow_directional": shadow_cuda.directional_launches,
             "shadow_dir_shade": shadow_cuda.dir_shade_launches,
             "fused": fused_cuda.launches, "binning": binning_cuda.launches,

@@ -49,6 +49,20 @@
 // writes RGB.  No G-buffer, dot, lit mask or factor reaches device memory.
 // Its plain version is ops/shade.py::directional_frames.
 //
+// Multi-light mode (par_shadow_lights): the winner-input point mode's
+// frames under L point lights a frame whose shadowed diffuse adds (the
+// JAX package's framework extension, ops/shade.py::shade_multi and
+// models/batched.py:896-905; the reference keeps a vector of lights and
+// shades with its first).  One launch: each block decodes its pixels once,
+// marches them toward each light in order (a pixel whose factor toward
+// that light is the ambient one lit or not takes no key and no march for
+// it), adds each light's max(factor - ambient, 0) to a float32 sum and
+// stores trunc(colour * min(1, ambient + sum)) once, the op sequence of
+// ops/shade.py's add_light, multi_light_factor and shade_u8.  No G-buffer,
+// ray buffer, lit mask or factor reaches device memory; the running sum
+// does, in a scratch each pixel's thread alone reads and writes.  Its
+// plain version is ops/shade.py::light_frames.
+//
 // Directional mode (par_shadow_dir_lit): the march of the JAX package's
 // shade_directional, i.e. trace_light_dynamic with the per-pixel light bins
 // of ops/shadow_dir.py::pixel_light_bins and the step cap max_steps
@@ -117,6 +131,8 @@
 // Shared memory is then fixed but for the V / 8 B of each key's mask
 // (ShadeSmem::bytes), and the wrapper takes the longest chunk, up to 32
 // entries, at which 4 blocks fit an SM (shadow_cuda.shade_chunk).
+// The multi-light mode (Px = LightPixels) is the same march once a light,
+// its pixels kept in the band's shared memory from one light to the next.
 // shadow_shade_kernel<false, WinnerPixels> is the render path's kernel,
 // and shadow_shade_kernel<true, WinnerPixels>, which the wrapper launches
 // only while the program is traced (runtime/tracing.py), also counts its
@@ -217,6 +233,17 @@ struct WinnerPixels {
   int sprite_w, sprite_h;
   int bg_r, bg_g, bg_b;        // the background colour
   float ambient;
+};
+
+// Inputs of the multi-light mode: the winner-input point mode's, whose
+// lights are (F, L, 3), n_lights = L point lights a frame in the order
+// their diffuse adds, and the (F, H, W) float32 sum of the lights' diffuse
+// so far, which each pixel's thread writes after a light and reads at the
+// next (null where L is 1).
+struct LightPixels {
+  WinnerPixels w;
+  int n_lights;
+  float* sums;
 };
 
 // A pixel's surface as ops/trace.py::decode_winner gives it: the world y
@@ -354,20 +381,25 @@ constexpr unsigned long long kNoKey = ~0ull;
 // bytes spilled), which measured faster than 3 blocks without spills.
 constexpr int kDirBlocksPerSM = 4;
 
-// 64-bit counters, one (4,) int64 array per launch's caller (added to):
+// 64-bit counters, one (6,) int64 array per launch's caller (added to):
 // the directional mode's union entries staged, summed over the tiles, and
 // the slab tests it performed, on its union lists and in its direct march;
-// and the winner-input mode's slab tests, on its lists and in its direct
+// the winner-input mode's slab tests, on its lists and in its direct
 // march, and its pixels marched (those not settled), in the launches that
-// count (shadow_shade_kernel<true>).
+// count (shadow_shade_kernel<true, WinnerPixels>); and the same two of the
+// multi-light mode, over its lights (shadow_shade_kernel<true,
+// LightPixels>: slab tests and pixel-lights marched).
 enum MarchWork {
   kWorkStaged = 0,
   kWorkTests = 1,
   kWorkShadeTests = 2,
-  kWorkShadeMarched = 3
+  kWorkShadeMarched = 3,
+  kWorkLightTests = 4,
+  kWorkLightMarched = 5
 };
 // march_band adds its slab tests and its pixels marched side by side.
 static_assert(kWorkShadeMarched == kWorkShadeTests + 1, "march_band's work");
+static_assert(kWorkLightMarched == kWorkLightTests + 1, "march_band's work");
 
 // The fields of a packed key, in order: the start bin's y and z, and the
 // light bin minus the start bin in x, y and z (the start bin's x is the
@@ -634,6 +666,82 @@ struct WinnerRays : par::SurfaceRays {
   }
 };
 
+// march_band's source of the multi-light mode for light l of the frame's
+// n_lights: WinnerRays toward that light, whose loads and stores keep a
+// pixel across the lights.  Light 0's load decodes each pixel from its
+// winner into the band's shared memory (y, z, entity, texel), which
+// march_band's other steps leave as they are, and the later lights' loads
+// read it back (a thread loads the same pixels at every light), so a
+// winner is decoded once.  For light l a pixel settles where its factor
+// lit toward l is the ambient factor (background pixels at every light
+// where bg_settles): its factor is then the ambient either way, and light
+// l adds max(ambient - ambient, 0) to its sum.  The store adds
+// max(factor_l - ambient, 0) (a max that keeps a NaN gain, as
+// ops/shade.py's add_light) to the pixel's float32 sum, which it keeps in
+// `sums` between lights; the last light's store writes trunc(colour *
+// min(1, ambient + sum)) (a min that keeps a NaN total: ops/shade.py's
+// multi_light_factor, then shade_u8).
+struct LightRays : WinnerRays {
+  int l;
+  int n_lights;
+  bool bg_settles;
+  float* sums;
+
+  __device__ bool load(const par::ShadeSmem& s, const par::Grid& g, int q,
+                       int i, int j) const {
+    int y, z, texel;
+    if (l == 0) {
+      const Surface u = decode_winner(pos, ext, players, px, g, f, i, j);
+      y = u.y;
+      z = u.z;
+      texel = u.hit ? u.texel : -1;
+      s.y[q] = y;
+      s.z[q] = z;
+      s.self[q] = u.ent;
+      s.texel[q] = texel;
+    } else {
+      y = s.y[q];
+      z = s.z[q];
+      texel = s.texel[q];
+    }
+    if (texel < 0 && bg_settles) return true;
+    const float3 tl = par::towards_light(i, y, z, light);
+    if (lit_factor(texel, tl) == px.ambient) return true;
+    s.ivx[q] = 1.0f / tl.x;
+    s.ivy[q] = 1.0f / tl.y;
+    s.ivz[q] = 1.0f / tl.z;
+    return false;
+  }
+  __device__ void store(const par::ShadeSmem& s, const par::Grid& g, int q,
+                        int i, int j, bool occluded) const {
+    const size_t o = g.pixel(f, i, j);
+    const int texel = s.texel[q];
+    const float factor =
+        occluded ? px.ambient
+                 : lit_factor(texel, par::towards_light(i, s.y[q], s.z[q],
+                                                        light));
+    const float gain = factor - px.ambient;
+    const float sum = (l == 0 ? 0.0f : sums[o]) + (gain < 0.0f ? 0.0f : gain);
+    if (l + 1 < n_lights) {
+      sums[o] = sum;
+      return;
+    }
+    const float total = px.ambient + sum;
+    const float shade = 1.0f < total ? 1.0f : total;
+    int col[3] = {px.bg_r, px.bg_g, px.bg_b};
+    if (texel >= 0) {
+      const unsigned char* c = px.palette + 4 * px.atlas_color[texel];
+      col[0] = c[0];
+      col[1] = c[1];
+      col[2] = c[2];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      rgb[3 * o + a] = static_cast<unsigned char>(
+          static_cast<int>(static_cast<float>(col[a]) * shade));
+  }
+};
+
 // A start bin's three components in one word, kRayField bits each (biased
 // by half their range), where they fit.
 constexpr int kRayField = 21;
@@ -724,6 +832,16 @@ __device__ __forceinline__ BufferRays source(
   return BufferRays{rays, f, max_steps, lit};
 }
 
+// The source of light l of frame f in the multi-light mode.
+__device__ __forceinline__ LightRays light_source(
+    const LightPixels& px, const int* pos, const int* ext,
+    const int* players, int f, int l, bool bg_settles, unsigned char* rgb) {
+  const int* lt = px.w.lights + 3 * (static_cast<size_t>(f) * px.n_lights + l);
+  return LightRays{{{}, pos, ext, players, px.w, f,
+                    make_int3(lt[0], lt[1], lt[2]), nullptr, rgb},
+                   l, px.n_lights, bg_settles, px.sums};
+}
+
 // The point modes: march_band over band blockIdx.z of bin-column tile
 // blockIdx.x of the Grid's window, frame blockIdx.y (par::Band::of_block),
 // from the winners (Px = WinnerPixels: the lit mask, or with rgb the
@@ -732,6 +850,11 @@ __device__ __forceinline__ BufferRays source(
 // march_band asks.  With kCount the block adds its slab tests to
 // work[kWorkShadeTests] and its pixels marched to work[kWorkShadeMarched];
 // without, work is not read.
+// The multi-light mode (Px = LightPixels: the shaded frame into rgb) runs
+// march_band once a light, in light order, on the same shared memory
+// (LightRays), a barrier between lights; with kCount it adds its slab
+// tests and pixel-lights marched to work[kWorkLightTests] and
+// work[kWorkLightMarched].
 template <bool kCount, class Px>
 __global__ void __launch_bounds__(par::kMarchThreads,
                                   par::kMarchBlocksPerSM)
@@ -745,11 +868,29 @@ shadow_shade_kernel(
   extern __shared__ __align__(16) int smem[];
   const par::ShadeSmem s(smem, g, g.band_pixels(), chunk);
   const int f = blockIdx.y;
-  const auto src = source(px, pos, ext, players, f, max_steps, lit, rgb);
-  par::march_band<kCount>(pos, ext, players, bins_ent, counts, f, g,
-                          par::Band::of_block(g), src.light_bin(g),
-                          src.max_steps, s, chunk, src, stats,
-                          kCount ? work + kWorkShadeTests : nullptr);
+  if constexpr (std::is_same_v<Px, LightPixels>) {
+    const par::Band b = par::Band::of_block(g);
+    // Whether the background settles, once for all lights: its normal is
+    // 0, so its factor lit is the same toward every light.
+    const bool bg_settles =
+        light_source(px, pos, ext, players, f, 0, false, rgb)
+            .lit_factor(-1, make_float3(0.0f, 0.0f, 0.0f)) == px.w.ambient;
+    for (int l = 0; l < px.n_lights; ++l) {
+      if (l > 0) __syncthreads();
+      const LightRays src =
+          light_source(px, pos, ext, players, f, l, bg_settles, rgb);
+      par::march_band<kCount>(pos, ext, players, bins_ent, counts, f, g, b,
+                              src.light_bin(g), src.max_steps, s, chunk,
+                              src, stats,
+                              kCount ? work + kWorkLightTests : nullptr);
+    }
+  } else {
+    const auto src = source(px, pos, ext, players, f, max_steps, lit, rgb);
+    par::march_band<kCount>(pos, ext, players, bins_ent, counts, f, g,
+                            par::Band::of_block(g), src.light_bin(g),
+                            src.max_steps, s, chunk, src, stats,
+                            kCount ? work + kWorkShadeTests : nullptr);
+  }
 }
 
 // The lit mask (Px = SurfacePixels: out is (F, H, W) 0/1) or the frame
@@ -1243,7 +1384,7 @@ extern "C" int par_shadow_lit(
 // palette (P, 4) uint8, lights (F, 3) int32; the tables, players and stats
 // as for par_shadow_lit; background bg_* and ambient as in RenderConfig.
 // Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
-// else lit (F, H, W) uint8 (0/1).  work (4,) int64 (MarchWork), added to,
+// else lit (F, H, W) uint8 (0/1).  work (6,) int64 (MarchWork), added to,
 // or null: with it the launch counts its slab tests and pixels marched
 // (shadow_shade_kernel<true, WinnerPixels>), without it it runs the kernel
 // that does not count.  One block of
@@ -1290,11 +1431,60 @@ extern "C" int par_shadow_shade(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The multi-light mode over the whole view: rgb (F, H, W, 3) uint8, the
+// frames of lights (F, L, 3) int32, L = n_lights >= 1 point lights a frame
+// whose diffuse adds in light order; sums (F, H, W) float32 scratch, or
+// null where L is 1; work (6,) int64 (MarchWork), added to, or null (with
+// it the counting kernel, shadow_shade_kernel<true, LightPixels>); the rest
+// as for par_shadow_shade.  One launch: each block marches its band once a
+// light.  Returns cudaGetLastError().
+extern "C" int par_shadow_lights(
+    const void* pos, const void* ext, const void* players,
+    const void* bins_ent, const void* counts, const void* winner,
+    const void* sprite_id, const void* atlas_depth, const void* atlas_color,
+    const void* atlas_normal, const void* palette, const void* lights,
+    void* sums, void* rgb, void* stats, void* work, int n_frames,
+    int n_lights, int view_w, int view_h, int bin_size, int bin_cap,
+    int hash_w, int hash_h, int hash_l, int sprite_w, int sprite_h, int bg_r,
+    int bg_g, int bg_b, float ambient, int chunk, int threads,
+    void* stream) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  const size_t smem = shade_smem(g, chunk);
+  const auto kernel = work == nullptr
+                          ? shadow_shade_kernel<false, LightPixels>
+                          : shadow_shade_kernel<true, LightPixels>;
+  const int rc = allow_smem(kernel, smem);
+  if (rc != 0) return rc;
+  const LightPixels px{WinnerPixels{static_cast<const int*>(winner),
+                                    static_cast<const int*>(sprite_id),
+                                    static_cast<const int*>(atlas_depth),
+                                    static_cast<const int*>(atlas_color),
+                                    static_cast<const float*>(atlas_normal),
+                                    static_cast<const unsigned char*>(palette),
+                                    static_cast<const int*>(lights),
+                                    sprite_w,
+                                    sprite_h,
+                                    bg_r,
+                                    bg_g,
+                                    bg_b,
+                                    ambient},
+                       n_lights, static_cast<float*>(sums)};
+  const dim3 grid(hash_w * hash_h, n_frames, g.bands);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(pos), static_cast<const int*>(ext),
+      static_cast<const int*>(players), static_cast<const int*>(bins_ent),
+      static_cast<const int*>(counts), px, nullptr,
+      static_cast<unsigned char*>(rgb), static_cast<int*>(stats),
+      static_cast<unsigned long long*>(work), g, par::kNoStepCap, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The directional mode.  lit (F, H, W) uint8 (0/1); y, z, start_ent
 // (F, H, W) int32 (the G-buffer's surface point and entity); inv (F, 3)
 // float32 the reciprocal direction and offsets (F, 3) int32 the far-light
 // offsets K of each frame (ops/shadow_dir.direction_constants); stats as
-// for par_shadow_lit and work (4,) int64 (MarchWork), added to; max_steps
+// for par_shadow_lit and work (6,) int64 (MarchWork), added to; max_steps
 // >= 0 the step cap; fields (10,) int32 on the host, each key field's lo
 // then its bits (ops/shadow_dir.key_fields); the rest as for
 // par_shadow_lit.  Returns cudaGetLastError().
@@ -1404,6 +1594,19 @@ extern "C" int par_shadow_shade_occupancy(int view_w, int view_h,
                     hash_l};
   return occupancy(count != 0 ? shadow_shade_kernel<true, WinnerPixels>
                               : shadow_shade_kernel<false, WinnerPixels>,
+                   shade_smem(g, chunk), threads, out);
+}
+
+// The same for the multi-light mode.
+extern "C" int par_shadow_lights_occupancy(int view_w, int view_h,
+                                           int bin_size, int bin_cap,
+                                           int hash_w, int hash_h,
+                                           int hash_l, int threads,
+                                           int chunk, int count, int* out) {
+  const par::Grid g{view_w, view_h, bin_size, bin_cap, hash_w, hash_h,
+                    hash_l};
+  return occupancy(count != 0 ? shadow_shade_kernel<true, LightPixels>
+                              : shadow_shade_kernel<false, LightPixels>,
                    shade_smem(g, chunk), threads, out);
 }
 

@@ -27,16 +27,30 @@ either style, runs stages 1-2 and
                 uint8 (:func:`shade_directional_stage`),
 
 the G-buffer route's frames with no G-buffer, dot, lit mask or factor in
-device memory.
+device memory.  Additive multi-light, (F, L, 3) point lights (L >= 1) in
+``style="reference"`` without the fused opt-in, runs stages 1-2 and
+
+  3. shade    — kernel 2's multi-light mode, one launch: each pixel's
+                surface decoded from its winner once, then for each light
+                in order its shadow ray, the march (only where the pixel's
+                colour can change), the Lambert dot and the light's
+                ``max(factor - ambient, 0)`` added to a float32 sum, and
+                the u8 scale of ``min(1, ambient + sum)`` stored once →
+                (F, H, W, 3) uint8 (:func:`shade_lights_stage`),
+
+the frames of the G-buffer route's :func:`multi_light_stage` and
+:func:`shade_stage`, with no G-buffer, ray buffer, lit mask or factor in
+device memory (the JAX package's shade epilogue takes one light; this
+mode is the port's).
 
 The other requests keep the G-buffer, each by the JAX package's own path
 choice: the callers that hand the G-buffer back (``gbuffer_and_frames``:
 ``DeferredRenderer.render_with_gbuffer``, hence the session, the viewer and
-single frames; its directional route is the one below) and the row windows
-of ``parallel/mesh.py``, additive multi-light and the dithered style of
-point lights (the JAX shade epilogue excludes both: they need per-light
-lit masks or re-quantise), and the fused opt-in (the JAX fused kernel has
-no shade epilogue).  Their point lights run
+single frames; its directional and multi-light routes are the ones below)
+and the row windows of ``parallel/mesh.py``, the dithered style of point
+lights (the JAX shade epilogue excludes it: it re-quantises), and the
+fused opt-in (the JAX fused kernel has no shade epilogue).  Their point
+lights run
 
   2. trace    — kernel 1 → winners → ``materialize_gbuffer``,
   3. geometry — ``light_geometry`` and the Lambert dot,
@@ -57,9 +71,10 @@ same.  There is no fallback: a shape the fused kernel cannot take raises.
 The other lighting modes replace stages 3-4, as the JAX package's batched
 path does (``models/batched.py:888-905`` there):
 
-* additive multi-light, (F, L, 3) lights: stages 3-4 run once per light
-  (L launches of kernel 2) and each light's shadowed diffuse adds over the
-  shared ambient base (:func:`multi_light_stage`);
+* additive multi-light, (F, L, 3) lights, in ``gbuffer_and_frames``, the
+  dithered style and the fused opt-in: stages 3-4 run once per light (L
+  launches of kernel 2's G-buffer mode) and each light's shadowed diffuse
+  adds over the shared ambient base (:func:`multi_light_stage`);
 * directional lights, ``directional=True`` with (F, 3) float32 directions
   toward the light, in ``gbuffer_and_frames``: the frame's constant
   direction gives the Lambert dot, and kernel 2's directional mode marches
@@ -160,6 +175,19 @@ def shade_point_stage(renderer, dscene, bins_ent, counts, players, winners,
     winner-input point mode (surface, shadow ray, march and shade in one
     launch).  Returns (F, H, W, 3) uint8."""
     return shadow_cuda.shade_point(
+        winners, dscene.pos, dscene.ext, dscene.sprite_id,
+        dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
+        dscene.palette, bins_ent, counts, players, lights, renderer.config)
+
+
+@tracing.spanned("batch.shade")
+def shade_lights_stage(renderer, dscene, bins_ent, counts, players, winners,
+                       lights):
+    """The frames of (F, L, 3) point lights whose diffuse adds, from the
+    winners, in kernel 2's multi-light mode (surface once, then each
+    light's shadow ray, march and diffuse, and the shade, in one launch).
+    Returns (F, H, W, 3) uint8."""
+    return shadow_cuda.shade_lights(
         winners, dscene.pos, dscene.ext, dscene.sprite_id,
         dscene.atlas_color, dscene.atlas_depth, dscene.atlas_normal,
         dscene.palette, bins_ent, counts, players, lights, renderer.config)
@@ -297,6 +325,9 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
     if directional:
         return shade_directional_stage(renderer, dscene, bins_ent, counts,
                                        players, winners, lights)
+    if lights.dim() == 3:
+        return shade_lights_stage(renderer, dscene, bins_ent, counts,
+                                  players, winners, lights)
     return shade_point_stage(renderer, dscene, bins_ent, counts, players,
                              winners, lights)
 
@@ -304,11 +335,14 @@ def render_states_batched(renderer, static_bins, dscene, players, lights,
 def winner_inputs(renderer, lights, directional: bool) -> bool:
     """Whether a batch shades from the winners in kernel 2: (F, 3)
     directions in either style (the winner-input directional mode), or
-    (F, 3) point lights in ``style="reference"`` without the fused opt-in
-    (the winner-input point mode; module docstring)."""
+    (F, 3) point lights or (F, L, 3) with L >= 1 in ``style="reference"``
+    without the fused opt-in (the winner-input point mode or the
+    multi-light mode; module docstring).  (F, 0, 3) lights, no light at
+    all, keep the G-buffer route's ambient-only frames."""
     if directional:
         return lights.dim() == 2
-    return (lights.dim() == 2 and renderer.style == "reference"
+    return ((lights.dim() == 2 or lights.shape[1] >= 1)
+            and renderer.style == "reference"
             and not renderer.fuse_trace_shadow)
 
 

@@ -5,9 +5,10 @@ Counterpart of ``pixel_art_raytracer_tpu/ops/shade.py`` (its non-integer
 factor rules of the JAX batched path (``models/batched.py:888-905``): the
 directional factor, which is ``factor_from_dot``'s op sequence with the
 frame's constant direction, and the additive multi-light sum; and
-:func:`point_frames` and :func:`directional_frames`, the chains from the
-trace kernel's winners to the frames that the winner-input point and
-directional modes of ``csrc/shadow.cu`` run.  Float math
+:func:`point_frames`, :func:`light_frames` and :func:`directional_frames`,
+the chains from the trace kernel's winners to the frames that the
+winner-input point, multi-light and directional modes of
+``csrc/shadow.cu`` run.  Float math
 stays float32 in the reference's op order (alternative.cpp:702-760):
 
 * the towards-light direction is ``d / len`` and the inverse direction is
@@ -152,6 +153,56 @@ def point_frames(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     if not frames:
         return lit
     return shade_u8(color, factor_from_dot(dot, lit, config))
+
+
+def light_frames(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
+                 atlas_normal, palette, bins_ent, counts, players, lights,
+                 config: RenderConfig,
+                 work: dict | None = None) -> torch.Tensor:
+    """The frames of L point lights per frame whose shadowed diffuse adds,
+    from the trace kernel's winners: the plain version of
+    ``csrc/shadow.cu``'s multi-light mode (``ops/shadow_cuda.shade_lights``).
+
+    ``trace.decode_winner`` once; then for each light in order
+    :func:`point_frames`' chain to its factor (:func:`light_geometry` →
+    :func:`lambert_dot` → ``shadow.trace_light_dynamic`` over the pixels
+    :func:`march_live` keeps → :func:`factor_from_dot`) and
+    :func:`add_light`; then :func:`multi_light_factor` and
+    :func:`shade_u8`: the G-buffer route's ``multi_light_stage`` and
+    ``shade_stage`` from a winner map.  lights: (F, L, 3) int32, the
+    frame's lights in the order their diffuse adds; the other arguments as
+    :func:`point_frames`.  Returns (F, H, W, 3) uint8.  ``work`` receives
+    the march's counts (``shadow.trace_light_dynamic``'s, ``slab_tests``
+    among them) and its pixel-lights marched (``work["marched_pixels"]``),
+    each summed over the lights (0-d int64 tensors).
+    """
+    y, z, ent, texel = trace.decode_winner(winner, pos, ext, sprite_id,
+                                           atlas_depth, players, config)
+    surface = GBufferArrays(normal=None, color=None, y=y, z=z,
+                            entity_index=ent)
+    color, normal = trace.texel_attributes(winner >= 0, texel, atlas_color,
+                                           atlas_normal, palette, config)
+    diffuse = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
+    totals = {"marched_pixels": torch.zeros((), dtype=torch.int64,
+                                            device=y.device)}
+    for li in range(lights.shape[1]):
+        tl, inv, origin, rb, lb = light_geometry(
+            surface, lights[:, li].contiguous(), config)
+        dot = lambert_dot(normal, tl)
+        live = march_live(dot, config)
+        counted = {} if work is not None else None
+        lit = shadow.trace_light_dynamic(pos, ext, bins_ent, counts, rb, lb,
+                                         ent, origin, inv, players, config,
+                                         work=counted, live=live)
+        diffuse = add_light(diffuse, factor_from_dot(dot, lit, config),
+                            config)
+        if work is not None:
+            counted["marched_pixels"] = live.sum()
+            for k, v in counted.items():
+                totals[k] = totals.get(k, 0) + v
+    if work is not None:
+        work.update(totals)
+    return shade_u8(color, multi_light_factor(diffuse, config))
 
 
 def march_live(dot: torch.Tensor, config: RenderConfig) -> torch.Tensor:

@@ -2,24 +2,26 @@
 point light (:func:`trace_light`, from a G-buffer's ray inputs) or a
 directional light (:func:`trace_light_directional`) per frame, and the
 shaded frames straight from the trace kernel's winners of a point light
-(:func:`shade_point`, or its lit mask) or a directional light
-(:func:`shade_directional`) per frame.  Both point modes, and the fused
+(:func:`shade_point`, or its lit mask), of L point lights whose diffuse
+adds (:func:`shade_lights`) or of a directional light
+(:func:`shade_directional`) per frame.  The point modes, and the fused
 kernel (``fused_cuda``), run one march (``csrc/common.cuh`` march_band),
 whose block :func:`shade_smem_bytes` sizes.
 
 CPU tensors take the plain versions, :func:`ops.shadow.trace_light_dynamic`,
 :func:`ops.shadow_dir.trace_light_directional`,
-:func:`ops.shade.point_frames` and :func:`ops.shade.directional_frames`;
-CUDA tensors launch the kernel, and anything else raises.  ``launches``,
-``directional_launches``, ``shade_launches`` and ``dir_shade_launches``
-count the four modes' launches; ``counters`` holds the kernel's device
-counters of all four (pixels marched directly, the most keys in a band
-of the point march or a tile of the directional one, the longest visit
-list), of the two directional modes (union entries
-staged, slab tests performed, and the pixels of their launches on the
-host) and, while the program is traced (``runtime/tracing.py``), of the
-winner-input point mode (slab tests performed, and the pixels of those
-launches on the host).
+:func:`ops.shade.point_frames`, :func:`ops.shade.light_frames` and
+:func:`ops.shade.directional_frames`; CUDA tensors launch the kernel, and
+anything else raises.  ``launches``, ``directional_launches``,
+``shade_launches``, ``light_launches`` and ``dir_shade_launches`` count
+the five modes' launches; ``counters`` holds the kernel's device counters
+of all five (pixels marched directly, the most keys in a band of the point
+march or a tile of the directional one, the longest visit list), of the
+two directional modes (union entries staged, slab tests performed, and
+the pixels of their launches on the host) and, while the program is
+traced (``runtime/tracing.py``), of the winner-input point and
+multi-light modes (slab tests performed, pixels or pixel-lights marched,
+and those of their launches on the host).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from . import dither, shade, shadow, shadow_dir, trace, trace_cuda
 launches = 0
 directional_launches = 0
 shade_launches = 0
+light_launches = 0
 dir_shade_launches = 0
 counters = kernels.MarchCounters()
 
@@ -285,6 +288,96 @@ def shade_point(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     return out
 
 
+def shade_lights(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
+                 atlas_normal, palette, bins_ent, counts, players, lights,
+                 config: RenderConfig) -> torch.Tensor:
+    """The (F, H, W, 3) uint8 frames of L point lights per frame whose
+    shadowed diffuse adds, from the trace kernel's winners, in one launch:
+    the multi-light mode of the kernel, which decodes each pixel once,
+    marches it toward each light in order (as :func:`shade_point` does for
+    one: only where its colour can change), sums the lights' diffuse in
+    float32 and stores the shaded pixel once, so no G-buffer, ray buffer,
+    lit mask or factor exists.
+
+    Arguments as :func:`ops.shade.light_frames`: lights (F, L, 3) int32,
+    L >= 1.  The launch takes an (F, H, W) float32 scratch for the running
+    sum where L > 1.  Raises ``ValueError`` as :func:`shade_point` does,
+    and for L < 1.
+
+    While a profiler records (``runtime/tracing.active``) the launch runs
+    the kernel that counts its slab tests and pixel-lights marched into
+    ``counters`` (``light_slab_tests``, ``light_marched_pixels``) and adds
+    its F * H * W * L pixel-lights to ``counters.light_pixels``; otherwise
+    the kernel that does not count.
+    """
+    global light_launches
+    if lights.dim() != 3 or lights.shape[1] < 1:
+        raise ValueError(f"shade_lights: lights of shape "
+                         f"{tuple(lights.shape)}, expected (F, L, 3) with "
+                         f"L >= 1")
+    dev = bins_ent.device
+    if dev.type == "cpu":
+        return shade.light_frames(winner, pos, ext, sprite_id, atlas_color,
+                                  atlas_depth, atlas_normal, palette,
+                                  bins_ent, counts, players, lights, config)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_lights: no kernel for device {dev}")
+
+    cfg = config
+    F, L = lights.shape[:2]
+    H, W = cfg.view_height, cfg.view_width
+    V, cap = cfg.hash_volume, cfg.bin_capacity
+    N = pos.shape[0]
+    atlas = (atlas_depth.shape[0], cfg.sprite_height, cfg.sprite_width)
+    for t, name, dtype, shape in (
+            (winner, "winner", torch.int32, (F, H, W)),
+            (pos, "pos", torch.int32, (N, 3)),
+            (ext, "ext", torch.int32, (N, 3)),
+            (sprite_id, "sprite_id", torch.int32, (N,)),
+            (atlas_color, "atlas_color", torch.int32, atlas),
+            (atlas_depth, "atlas_depth", torch.int32, atlas),
+            (atlas_normal, "atlas_normal", torch.float32, atlas + (3,)),
+            (palette, "palette", torch.uint8, (None, 4)),
+            (bins_ent, "bins_ent", torch.int32, (F, V, cap)),
+            (counts, "counts", torch.int32, (F, V)),
+            (players, "players", torch.int32, (F, 3)),
+            (lights, "lights", torch.int32, (F, L, 3))):
+        kernels.require(t, name, dtype, shape, dev)
+    chunk = shade_chunk(cfg)
+    smem = shade_smem_bytes(cfg, chunk)
+    if smem > MAX_SMEM:
+        raise ValueError(f"shade_lights: the visit-list masks of a {V}-bin "
+                         f"grid and a band of {trace_cuda.band_rows(cfg)} rows "
+                         f"of {cfg.bin_size} pixels need {smem} B of shared "
+                         f"memory, over the {MAX_SMEM} B a block may use")
+
+    out = torch.empty((F, H, W, 3), dtype=torch.uint8, device=dev)
+    sums = (torch.empty((F, H, W), dtype=torch.float32, device=dev)
+            if L > 1 else None)
+    r, g, b = cfg.background[:3]
+    work = counters.work(dev)
+    counting = tracing.active()
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        rc = lib.par_shadow_lights(
+            pos.data_ptr(), ext.data_ptr(), players.data_ptr(),
+            bins_ent.data_ptr(), counts.data_ptr(), winner.data_ptr(),
+            sprite_id.data_ptr(), atlas_depth.data_ptr(),
+            atlas_color.data_ptr(), atlas_normal.data_ptr(),
+            palette.data_ptr(), lights.data_ptr(),
+            None if sums is None else sums.data_ptr(), out.data_ptr(),
+            counters.tensor(dev).data_ptr(),
+            work.data_ptr() if counting else None, F, L, W, H,
+            cfg.bin_size, cap, cfg.hash_width, cfg.hash_height,
+            cfg.hash_length, cfg.sprite_width, cfg.sprite_height, r, g, b,
+            cfg.ambient, chunk, MARCH_THREADS, kernels.stream_handle(dev))
+    kernels.check(rc, "par_shadow_lights")
+    light_launches += 1
+    if counting:
+        counters.light_pixels += F * H * W * L
+    return out
+
+
 def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
                             start_ent, inv, K, players,
                             config: RenderConfig,
@@ -465,6 +558,14 @@ def shade_occupancy(config: RenderConfig,
     threads; with ``counting``, of the kernel that counts its work (the
     one :func:`shade_point` launches while the program is traced)."""
     return kernels.occupancy("par_shadow_shade_occupancy", config,
+                             MARCH_THREADS, shade_chunk(config),
+                             int(counting))
+
+
+def lights_occupancy(config: RenderConfig,
+                     counting: bool = False) -> tuple[int, ...]:
+    """The same for the multi-light mode (:func:`shade_lights`)."""
+    return kernels.occupancy("par_shadow_lights_occupancy", config,
                              MARCH_THREADS, shade_chunk(config),
                              int(counting))
 

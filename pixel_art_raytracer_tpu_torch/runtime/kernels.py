@@ -45,6 +45,7 @@ SIGNATURES = {
     "par_trace_winners": [_P] * 9 + [_I] * 14 + [_P],
     "par_shadow_lit": [_P] * 18 + [_I] * 13 + [_P],
     "par_shadow_shade": [_P] * 16 + [_I] * 13 + [_F] + [_I] * 2 + [_P],
+    "par_shadow_lights": [_P] * 16 + [_I] * 14 + [_F] + [_I] * 2 + [_P],
     "par_shadow_dir_lit": [_P] * 13 + [_I] * 9 + [_P, _I, _P],
     "par_shadow_dir_shade": [_P] * 18 + [_I] * 16 + [_F] * 2
                             + [_P, _I, _P],
@@ -57,6 +58,7 @@ SIGNATURES = {
     "par_shadow_dir_occupancy": [_I] * 8 + [_P],
     "par_shadow_dir_shade_occupancy": [_I] * 8 + [_P],
     "par_shadow_shade_occupancy": [_I] * 10 + [_P],
+    "par_shadow_lights_occupancy": [_I] * 10 + [_P],
     "par_fused_occupancy": [_I] * 9 + [_P],
 }
 
@@ -181,23 +183,28 @@ class MarchCounters:
     (``max_starts``: start bins; in the directional mode, (start bin,
     light bin) pairs of one tile; the table's size + 1 where some did not
     fit) and the longest visit list;
-    and a (4,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
+    and a (6,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
     mode's union entries staged (``staged_entries``, summed over the tiles)
     and the slab tests it performed (``slab_tests``: its union lists and
-    its direct march), and the slab tests of the winner-input mode's
+    its direct march), the slab tests of the winner-input mode's
     launches that count (``shade_slab_tests``: its lists and its direct
     march) and their pixels marched (``shade_marched_pixels``: those not
     settled; where a launch stores frames, the pixels whose colour the
-    march can change).  Those launches run only while the program is traced
-    (``runtime/tracing.active``); their pixels, F * H * W a launch, add to
-    the host count ``shade_pixels`` beside the tensor, every directional
-    launch's (lit mask or frames) to ``dir_pixels``, and those of the
-    directional launches that shade the frames to ``dir_shade_pixels``."""
+    march can change), and the same two of the multi-light mode's launches
+    that count, over their lights (``light_slab_tests``,
+    ``light_marched_pixels``: pixel-lights).  Those launches run only while
+    the program is traced (``runtime/tracing.active``); their pixels, F * H
+    * W a launch, add to the host count ``shade_pixels`` beside the tensor
+    (the multi-light mode's pixel-lights, F * H * W * L a launch, to
+    ``light_pixels``), every directional launch's (lit mask or frames) to
+    ``dir_pixels``, and those of the directional launches that shade the
+    frames to ``dir_shade_pixels``."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}
         self._work: dict[torch.device, torch.Tensor] = {}
         self.shade_pixels = 0
+        self.light_pixels = 0
         self.dir_pixels = 0
         self.dir_shade_pixels = 0
 
@@ -209,10 +216,10 @@ class MarchCounters:
         return self._stats[device]
 
     def work(self, device: torch.device) -> torch.Tensor:
-        """The (4,) int64 counters a directional or counting winner-input
-        launch on ``device`` adds to."""
+        """The (6,) int64 counters a directional or counting winner-input
+        or multi-light launch on ``device`` adds to."""
         if device not in self._work:
-            self._work[device] = torch.zeros(4, dtype=torch.int64,
+            self._work[device] = torch.zeros(6, dtype=torch.int64,
                                              device=device)
         return self._work[device]
 
@@ -220,13 +227,14 @@ class MarchCounters:
         for t in (*self._stats.values(), *self._work.values()):
             t.zero_()
         self.shade_pixels = 0
+        self.light_pixels = 0
         self.dir_pixels = 0
         self.dir_shade_pixels = 0
 
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
         vals = [t.tolist() for t in self._stats.values()] or [[0, 0, 0]]
-        work = [t.tolist() for t in self._work.values()] or [[0, 0, 0, 0]]
+        work = [t.tolist() for t in self._work.values()] or [[0] * 6]
         return {"direct_pixels": sum(v[0] for v in vals),
                 "max_starts": max(v[1] for v in vals),
                 "max_list": max(v[2] for v in vals),
@@ -235,6 +243,9 @@ class MarchCounters:
                 "shade_slab_tests": sum(w[2] for w in work),
                 "shade_marched_pixels": sum(w[3] for w in work),
                 "shade_pixels": self.shade_pixels,
+                "light_slab_tests": sum(w[4] for w in work),
+                "light_marched_pixels": sum(w[5] for w in work),
+                "light_pixels": self.light_pixels,
                 "dir_pixels": self.dir_pixels,
                 "dir_shade_pixels": self.dir_shade_pixels}
 

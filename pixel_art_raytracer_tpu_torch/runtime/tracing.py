@@ -31,8 +31,8 @@ The spans, from the requests down:
   of the mouse pixel.
 
 :func:`active` also tells the kernels' wrappers to count: the winner-input
-march counts its slab tests only while a profiler records
-(``ops/shadow_cuda.shade_point``).
+and multi-light marches count their slab tests only while a profiler
+records (``ops/shadow_cuda.shade_point``, ``shade_lights``).
 """
 
 from __future__ import annotations

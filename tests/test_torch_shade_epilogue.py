@@ -288,11 +288,13 @@ def test_main_path_materialises_no_gbuffer(monkeypatch, cached):
 @pytest.mark.parametrize("request_kind", ["dithered", "multi_light",
                                           "fused"])
 def test_other_requests_keep_the_gbuffer(request_kind):
-    """The JAX package's own path choice: the dithered style, additive
-    multi-light and the fused opt-in shade from a G-buffer."""
+    """The JAX package's own path choice: the dithered style (of one
+    point light or of additive multi-light) and the fused opt-in shade
+    from a G-buffer.  (Multi-light in the reference style takes the
+    multi-light mode: tests/test_torch_lights3.py.)"""
     scene = demo_world(4, SMALL)
-    r = DeferredRenderer(SMALL, style="dithered"
-                         if request_kind == "dithered" else "reference")
+    r = DeferredRenderer(SMALL, style="reference" if request_kind == "fused"
+                         else "dithered")
     r.fuse_trace_shadow = request_kind == "fused"
     lights = torch.zeros((2, 3, 3) if request_kind == "multi_light"
                          else (2, 3), dtype=torch.int32)
