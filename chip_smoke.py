@@ -234,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -586,11 +587,14 @@ def counted_shade(name: str, wargs, want: torch.Tensor, work: dict) -> dict:
     return c
 
 
-def point_entry(mangled: str) -> str | None:
-    """The point-march instantiation a mangled kernel name denotes, or None
-    for another kernel."""
+def march_entry(mangled: str) -> str | None:
+    """The march instantiation (point or directional) a mangled kernel name
+    denotes, or None for another kernel."""
     if "fused_trace_shadow_kernel" in mangled:
         return "fused_trace_shadow_kernel"
+    if "shadow_dir_kernel" in mangled:
+        px = "DirFrames" if "DirFrames" in mangled else "SurfacePixels"
+        return f"shadow_dir_kernel<{px}>"
     if "shadow_shade_kernel" not in mangled:
         return None
     count = "true" if "shadow_shade_kernelILb1E" in mangled else "false"
@@ -599,10 +603,12 @@ def point_entry(mangled: str) -> str | None:
     return f"shadow_shade_kernel<{count}, {px}>"
 
 
-def point_ptxas(card: str) -> dict[str, str]:
-    """``ptxas -v``'s lines (registers, stack, spills) of every point-march
-    instantiation: ``csrc/shadow.cu``'s point modes and ``csrc/fused.cu``,
-    compiled with the library's flags.  Prints and returns them."""
+@functools.cache
+def march_ptxas(card: str) -> dict[str, str]:
+    """``ptxas -v``'s lines (registers, stack, spills) of every march
+    instantiation: ``csrc/shadow.cu``'s point and directional modes and
+    ``csrc/fused.cu``, compiled with the library's flags.  Prints and
+    returns them (compiled and printed once a process)."""
     out_dir = kernels.BUILD_ROOT / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
     lines = {}
@@ -615,7 +621,7 @@ def point_ptxas(card: str) -> dict[str, str]:
         for line in (proc.stdout + proc.stderr).splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                entry = point_entry(m.group(1))
+                entry = march_entry(m.group(1))
             elif entry is not None and "spill" in line:
                 lines[entry] = line.strip()
             elif entry is not None and "registers" in line:
@@ -1106,7 +1112,7 @@ def lights3_phase(card: str, scene=None) -> list[dict]:
     F, L = lights.shape[:2]
     H, W = cfg.view_height, cfg.view_width
 
-    ptx = point_ptxas(card)
+    ptx = march_ptxas(card)
     for counting in (False, True):
         smem, blocks, regs, local = shadow_cuda.lights_occupancy(
             cfg, counting=counting)
@@ -1302,12 +1308,14 @@ def config4_phase(card: str) -> list[dict]:
     winner-input directional mode 1 (binning, fused and the lit-mask mode
     0), adds its
     F * H * W to ``dir_shade_pixels``, holds palette colours only, equals
-    the G-buffer route (``gbuffer_and_frames``) on all 64 frames, and its
-    frames 0 and 32 equal the CPU's plain versions.  Prints the
-    direct-march share, the unions, the lit-mask kernel's time beside its
-    plain version's and bound, the winner-input kernel's beside it, both
-    kernels' registers and blocks per SM, and the batch's ms/frame.
-    Returns the two kernels' rows."""
+    the G-buffer route (``gbuffer_and_frames``) on all 64 frames, its
+    frames 0 and 32 equal the CPU's plain versions, and the winner-input
+    kernel marches the pixels its plain version marches (``march_live``:
+    ``dir_marched_pixels``).  Prints the direct-march share, the unions,
+    the winner-input kernel's marched share, the lit-mask kernel's time
+    beside its plain version's and bound, the winner-input kernel's beside
+    it, both kernels' registers and blocks per SM and ``ptxas -v`` lines,
+    and the batch's ms/frame.  Returns the two kernels' rows."""
     cfg = CONFIG4
     scene = overlap_scene(cfg, CONFIG4_SIDE)
     renderer = DeferredRenderer(cfg, style="dithered").configure_for(scene)
@@ -1397,18 +1405,43 @@ def config4_phase(card: str) -> list[dict]:
     sargs = (winners, ds.pos, ds.ext, ds.sprite_id, ds.atlas_color,
              ds.atlas_depth, ds.atlas_normal, ds.palette, ds.palette_luma,
              be, cnt, home, tl, inv, K, cfg, "dithered")
+    shade_work = {}
     plain_frames, shade_plain_ms = timed(
-        lambda: shade.directional_frames(*sargs[:8], *sargs[9:]))
+        lambda: shade.directional_frames(*sargs[:8], *sargs[9:],
+                                         work=shade_work))
+    shadow_cuda.counters.reset()
     require_equal(label, "winner-input directional kernel vs its plain "
                   "version", shadow_cuda.shade_directional(*sargs),
                   plain_frames)
+    sc = shadow_cuda.counters.read()
+    marched, plain_marched = sc["dir_marched_pixels"], \
+        int(shade_work["marched_pixels"])
+    print(f"{label}: winner-input directional kernel marched {marched} of "
+          f"{n_pix} pixels ({100 * marched / n_pix:.2f}%; plain "
+          f"{plain_marched}), {sc['slab_tests'] / n_pix:.4f} slab tests "
+          f"performed a pixel (plain, needed: "
+          f"{int(shade_work['slab_tests']) / n_pix:.4f}), "
+          f"{sc['staged_entries']} union entries staged, "
+          f"{sc['direct_pixels']} marched directly")
+    if marched != plain_marched:
+        raise RuntimeError(f"{label}: the winner-input directional kernel "
+                           f"marched {marched} pixels, the plain version "
+                           f"{plain_marched}")
+    ptx = march_ptxas(card)
+    for k in ("shadow_dir_kernel<SurfacePixels>",
+              "shadow_dir_kernel<DirFrames>"):
+        if k not in ptx:
+            raise RuntimeError(f"{label}: no ptxas line for {k}")
+        print(f"{label}: ptxas {k}: {ptx[k]}  [{card}]")
     shade_ms = cuda_ms(lambda: shadow_cuda.shade_directional(*sargs),
                        KERNEL_REPS)
+    # The tests its live pixels need (the settled ones need none).
+    live_near_far = int(shade_work["slab_tests_finite"])
     shade_bound_ms, shade_by = bound(
         entity_bytes(be, cnt, ds.pos, ds.ext)
         + nbytes(home, be, cnt, winners, tl, inv, K, frames),
-        NEAR_FAR_OPS * near_far
-        + SLAB_OPS * (int(work["slab_tests"]) - near_far))
+        NEAR_FAR_OPS * live_near_far
+        + SLAB_OPS * (int(shade_work["slab_tests"]) - live_near_far))
     s_smem, s_blocks, s_regs, s_local = \
         shadow_cuda.directional_shade_occupancy(cfg)
     print(f"{label}: winner-input directional kernel {shade_ms:.4f} ms, "
@@ -2743,7 +2776,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: {scene.n_entities} entities, spans {renderer.spans}, "
           f"{time.perf_counter() - t0:.2f} s")
-    point_ptxas(card)
+    march_ptxas(card)
     for k, occ, threads in (
             ("trace", trace_cuda.occupancy(cfg),
              trace_cuda.block_threads(cfg)),

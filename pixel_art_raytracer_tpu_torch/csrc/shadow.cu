@@ -12,10 +12,10 @@
 // slots, skipping the pixel's own entity, with the slab test in the
 // reference's std::min/std::max order; out-of-range flat bins are skipped
 // and in-range aliased bins are used as they are.  Every pixel is marched,
-// background included, but where the winner-input point mode stores frames:
-// there a pixel whose lit factor is the ambient one (background, a face
-// turned from the light) has the same colour lit or not, and is stored
-// without a march.
+// background included, but where a winner-input mode stores frames: there
+// a pixel whose lit factor is the ambient one (background, a face turned
+// from the light) has the same colour lit or not, and is stored without a
+// march.
 //
 // G-buffer point mode (par_shadow_lit): ten per-pixel ray buffers, the
 // light bin is the frame's, and the march is exact for any light and any
@@ -46,8 +46,10 @@
 // pixel (the Lambert dot against the frame's direction, the ambient +
 // Lambert factor of ops/shade.py, then the truncated u8 colour or the
 // ordered dither of ops/dither.py onto the palette, in their op order) and
-// writes RGB.  No G-buffer, dot, lit mask or factor reaches device memory.
-// Its plain version is ops/shade.py::directional_frames.
+// writes RGB.  A pixel whose factor lit is the ambient factor settles in
+// the first phase and is not marched.  No G-buffer, dot, lit mask or
+// factor reaches device memory.  Its plain version is ops/shade.py::
+// directional_frames.
 //
 // Multi-light mode (par_shadow_lights): the winner-input point mode's
 // frames under L point lights a frame whose shadowed diffuse adds (the
@@ -171,7 +173,20 @@
 // (the surface point's y and z in 16 bits each, the entity, the texel's
 // offset in its sprite: 10 B a pixel), and phase 5 shades.  A pixel whose
 // y or z does not fit 16 bits takes the direct march, which decodes its
-// winner again.
+// winner again.  Only the pixels whose colour the march can change are
+// marched, the rule of the winner-input point mode (ops/shade.py
+// march_live): phase 1 takes the Lambert dot of the decoded texel's normal
+// against the frame's direction, and a pixel whose factor lit (the store's
+// own operations, directional_lit_factor) equals the ambient factor
+// settles: with ambient <= 1 every background pixel and every face with a
+// dot <= 0 or NaN, none with ambient > 1, every one with ambient 1.  It
+// takes no key, no place in the sort and no direct march, and phase 5
+// stores it as occluded, which writes the same bytes (the dither reads
+// only the factor).  So the key table, the DDAs, the union and the staged
+// chunks come from the live pixels alone, and a tile with none goes from
+// the decode to the store.  Every launch adds the pixels it marched (list
+// path and direct) to work[kWorkDirMarched]: the list path's count and
+// each warp's direct pixels, one atomicAdd a block.
 // A pixel whose key does not fit the table or the packed fields marches on
 // its own (march_occluded) and is counted in stats[kStatDirect]; the slab
 // tests of both paths add to work[kWorkTests] (a register a thread, one
@@ -309,30 +324,40 @@ __device__ __forceinline__ bool fits16(int v) {
   return v == static_cast<short>(v);
 }
 
-// The frame of a pixel at (i, j) of the view, from its decoded surface
-// (hit, texel) and lit bit, into rgb[0..2]: ops/shade.py's lambert_dot
-// against the frame's direction t, factor_from_dot (std::min/std::max as
-// ternaries, so a NaN dot gives a diffuse of 0), then shade_u8, or with
-// px.dithered ops/dither.py's shade_dithered at view row j (the palette
-// neighbours of the lit luminance by a count of palette lumas <= it, a
-// clamp that keeps NaN, and the Bayer threshold of (j % 4, i % 4)).
-__device__ __forceinline__ void shade_directional_pixel(
-    const DirFrames& px, float t0, float t1, float t2, int i, int j,
-    bool hit, int texel, bool occluded, unsigned char* rgb) {
+// The factor where lit of a pixel of decoded surface (hit, texel) under
+// the frame's direction t: ops/shade.py's lambert_dot of the texel's normal
+// (0 for background) and t, left to right, then factor_from_dot
+// (std::min/std::max as ternaries, so a NaN dot gives a diffuse of 0):
+// min(1, max(0, dot) + ambient).
+__device__ __forceinline__ float directional_lit_factor(
+    const DirFrames& px, float t0, float t1, float t2, bool hit,
+    int texel) {
   float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
-  int c = 0;
   if (hit) {
     const float* nv = px.w.atlas_normal + 3 * static_cast<size_t>(texel);
     n0 = nv[0];
     n1 = nv[1];
     n2 = nv[2];
-    c = px.w.atlas_color[texel];
   }
   const float dot = n0 * t0 + n1 * t1 + n2 * t2;
   const float diffuse = 0.0f < dot ? dot : 0.0f;
   const float bright = diffuse + px.w.ambient;
-  const float factor = occluded ? px.w.ambient
-                                : (bright < 1.0f ? bright : 1.0f);
+  return bright < 1.0f ? bright : 1.0f;
+}
+
+// The frame of a pixel at (i, j) of the view, from its decoded surface
+// (hit, texel) and lit bit, into rgb[0..2]: the ambient factor where
+// occluded, else directional_lit_factor, then ops/shade.py's shade_u8, or
+// with px.dithered ops/dither.py's shade_dithered at view row j (the
+// palette neighbours of the lit luminance by a count of palette lumas <=
+// it, a clamp that keeps NaN, and the Bayer threshold of (j % 4, i % 4)).
+__device__ __forceinline__ void shade_directional_pixel(
+    const DirFrames& px, float t0, float t1, float t2, int i, int j,
+    bool hit, int texel, bool occluded, unsigned char* rgb) {
+  const int c = hit ? px.w.atlas_color[texel] : 0;
+  const float factor =
+      occluded ? px.w.ambient
+               : directional_lit_factor(px, t0, t1, t2, hit, texel);
   const unsigned char* pal = px.w.palette;
   if (!px.dithered) {
     const int col[3] = {hit ? pal[4 * c] : px.w.bg_r,
@@ -377,25 +402,33 @@ constexpr int kDirChunk = 64;
 // An empty slot of the key table: no packed key is all ones, since the
 // fields take at most 63 bits.
 constexpr unsigned long long kNoKey = ~0ull;
+// A pixel's table slot (DirSmem::slot) where the winner-input mode settles
+// it: its colour is the same lit or occluded, so it takes no key and no
+// march (beside par::kDirect and par::kNoPixel; table slots are below
+// kDirSlots).
+constexpr unsigned char kDirSettled = 0xFD;
 // 4 blocks of 320 threads leave 51 registers a thread (48 used, a few
 // bytes spilled), which measured faster than 3 blocks without spills.
 constexpr int kDirBlocksPerSM = 4;
 
-// 64-bit counters, one (6,) int64 array per launch's caller (added to):
+// 64-bit counters, one (7,) int64 array per launch's caller (added to):
 // the directional mode's union entries staged, summed over the tiles, and
 // the slab tests it performed, on its union lists and in its direct march;
 // the winner-input mode's slab tests, on its lists and in its direct
 // march, and its pixels marched (those not settled), in the launches that
-// count (shadow_shade_kernel<true, WinnerPixels>); and the same two of the
+// count (shadow_shade_kernel<true, WinnerPixels>); the same two of the
 // multi-light mode, over its lights (shadow_shade_kernel<true,
-// LightPixels>: slab tests and pixel-lights marched).
+// LightPixels>: slab tests and pixel-lights marched); and the pixels the
+// winner-input directional mode marched (those not settled, on its lists
+// and directly), in every launch of shadow_dir_kernel<DirFrames>.
 enum MarchWork {
   kWorkStaged = 0,
   kWorkTests = 1,
   kWorkShadeTests = 2,
   kWorkShadeMarched = 3,
   kWorkLightTests = 4,
-  kWorkLightMarched = 5
+  kWorkLightMarched = 5,
+  kWorkDirMarched = 6
 };
 // march_band adds its slab tests and its pixels marched side by side.
 static_assert(kWorkShadeMarched == kWorkShadeTests + 1, "march_band's work");
@@ -943,11 +976,15 @@ shadow_dir_kernel(
   //    points of kDirPixels pixels (those of TilePixel's order) at once;
   //    with frames it decodes them from their winners and keeps them in
   //    shared memory, and a pixel whose y or z does not fit there takes
-  //    the direct march.
+  //    the direct march.  With frames a pixel whose factor lit
+  //    (directional_lit_factor, the store's own operations) is the ambient
+  //    factor settles (kDirSettled): it takes no key, no place and no
+  //    march, and the store shades it as occluded, the same bytes.
   par::TilePixel tp(bs);
   for (int r0 = 0; r0 < n_pix; r0 += nt * kDirPixels) {
     int qs[kDirPixels], is[kDirPixels], ys[kDirPixels], zs[kDirPixels];
     unsigned wide = 0u;  // bit p: pixel p's y or z does not fit 16 bits
+    unsigned settled = 0u;  // bit p: pixel p settles
 #pragma unroll
     for (int p = 0; p < kDirPixels; ++p) {
       qs[p] = tp.q;
@@ -969,6 +1006,12 @@ shadow_dir_kernel(
                                                     * w.sprite_h * w.sprite_w)
                                 : kNoTexel;
           wide |= fits16(u.y) && fits16(u.z) ? 0u : 1u << p;
+          settled |= directional_lit_factor(px, px.tl[3 * f],
+                                            px.tl[3 * f + 1],
+                                            px.tl[3 * f + 2], u.hit, u.texel)
+                             == w.ambient
+                         ? 1u << p
+                         : 0u;
         } else {
           const size_t o = g.pixel(f, is[p], j);
           ys[p] = px.y[o];
@@ -982,8 +1025,9 @@ shadow_dir_kernel(
 #pragma unroll
     for (int p = 0; p < kDirPixels; ++p) {
       const bool live = is[p] >= 0;
+      const bool settles = ((settled >> p) & 1u) != 0u;
       unsigned long long key = kNoKey;
-      if (live) {
+      if (live && !settles) {
         const int hy = g.view_h - ys[p] - zs[p];
         const int sby = div_bs(hy, kf);
         const int sbz = div_bs(zs[p], kf);
@@ -1008,7 +1052,10 @@ shadow_dir_kernel(
       first = __shfl_sync(par::kFullWarp, first, leader);
       if (qs[p] < n_pix) {
         s.slot[qs[p]] = static_cast<unsigned char>(
-            !live ? par::kNoPixel : key == kNoKey ? par::kDirect : h);
+            !live     ? par::kNoPixel
+            : settles ? kDirSettled
+            : key == kNoKey ? par::kDirect
+                            : h);
         s.rank[qs[p]] = static_cast<unsigned short>(
             first + __popc(same & ((1u << lane) - 1u)));
         s.occ[qs[p]] = 0;
@@ -1217,7 +1264,8 @@ shadow_dir_kernel(
   }
 
   // 5. Pixels off the list path march on their own (with frames, from
-  //    their winners decoded again); every pixel's lit bit, or its colour.
+  //    their winners decoded again; a settled pixel does not march and is
+  //    stored as occluded); every pixel's lit bit, or its colour.
   float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;  // with frames: the direction
   if constexpr (kFrames) {
     t0 = px.tl[3 * f];
@@ -1230,10 +1278,12 @@ shadow_dir_kernel(
     if (sl == par::kNoPixel) continue;
     const int i = i0 + p.col;
     const int j = j0 + p.row;
-    bool occluded = s.occ[p.q] != 0;
+    bool settles = false;
+    if constexpr (kFrames) settles = sl == kDirSettled;
+    bool occluded = settles || s.occ[p.q] != 0;
     bool hit = false;  // with frames: the pixel's surface, hit and texel
     int texel = 0;
-    if (key_index(p.q) == par::kDirect) {
+    if (!settles && key_index(p.q) == par::kDirect) {
       int y, z, self;
       if constexpr (kFrames) {
         const Surface u = decode_winner(pos, ext, players, px.w, g, f, i, j);
@@ -1274,6 +1324,11 @@ shadow_dir_kernel(
   tests = __reduce_add_sync(par::kFullWarp, tests);
   if (lane == 0 && tests > 0u)
     atomicAdd(reinterpret_cast<unsigned*>(s.ctl + 2), tests);
+  if constexpr (kFrames) {
+    // Each warp's direct pixels, in warp_n (phase 3 read it last).
+    direct = __reduce_add_sync(par::kFullWarp, direct);
+    if (lane == 0) s.warp_n[warp] = direct;
+  }
   __syncthreads();
   if (tid == 0) {
     atomicMax(stats + par::kStatStarts, n + (inserted > kDirKeys ? 1 : 0));
@@ -1281,6 +1336,13 @@ shadow_dir_kernel(
     atomicAdd(work + kWorkStaged, static_cast<unsigned long long>(total));
     atomicAdd(work + kWorkTests, static_cast<unsigned long long>(
                                      static_cast<unsigned>(s.ctl[2])));
+    if constexpr (kFrames) {
+      // The pixels marched: the list path's and the direct ones.
+      int marched = n_list;
+      for (int w = 0; w < nt / 32; ++w) marched += s.warp_n[w];
+      atomicAdd(work + kWorkDirMarched,
+                static_cast<unsigned long long>(marched));
+    }
   }
 }
 
@@ -1384,7 +1446,7 @@ extern "C" int par_shadow_lit(
 // palette (P, 4) uint8, lights (F, 3) int32; the tables, players and stats
 // as for par_shadow_lit; background bg_* and ambient as in RenderConfig.
 // Writes rgb (F, H, W, 3) uint8, the shaded frames, where rgb is not null,
-// else lit (F, H, W) uint8 (0/1).  work (6,) int64 (MarchWork), added to,
+// else lit (F, H, W) uint8 (0/1).  work (7,) int64 (MarchWork), added to,
 // or null: with it the launch counts its slab tests and pixels marched
 // (shadow_shade_kernel<true, WinnerPixels>), without it it runs the kernel
 // that does not count.  One block of
@@ -1434,7 +1496,7 @@ extern "C" int par_shadow_shade(
 // The multi-light mode over the whole view: rgb (F, H, W, 3) uint8, the
 // frames of lights (F, L, 3) int32, L = n_lights >= 1 point lights a frame
 // whose diffuse adds in light order; sums (F, H, W) float32 scratch, or
-// null where L is 1; work (6,) int64 (MarchWork), added to, or null (with
+// null where L is 1; work (7,) int64 (MarchWork), added to, or null (with
 // it the counting kernel, shadow_shade_kernel<true, LightPixels>); the rest
 // as for par_shadow_shade.  One launch: each block marches its band once a
 // light.  Returns cudaGetLastError().
@@ -1484,7 +1546,7 @@ extern "C" int par_shadow_lights(
 // (F, H, W) int32 (the G-buffer's surface point and entity); inv (F, 3)
 // float32 the reciprocal direction and offsets (F, 3) int32 the far-light
 // offsets K of each frame (ops/shadow_dir.direction_constants); stats as
-// for par_shadow_lit and work (6,) int64 (MarchWork), added to; max_steps
+// for par_shadow_lit and work (7,) int64 (MarchWork), added to; max_steps
 // >= 0 the step cap; fields (10,) int32 on the host, each key field's lo
 // then its bits (ops/shadow_dir.key_fields); the rest as for
 // par_shadow_lit.  Returns cudaGetLastError().
@@ -1521,8 +1583,9 @@ extern "C" int par_shadow_dir_lit(
 // (ops/shadow_dir.direction_constants); palette_luma (P,) float32 the
 // palette's ops/dither.luminance and bg_luma the background colour's (read
 // with dithered != 0 only, which dithers with ops/dither.bayer_matrix(4));
-// stats, work, max_steps, fields and the rest as for par_shadow_dir_lit.
-// Returns cudaGetLastError().
+// stats, work, max_steps, fields and the rest as for par_shadow_dir_lit,
+// and the launch adds its pixels marched (not settled) to
+// work[kWorkDirMarched].  Returns cudaGetLastError().
 extern "C" int par_shadow_dir_shade(
     const void* pos, const void* ext, const void* players,
     const void* bins_ent, const void* counts, const void* winner,

@@ -211,8 +211,9 @@ def march_live(dot: torch.Tensor, config: RenderConfig) -> torch.Tensor:
     occluded.  The others (with ambient <= 1 every background pixel, whose
     dot is 0 or NaN, and every face with a dot <= 0 or NaN; none with
     ambient > 1) have the same colour either way, so neither the
-    winner-input point mode's kernel nor :func:`point_frames` marches
-    them."""
+    winner-input point and directional modes' kernels nor
+    :func:`point_frames` and :func:`directional_frames` march them (a
+    directional frame's dot is taken against the frame's direction)."""
     lit = factor_from_dot(dot, torch.ones_like(dot, dtype=torch.bool),
                           config)
     occluded = factor_from_dot(dot, torch.zeros_like(dot, dtype=torch.bool),
@@ -223,30 +224,40 @@ def march_live(dot: torch.Tensor, config: RenderConfig) -> torch.Tensor:
 def directional_frames(winner, pos, ext, sprite_id, atlas_color,
                        atlas_depth, atlas_normal, palette, bins_ent, counts,
                        players, tl, inv, K, config: RenderConfig,
-                       style: str = "reference") -> torch.Tensor:
+                       style: str = "reference",
+                       work: dict | None = None) -> torch.Tensor:
     """The frames of a directional light per frame, from the trace
     kernel's winners: the plain version of ``csrc/shadow.cu``'s
     winner-input directional mode (``ops/shadow_cuda.shade_directional``).
 
-    ``trace.decode_winner`` → ``shadow_dir.trace_light_directional``
-    (step cap ``shadow_dir.grid_max_steps``) → :func:`lambert_dot` against
-    the frame's direction and :func:`factor_from_dot` →
+    ``trace.decode_winner`` → :func:`lambert_dot` against the frame's
+    direction → ``shadow_dir.trace_light_directional`` (step cap
+    ``shadow_dir.grid_max_steps``) → :func:`factor_from_dot` →
     :func:`shade_u8` (``style="reference"``) or ``dither.shade_dithered``
     onto the palette (``style="dithered"``, the whole view's rows): the
     G-buffer route's chain from a winner map.  tl, inv, K: (F, 3) of
     ``shadow_dir.direction_constants``; the other arguments as
     :func:`point_frames`.  Returns (F, H, W, 3) uint8.
+
+    Only the pixels whose colour the march can change are marched
+    (:func:`march_live`), as the kernel does; the frames are the full
+    chain's.  ``work`` receives the march's counts
+    (``shadow.trace_light_dynamic``) over the pixels marched, and their
+    number as ``work["marched_pixels"]`` (a 0-d int64 tensor).
     """
     F = tl.shape[0]
     y, z, ent, texel = trace.decode_winner(winner, pos, ext, sprite_id,
                                            atlas_depth, players, config)
-    lit = shadow_dir.trace_light_directional(
-        pos, ext, bins_ent, counts, y, z, ent, inv, K, players, config,
-        shadow_dir.grid_max_steps(config))
     color, normal = trace.texel_attributes(winner >= 0, texel, atlas_color,
                                            atlas_normal, palette, config)
     dot = lambert_dot(normal, tuple(tl[:, a].view(F, 1, 1)
                                     for a in range(3)))
+    live = march_live(dot, config)
+    lit = shadow_dir.trace_light_directional(
+        pos, ext, bins_ent, counts, y, z, ent, inv, K, players, config,
+        shadow_dir.grid_max_steps(config), work=work, live=live)
+    if work is not None:
+        work["marched_pixels"] = live.sum()
     factor = factor_from_dot(dot, lit, config)
     if style == "dithered":
         return dither.shade_dithered(color, factor, palette[:, :3])

@@ -18,7 +18,8 @@ the five modes' launches; ``counters`` holds the kernel's device counters
 of all five (pixels marched directly, the most keys in a band of the point
 march or a tile of the directional one, the longest visit list), of the
 two directional modes (union entries staged, slab tests performed, and
-the pixels of their launches on the host) and, while the program is
+the pixels of their launches on the host), the pixels the winner-input
+directional mode marched and, while the program is
 traced (``runtime/tracing.py``), of the winner-input point and
 multi-light modes (slab tests performed, pixels or pixel-lights marched,
 and those of their launches on the host).
@@ -467,9 +468,11 @@ def shade_directional(winner, pos, ext, sprite_id, atlas_color, atlas_depth,
     does not take, another style, a sprite of NO_TEXEL texels or more, or
     a key the config cannot pack (:func:`ops.shadow_dir.key_fields`).
 
-    Each launch adds its slab tests (union lists and direct march) to
-    ``counters`` and its F * H * W pixels to ``counters.dir_pixels`` and
-    ``counters.dir_shade_pixels``.
+    Only the pixels whose colour the march can change are marched
+    (``ops/shade.march_live``); the others settle at decode.  Each launch
+    adds its slab tests (union lists and direct march) and its pixels
+    marched (``dir_marched_pixels``) to ``counters`` and its F * H * W
+    pixels to ``counters.dir_pixels`` and ``counters.dir_shade_pixels``.
     """
     global dir_shade_launches
     if style not in STYLES:

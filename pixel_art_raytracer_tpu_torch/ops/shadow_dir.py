@@ -81,16 +81,19 @@ def pixel_light_bins(gbuf_y, gbuf_z, K, config: RenderConfig):
 def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
                             start_ent, inv, K, players,
                             config: RenderConfig, max_steps: int,
-                            work: dict | None = None) -> torch.Tensor:
+                            work: dict | None = None,
+                            live: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Lit mask (F, H, W) bool of a directional light per frame: the plain
     version of ``csrc/shadow.cu``'s directional mode.
 
     gbuf_y, gbuf_z, start_ent: (F, H, W) int32 surface points and own
     entities; inv, K: (F, 3) float32 and int32 from
     :func:`direction_constants`; max_steps: the step cap
-    (:func:`grid_max_steps` on the render path).  Other arguments and
-    ``work`` as :func:`ops.shadow.trace_light_dynamic`, which this is with
-    the rays of ``ops/shade.surface_rays`` and the light bins of
+    (:func:`grid_max_steps` on the render path).  Other arguments,
+    ``work`` and ``live`` (the rays to march, None for all) as
+    :func:`ops.shadow.trace_light_dynamic`, which this is with the rays of
+    ``ops/shade.surface_rays`` and the light bins of
     :func:`pixel_light_bins`.
     """
     F = gbuf_y.shape[0]
@@ -99,7 +102,7 @@ def trace_light_directional(pos, ext, bins_ent, counts, gbuf_y, gbuf_z,
     inv_b = tuple(inv[:, a].reshape(F, 1, 1) for a in range(3))
     return trace_light_dynamic(pos, ext, bins_ent, counts, rb, lb,
                                start_ent, origin, inv_b, players, config,
-                               work=work, max_steps=max_steps)
+                               work=work, max_steps=max_steps, live=live)
 
 
 def _bits(values: int) -> int:
@@ -146,13 +149,15 @@ def key_fields(config: RenderConfig) -> tuple[tuple[int, int], ...]:
     return out
 
 
-def tile_unions(gbuf_y, gbuf_z, K, config: RenderConfig,
-                max_steps: int) -> dict[str, int]:
+def tile_unions(gbuf_y, gbuf_z, K, config: RenderConfig, max_steps: int,
+                live: torch.Tensor | None = None) -> dict[str, int]:
     """What the directional kernel builds in its tiles on these inputs
     (``gbuf_y``, ``gbuf_z`` (F, H, W) int32, ``K`` (F, 3) int32), counted
     with :func:`ops.shadow.dda_first_visits` over each (frame, bin-column
     tile)'s distinct (start bin, light bin) keys, of the pixels whose key
-    fits :func:`key_fields`:
+    fits :func:`key_fields` and, where ``live`` (F, H, W) bool is given,
+    that it holds (the winner-input mode keys only the pixels
+    ``ops/shade.march_live`` keeps):
 
     - ``keys``: the most keys in a tile;
     - ``staged``: the union entries, each distinct bin of a tile's keys'
@@ -175,6 +180,8 @@ def tile_unions(gbuf_y, gbuf_z, K, config: RenderConfig,
     fits = torch.ones_like(gbuf_y, dtype=torch.bool)
     for v, (lo, bits) in zip(values, key_fields(cfg)):
         fits &= (v >= lo) & (v < lo + (1 << bits))
+    if live is not None:
+        fits &= live
     frame = torch.arange(F, device=dev).view(F, 1, 1)
     row = torch.arange(H, device=dev).view(1, H, 1) // bs
     col = torch.arange(W, device=dev).view(1, 1, W) // bs

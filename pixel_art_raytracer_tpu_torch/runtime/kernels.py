@@ -183,7 +183,7 @@ class MarchCounters:
     (``max_starts``: start bins; in the directional mode, (start bin,
     light bin) pairs of one tile; the table's size + 1 where some did not
     fit) and the longest visit list;
-    and a (6,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
+    and a (7,) int64 tensor (csrc/shadow.cu MarchWork) of the directional
     mode's union entries staged (``staged_entries``, summed over the tiles)
     and the slab tests it performed (``slab_tests``: its union lists and
     its direct march), the slab tests of the winner-input mode's
@@ -192,13 +192,16 @@ class MarchCounters:
     settled; where a launch stores frames, the pixels whose colour the
     march can change), and the same two of the multi-light mode's launches
     that count, over their lights (``light_slab_tests``,
-    ``light_marched_pixels``: pixel-lights).  Those launches run only while
-    the program is traced (``runtime/tracing.active``); their pixels, F * H
-    * W a launch, add to the host count ``shade_pixels`` beside the tensor
-    (the multi-light mode's pixel-lights, F * H * W * L a launch, to
-    ``light_pixels``), every directional launch's (lit mask or frames) to
-    ``dir_pixels``, and those of the directional launches that shade the
-    frames to ``dir_shade_pixels``."""
+    ``light_marched_pixels``: pixel-lights), and the pixels the
+    winner-input directional mode marched, in every launch of it
+    (``dir_marched_pixels``: those not settled, the pixels whose colour the
+    march can change).  The counting point and multi-light launches run
+    only while the program is traced (``runtime/tracing.active``); their
+    pixels, F * H * W a launch, add to the host count ``shade_pixels``
+    beside the tensor (the multi-light mode's pixel-lights, F * H * W * L a
+    launch, to ``light_pixels``), every directional launch's (lit mask or
+    frames) to ``dir_pixels``, and those of the directional launches that
+    shade the frames to ``dir_shade_pixels``."""
 
     def __init__(self):
         self._stats: dict[torch.device, torch.Tensor] = {}
@@ -216,10 +219,10 @@ class MarchCounters:
         return self._stats[device]
 
     def work(self, device: torch.device) -> torch.Tensor:
-        """The (6,) int64 counters a directional or counting winner-input
+        """The (7,) int64 counters a directional or counting winner-input
         or multi-light launch on ``device`` adds to."""
         if device not in self._work:
-            self._work[device] = torch.zeros(6, dtype=torch.int64,
+            self._work[device] = torch.zeros(7, dtype=torch.int64,
                                              device=device)
         return self._work[device]
 
@@ -234,7 +237,7 @@ class MarchCounters:
     def read(self) -> dict[str, int]:
         """The counters since the last reset, over every device."""
         vals = [t.tolist() for t in self._stats.values()] or [[0, 0, 0]]
-        work = [t.tolist() for t in self._work.values()] or [[0] * 6]
+        work = [t.tolist() for t in self._work.values()] or [[0] * 7]
         return {"direct_pixels": sum(v[0] for v in vals),
                 "max_starts": max(v[1] for v in vals),
                 "max_list": max(v[2] for v in vals),
@@ -247,7 +250,8 @@ class MarchCounters:
                 "light_marched_pixels": sum(w[5] for w in work),
                 "light_pixels": self.light_pixels,
                 "dir_pixels": self.dir_pixels,
-                "dir_shade_pixels": self.dir_shade_pixels}
+                "dir_shade_pixels": self.dir_shade_pixels,
+                "dir_marched_pixels": sum(w[6] for w in work)}
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

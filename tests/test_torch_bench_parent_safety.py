@@ -6,7 +6,8 @@ where its stage, span, counter key or attribute is missing.  For every
 cell of ``BENCHMARK.json``, every per-layer reader that applies to it is
 called on a record with no trace, with a trace but no split, and with a
 split that was not read (``split_ok`` False), and on counters without the
-multi-light mode's keys; every per-layer metric lists its cells.  And the
+multi-light mode's keys; the directional marched share gives nothing
+without its counter; every per-layer metric lists its cells.  And the
 multi-light cell runs correct on a program without the multi-light stage
 (its G-buffer route), leaving its two new metrics out of the line.
 """
@@ -74,6 +75,34 @@ def test_every_per_layer_metric_lists_its_cells():
     for m in BENCH["per_layer"]:
         assert m.get("workloads"), m["name"]
         assert set(m["workloads"]) <= set(CELLS), m["name"]
+
+
+def test_marched_share_needs_its_counter(monkeypatch):
+    """``dir_marched_share.batch`` on a traced record gives nothing where
+    the program has no counters, none of ``dir_marched_pixels`` (a program
+    before the directional live set) or no directional frames, else the
+    marched share in %; and nothing on a run that was not traced."""
+    read = spec.metric_reader("dir_marched_share.batch")
+    traced = record("config4.sun64", "no split")
+
+    class Counters(OlderCounters):
+        def __init__(self, **more):
+            self.more = more
+
+        def read(self):
+            return {**super().read(), **self.more}
+
+    monkeypatch.setattr(shadow_cuda, "counters", OlderCounters())
+    assert read(traced) is None
+    monkeypatch.setattr(shadow_cuda, "counters",
+                        Counters(dir_marched_pixels=0, dir_shade_pixels=0))
+    assert read(traced) is None
+    monkeypatch.setattr(shadow_cuda, "counters",
+                        Counters(dir_marched_pixels=2))
+    assert read(traced) == pytest.approx(25.0)
+    assert read(record("config4.sun64", "no trace")) is None
+    monkeypatch.delattr(shadow_cuda, "counters")
+    assert read(traced) is None
 
 
 def older_winner_inputs(renderer, lights, directional):

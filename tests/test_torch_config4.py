@@ -54,7 +54,7 @@ SMALL = dict(view_width=104, view_height=104, view_length=80, boxes=41)
 ANGLES = np.concatenate([[0.0], np.random.default_rng(3).uniform(
     0.0, 2.0 * np.pi, 2)])
 READERS = ["dir_march_roofline.batch", "dir_slab_tests_per_pixel.batch",
-           "glue_ms_per_frame.batch"]
+           "glue_ms_per_frame.batch", "dir_marched_share.batch"]
 
 
 @pytest.fixture(autouse=True)
@@ -262,13 +262,15 @@ STAGES = {"split_ok": True, "runs": 2, "frames": 128, "bins": 1.0,
 
 def test_readers_read_their_numbers(monkeypatch):
     monkeypatch.setattr(shadow_cuda, "counters", Counters(
-        slab_tests=5000, dir_pixels=1000))
+        slab_tests=5000, dir_pixels=1000, dir_shade_pixels=1000,
+        dir_marched_pixels=400))
     read = {n: spec.metric_reader(n)(record(STAGES)) for n in READERS}
     bound = bounds_sun.dir_march_bound_s(64, 512, 512, 1352, 8)
     assert read["dir_march_roofline.batch"] == pytest.approx(
         100 * bound * 2 / 4e-3)
     assert read["dir_slab_tests_per_pixel.batch"] == pytest.approx(5.0)
     assert read["glue_ms_per_frame.batch"] == pytest.approx(10.0 / 128)
+    assert read["dir_marched_share.batch"] == pytest.approx(40.0)
     # The bytes bound the directional mode: 13 B a pixel, the tables.
     pixels = 64 * 512 * 512
     assert bound == pytest.approx(

@@ -7,14 +7,19 @@ directional=True)``) in both styles, on scenes with background pixels and
 frames whose direction lies along a plane (an infinite reciprocal
 component), and ``render_states(..., directional=True)`` takes it: the
 winners, then the mode, with no G-buffer, lit-mask launch or dither call
-outside the plain version.  The CUDA-marked tests hold the kernel's frames
-to the plain version and to the G-buffer route bit for bit (BASELINE
-config 4's 512 x 512 overlap scene, whose tiles hold more keys than the
-table, so some pixels march directly; graybox's sweep; directions along
-planes), count one batch's launches, pixels and spans, and pin both
-directional modes' layouts.
+outside the plain version.  It marches only the pixels whose colour the
+march can change (``shade.march_live`` of the dot against the frame's
+direction), and its frames still equal the route's, which marches every
+pixel, at ambient 0.25, 1.0 (every pixel settles) and 1.5 (none does).
+The CUDA-marked tests hold the kernel's frames to the plain version and
+to the G-buffer route bit for bit (BASELINE config 4's 512 x 512 overlap
+scene, whose tiles hold more live keys than the table, so some pixels
+march directly; graybox's sweep; directions along planes; the three
+ambients), its marched pixels to the plain count, count one batch's
+launches, pixels and spans, and pin both directional modes' layouts.
 """
 
+import dataclasses
 import functools
 import json
 
@@ -43,6 +48,7 @@ STYLES = ["reference", "dithered"]
 DIRECTIONS = np.float32([[1.0, 1.0, 0.0], [0.0, 1.0, 0.0],
                          [0.3, 1.0, -0.2], [-1.0, 0.8, 0.5]])
 SCENES = {"small": small_scene, "demo": lambda: demo_world(4, SMALL)}
+AMBIENTS = (0.25, 1.0, 1.5)
 
 
 @pytest.fixture(autouse=True)
@@ -105,6 +111,23 @@ def route_frames(r, ds, cache, players, directions):
                                       directional=True)[1]
 
 
+def live_pixels(args):
+    """``(live, dot, hit)`` of ``mode_args``' arguments: the pixels whose
+    colour the march can change (``shade.march_live``), the Lambert dot
+    against each frame's direction and where the view hits a surface."""
+    winners, pos, ext, sprite_id, atlas_color, atlas_depth, atlas_normal, \
+        palette, _, _, players, tl, _, _, cfg = args
+    _, _, _, texel = trace.decode_winner(winners, pos, ext, sprite_id,
+                                         atlas_depth, players, cfg)
+    hit = winners >= 0
+    _, normal = trace.texel_attributes(hit, texel, atlas_color,
+                                       atlas_normal, palette, cfg)
+    F = tl.shape[0]
+    dot = shade.lambert_dot(normal, tuple(tl[:, a].view(F, 1, 1)
+                                          for a in range(3)))
+    return shade.march_live(dot, cfg), dot, hit
+
+
 # -- the plain version --------------------------------------------------------
 
 @pytest.mark.parametrize("style", STYLES)
@@ -123,6 +146,42 @@ def test_plain_version_equals_the_gbuffer_route(scene_name, style):
     if style == "dithered":
         palette = {tuple(c) for c in SMALL.palette_array[:, :3].tolist()}
         assert {tuple(c) for c in got.reshape(-1, 3).tolist()} <= palette
+
+
+@pytest.mark.parametrize("ambient", AMBIENTS)
+@pytest.mark.parametrize("style", STYLES)
+@pytest.mark.parametrize("scene_name", sorted(SCENES))
+def test_plain_version_marches_only_live_pixels(scene_name, style, ambient):
+    """Background pixels and faces turned from the sun (a dot <= 0 or NaN)
+    settle at ambient <= 1, every pixel at ambient 1 and none at 1.5; the
+    plain version marches only the rest, and its frames equal the G-buffer
+    route's, which marches every pixel."""
+    cfg = dataclasses.replace(SMALL, ambient=ambient)
+    req = request(SCENES[scene_name](), cfg, style, DIRECTIONS, "cpu")
+    args = mode_args(*req)
+    live, dot, hit = live_pixels(args)
+    work = {}
+    got = shade.directional_frames(*args, style=style, work=work)
+    assert torch.equal(got, route_frames(*req))
+    assert int(work["marched_pixels"]) == int(live.sum())
+    assert bool((~hit).any())
+    if ambient == 1.0:
+        assert not bool(live.any()) and int(work["slab_tests"]) == 0
+    elif ambient == 1.5:
+        assert bool(live.all())
+    else:
+        assert torch.equal(live, hit & (dot > 0))
+        assert bool((hit & (dot <= 0)).any()) and bool(live.any())
+        # The settled pixels' tests are gone from the count.
+        winners, pos, ext, sprite_id, _, atlas_depth = args[:6]
+        be, cnt, players, _, inv, K = args[8:14]
+        y, z, ent, _ = trace.decode_winner(winners, pos, ext, sprite_id,
+                                           atlas_depth, players, cfg)
+        full = {}
+        shadow_dir.trace_light_directional(
+            pos, ext, be, cnt, y, z, ent, inv, K, players, cfg,
+            shadow_dir.grid_max_steps(cfg), work=full)
+        assert int(work["slab_tests"]) < int(full["slab_tests"])
 
 
 def test_render_states_shades_from_the_winners(monkeypatch):
@@ -240,9 +299,70 @@ def test_cuda_mode_equals_plain_and_gbuffer_route(cuda, case, style):
     assert stats["dir_pixels"] == stats["dir_shade_pixels"] == n_pix
     assert stats["slab_tests"] > 0
     if case == "config4":
-        # Tiles with more keys than the table: their pixels march directly.
+        # Tiles with more live keys than the table (the live pixels' keys
+        # of tile_unions): their pixels march directly.
+        live, _, _ = live_pixels(args)
+        y, z = trace.decode_winner(*args[:4], args[5], args[10],
+                                   config)[:2]
+        keys = shadow_dir.tile_unions(y, z, args[13], config,
+                                      shadow_dir.grid_max_steps(config),
+                                      live=live)["keys"]
+        assert keys > shadow_dir.TABLE_KEYS
         assert stats["max_starts"] == shadow_dir.TABLE_KEYS + 1
         assert 0 < stats["direct_pixels"] < n_pix // 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ambient", AMBIENTS)
+@pytest.mark.parametrize("style", STYLES)
+@pytest.mark.parametrize("case", ["config4", "planes"])
+def test_cuda_mode_marches_only_live_pixels(cuda, case, style, ambient):
+    """At ambient 0.25, 1.0 (every pixel settles) and 1.5 (none does) the
+    kernel's frames equal the plain version's and the G-buffer route's,
+    and it marches the plain version's live pixels."""
+    scene, config, directions = scene_and_config(case)
+    config = dataclasses.replace(config, ambient=ambient)
+    req = request(scene, config, style, directions, cuda)
+    args = mode_args(*req)
+    live, _, _ = live_pixels(args)
+    shadow_cuda.counters.reset()
+    got = kernel_frames(req[1], args, style)
+    torch.cuda.synchronize()
+    stats = shadow_cuda.counters.read()
+    work = {}
+    assert torch.equal(got, shade.directional_frames(*args, style=style,
+                                                     work=work))
+    assert torch.equal(got, route_frames(*req))
+    assert stats["dir_marched_pixels"] == int(work["marched_pixels"]) \
+        == int(live.sum())
+    if ambient == 1.0:
+        assert stats["dir_marched_pixels"] == 0
+    elif ambient == 1.5:
+        assert stats["dir_marched_pixels"] == got[..., 0].numel()
+
+
+@pytest.mark.cuda
+def test_cuda_batch_that_settles_every_pixel(cuda):
+    """At ambient 1 every pixel's colour is the same lit or occluded: no
+    tile keys, lists, stages or marches a pixel, and the frames are the
+    plain version's."""
+    scene, config, directions = scene_and_config("graybox")
+    config = dataclasses.replace(config, ambient=1.0)
+    req = request(scene, config, "dithered", directions, cuda)
+    args = mode_args(*req)
+    shadow_cuda.counters.reset()
+    got = kernel_frames(req[1], args, "dithered")
+    torch.cuda.synchronize()
+    stats = shadow_cuda.counters.read()
+    assert torch.equal(got, shade.directional_frames(*args,
+                                                     style="dithered"))
+    assert {k: stats[k] for k in ("direct_pixels", "max_starts", "max_list",
+                                  "staged_entries", "slab_tests",
+                                  "dir_marched_pixels")} == \
+        dict.fromkeys(("direct_pixels", "max_starts", "max_list",
+                       "staged_entries", "slab_tests",
+                       "dir_marched_pixels"), 0)
+    assert stats["dir_shade_pixels"] == got[..., 0].numel()
 
 
 @pytest.mark.cuda

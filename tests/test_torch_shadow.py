@@ -406,14 +406,16 @@ def test_march_counters_sum_direct_pixels_and_max_the_rest():
             "staged_entries": 0, "slab_tests": 0, "shade_slab_tests": 0,
             "shade_marched_pixels": 0, "shade_pixels": 0,
             "light_slab_tests": 0, "light_marched_pixels": 0,
-            "light_pixels": 0, "dir_pixels": 0, "dir_shade_pixels": 0}
+            "light_pixels": 0, "dir_pixels": 0, "dir_shade_pixels": 0,
+            "dir_marched_pixels": 0}
     assert counters.read() == zero
     t = counters.tensor(torch.device("cpu"))
     assert counters.tensor(torch.device("cpu")) is t
     t += torch.tensor([5, 2, 29], dtype=torch.int32)
     w = counters.work(torch.device("cpu"))
     assert counters.work(torch.device("cpu")) is w and w.dtype == torch.int64
-    w += torch.tensor([41, 3 << 32, 7 << 33, 5 << 31, 9 << 32, 3 << 31])
+    w += torch.tensor([41, 3 << 32, 7 << 33, 5 << 31, 9 << 32, 3 << 31,
+                       11 << 31])
     counters.shade_pixels += 64
     counters.light_pixels += 192
     counters.dir_pixels += 128
@@ -427,6 +429,7 @@ def test_march_counters_sum_direct_pixels_and_max_the_rest():
                                "light_slab_tests": 9 << 32,
                                "light_marched_pixels": 3 << 31,
                                "light_pixels": 192, "dir_pixels": 128,
-                               "dir_shade_pixels": 96}
+                               "dir_shade_pixels": 96,
+                               "dir_marched_pixels": 11 << 31}
     counters.reset()
     assert counters.read() == zero

@@ -272,6 +272,30 @@ def test_tile_unions_count_the_union_entries(case):
     assert (unions["largest"] > 64) == (case == "fine")
 
 
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_tile_unions_count_only_live_pixels_keys(case):
+    """With a ``live`` mask the unions are those of the live pixels alone:
+    the same as with the other pixels' surface points moved two view
+    heights down, where no key fits the fields; all True is no mask, all
+    False keys nothing."""
+    args, _ = case_inputs(case)
+    y, z, K, cfg, steps = args[4], args[5], args[8], args[10], args[11]
+    live = (torch.arange(y.numel()).view(y.shape) % 3 != 0) \
+        & (y % 2 == 0)
+    assert bool(live.any()) and not bool(live.all())
+    moved = torch.where(live, y, y - 2 * cfg.view_height)
+    got = shadow_dir.tile_unions(y, z, K, cfg, steps, live=live)
+    assert got == shadow_dir.tile_unions(moved, z, K, cfg, steps)
+    assert got["staged"] <= shadow_dir.tile_unions(y, z, K, cfg,
+                                                   steps)["staged"]
+    assert shadow_dir.tile_unions(y, z, K, cfg, steps,
+                                  live=torch.ones_like(live)) == \
+        shadow_dir.tile_unions(y, z, K, cfg, steps)
+    assert set(shadow_dir.tile_unions(y, z, K, cfg, steps,
+                                      live=torch.zeros_like(live))
+               .values()) == {0}
+
+
 def test_finite_slab_tests_count_the_frames_with_finite_directions():
     """``work["slab_tests_finite"]`` (the kernel's near/far test, which
     ``chip_smoke.py`` bounds at fewer operations) counts the needed tests
